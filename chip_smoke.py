@@ -9,15 +9,26 @@ no result):
      power limit as nvidia-smi reports them;
   2. build: compiles the kernels under nudge_tpu_torch/csrc/ with nvcc;
   3. kernel vs twin: on the 20,480-box pile after 40 steps, each CUDA kernel
-     (box-box narrowphase, setup, solve) against its plain PyTorch twin on
-     the same CUDA tensors, with both times; the solve once more with only
-     4 colors, so that the spill color's Jacobi path runs at full size;
+     (box-box narrowphase, setup, solve, coloring rounds) against its plain
+     PyTorch twin on the same CUDA tensors, with both times; the solve and
+     the coloring once more with only 4 colors, so that the spill paths run
+     at full size; then the one-point (box-sphere, sphere-sphere) kernel on
+     config 3 after 120 steps;
   4. config 1: one box dropped on the ground, 500 steps, held to the rest
      gates of tests/test_engine.py;
   5. the slice: the 20,480-box pile (bench.tuned_config capacities, every
      body awake) for 150 steps through nudge_tpu_torch.engine.simulate, with
      every kernel's launch count;
-  6. determinism: two 30-step runs of the pile are bitwise equal.
+  6. config 3: the 2,048-body mixed pile (25% spheres, walls) for 300 steps,
+     its spheres held above the ground;
+  7. fresh coloring: the 20,480-box pile with persistent_coloring=False for
+     60 steps from the state of phase 3, the coloring kernel once a step;
+  8. determinism: two 30-step runs of the pile, and two of config 3, are
+     bitwise equal.
+
+Phases 5-7 each zero the kernels' launch counts before they run and read
+them after, and run with the plain twins replaced by functions that raise:
+the main paths go through the kernels only.
 
 The last line of standard output is one JSON object
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
@@ -43,15 +54,27 @@ WINDOW = 25
 REPEAT_STEPS = 30
 CONFIG1_Y = 0.49499995     # docs/FIDELITY.md, the JAX engine's rest height
 TIE_SHARE = 1e-3           # narrowphase pairs allowed to differ (near-ties)
-SPILL_COLORS = 4           # colors for the forced-spill solve comparison
+SPILL_COLORS = 4           # colors for the forced-spill comparisons
+N_MIXED = 2048             # BASELINE config 3
+SPHERE_FRAC = 0.25         # bench.py --sphere-frac 0.25
+MIXED_COMPARE_AFTER = 120  # the impact has begun
+MIXED_STEPS = 300
+MIXED_WINDOW = 50
+FRESH_STEPS = 60
+FRESH_WINDOW = 20
+SPHERE_MIN_Y = 0.2         # tests/test_sphere_kernel.py's gate
 
 TPU_KERNEL_OF = {
     "box_box": "nudge_tpu/ops/narrowphase_kernel.py:535",
+    "pairs_1pt": "nudge_tpu/ops/narrowphase_kernel.py:762",
+    "coloring": "nudge_tpu/ops/coloring_kernel.py:246",
     "setup": "nudge_tpu/ops/setup_kernel.py:476",
     "solve": "nudge_tpu/ops/solver_kernel.py:597",
 }
 SOURCE_OF = {
     "box_box": "nudge_tpu_torch/csrc/narrowphase.cu",
+    "pairs_1pt": "nudge_tpu_torch/csrc/narrowphase_1pt.cu",
+    "coloring": "nudge_tpu_torch/csrc/coloring.cu",
     "setup": "nudge_tpu_torch/csrc/setup.cu",
     "solve": "nudge_tpu_torch/csrc/solve.cu",
 }
@@ -92,6 +115,17 @@ def phase_build(card):
     return dt
 
 
+def mixed_scene():
+    """BASELINE config 3: scene_pile(2048, sphere_frac=0.25), which rings
+    the pile with walls, at pile_config's capacities (box-box pairs 16,384,
+    manifolds 6,144, grid density 16); the box-sphere and sphere-sphere
+    pair caps are auto_config's."""
+    from nudge_tpu_torch import scenes
+
+    b = scenes.scene_pile(N_MIXED, sphere_frac=SPHERE_FRAC)
+    return b, pile_config(b, N_MIXED)
+
+
 def pile_config(builder, n):
     """bench.tuned_config's capacities, rebuilt here (bench.py imports the
     JAX package): manifolds at 3x bodies, pairs at 8x, grid density 16.
@@ -100,6 +134,64 @@ def pile_config(builder, n):
         max_box_box_pairs=max(1024, int(n * 8.0)),
         max_manifolds=max(512, int(n * 3.0)), grid_density=16,
         fat_pair_factor=2, sleeping=False, persistent_broadphase=False)
+
+
+def counters():
+    """The launch-counting wrapper of each kernel, by kernel name."""
+    from nudge_tpu_torch.ops import coloring_kernel, narrowphase_1pt
+    from nudge_tpu_torch.ops import narrowphase_kernel as npk
+    from nudge_tpu_torch.ops import setup_kernel, solver_kernel
+
+    return {"box_box": npk.box_box_slots,
+            "pairs_1pt": narrowphase_1pt.pairs_1pt_slots,
+            "coloring": coloring_kernel.color_rounds,
+            "setup": setup_kernel.setup, "solve": solver_kernel.solve}
+
+
+class KernelsOnly:
+    """Zeroes every launch count on entry and, while active, replaces each
+    kernel's plain twin with a function that raises: a run inside it goes
+    through the kernels or fails. `launches` holds the counts on exit."""
+
+    def __init__(self):
+        from nudge_tpu_torch.ops import coloring_kernel, narrowphase
+        from nudge_tpu_torch.ops import narrowphase_1pt, setup_kernel
+        from nudge_tpu_torch.ops import narrowphase_kernel as npk
+        from nudge_tpu_torch.ops import solver_kernel
+
+        self.twins = [(npk, "box_box_slots_plain"), (narrowphase, "box_box"),
+                      (narrowphase_1pt, "pairs_1pt_slots_plain"),
+                      (narrowphase, "box_sphere"),
+                      (narrowphase, "sphere_sphere"),
+                      (coloring_kernel, "color_rounds_plain"),
+                      (setup_kernel, "setup_plain"),
+                      (solver_kernel, "solve_plain")]
+        self.saved = []
+        self.launches = {}
+
+    def __enter__(self):
+        import torch
+
+        torch.cuda.synchronize()
+        for fn in counters().values():
+            fn.launches = 0
+        for mod, name in self.twins:
+            self.saved.append((mod, name, getattr(mod, name)))
+
+            def refuse(*_, _name=name, **__):
+                raise AssertionError(f"plain twin {_name} ran on the main path")
+
+            setattr(mod, name, refuse)
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        torch.cuda.synchronize()
+        self.launches = {k: fn.launches for k, fn in counters().items()}
+        return False
 
 
 def timed(fn, reps=5, warm=2):
@@ -153,10 +245,10 @@ def phase_compare(card, dev):
     import torch
 
     from nudge_tpu_torch import engine, scenes
-    from nudge_tpu_torch.ops import broadphase, cache, contacts, grid
-    from nudge_tpu_torch.ops import integrate, setup_kernel, solver
+    from nudge_tpu_torch.ops import broadphase, cache, coloring_kernel
+    from nudge_tpu_torch.ops import contacts, grid, integrate, setup_kernel
     from nudge_tpu_torch.ops import narrowphase_kernel as npk
-    from nudge_tpu_torch.ops import solver_kernel
+    from nudge_tpu_torch.ops import solver, solver_kernel
 
     b = scenes.scene_pile(N_PILE)
     cfg = pile_config(b, N_PILE)
@@ -253,7 +345,69 @@ def phase_compare(card, dev):
         f"{int(man.valid.sum())} manifolds spilled; {sdiff}")
     records["solve"] = dict(max_abs_err=max(diff.err, sdiff.err), ms=ms,
                             plain_ms=plain_ms)
-    return records
+
+    # --- the coloring rounds at the step's manifolds, bit for bit ---
+    dyn = bodies.inv_mass > 0.0
+    for mc in (cfg.max_colors, SPILL_COLORS):
+        args = (man.body_a, man.body_b, man.valid, dyn, dyn.shape[0], mc)
+        k = coloring_kernel.color_rounds_cuda(*args)
+        p = coloring_kernel.color_rounds_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(k, p):
+            raise AssertionError(
+                f"coloring ({mc} colors): {int((k != p).sum())} of "
+                f"{k.shape[0]} raw colors differ")
+        err = int((k - p).abs().max())
+        ms = timed(lambda: coloring_kernel.color_rounds_cuda(*args))
+        plain_ms = timed(lambda: coloring_kernel.color_rounds_plain(*args))
+        if mc == cfg.max_colors:
+            records["coloring"] = dict(max_abs_err=err, ms=ms,
+                                       plain_ms=plain_ms)
+        log(card, f"coloring with {mc} colors: bitwise equal; "
+            f"{int(p.max()) + 1} rounds used, "
+            f"{int(((p < 0) & man.valid).sum())} of {int(man.valid.sum())} "
+            f"manifolds left uncolored; kernel {ms:.3f} ms, "
+            f"twin {plain_ms:.3f} ms")
+    return records, st
+
+
+def phase_compare_1pt(card, dev):
+    import torch
+
+    from nudge_tpu_torch import engine, scenes
+    from nudge_tpu_torch.ops import broadphase, grid
+    from nudge_tpu_torch.ops import narrowphase_1pt as p1pt
+
+    b, cfg = mixed_scene()
+    st, _ = engine.simulate(b.finalize(cfg, device=dev), cfg,
+                            MIXED_COMPARE_AFTER)
+    wc = broadphase.world_colliders(st)
+    _, bs, ss = grid.grid_broadphase(st, wc, cfg)
+    args = (st.boxes, st.spheres, wc, bs, ss)
+    k = p1pt.pairs_1pt_slots_cuda(*args)
+    p = p1pt.pairs_1pt_slots_plain(*args)
+    torch.cuda.synchronize()
+    live = torch.cat([bs.valid, ss.valid])
+    n_live = int(live.sum())
+    if n_live == 0:
+        raise AssertionError("pairs_1pt: no live box-sphere or sphere-sphere "
+                             "pair to compare")
+    for key in ("body_a", "body_b", "ga", "gb", "point_valid", "feat"):
+        if not torch.equal(k[key][live], p[key][live]):
+            raise AssertionError(f"pairs_1pt: {key} differs on live pairs")
+    pv = p["point_valid"] & live[:, None]
+    diff = Diff()
+    diff.check("pairs_1pt.pos", k["pos"][pv], p["pos"][pv])
+    diff.check("pairs_1pt.depth", k["depth"][pv], p["depth"][pv])
+    diff.check("pairs_1pt.normal", k["normal"][live], p["normal"][live])
+    diff.check("pairs_1pt.friction", k["friction"][live], p["friction"][live])
+    ms = timed(lambda: p1pt.pairs_1pt_slots_cuda(*args))
+    plain_ms = timed(lambda: p1pt.pairs_1pt_slots_plain(*args))
+    log(card, f"pairs_1pt: config 3 after {MIXED_COMPARE_AFTER} steps, "
+        f"{live.shape[0]} pair slots ({int(bs.valid.sum())} box-sphere, "
+        f"{int(ss.valid.sum())} sphere-sphere live), {int(pv.sum())} "
+        f"contacts; {diff}; kernel {ms:.3f} ms, twin {plain_ms:.3f} ms")
+    return dict(max_abs_err=diff.err, ms=ms, plain_ms=plain_ms)
 
 
 def phase_config1(card, dev):
@@ -287,58 +441,116 @@ def finite_state(st):
                for x in (b.pos, b.quat, b.vel, b.angvel))
 
 
-def phase_slice(card, dev):
+def run_windows(card, label, st, cfg, steps, window, pairs_by_class=False):
+    """Steps `st` through engine.simulate in windows of `window` steps and
+    holds each window to the slice gates: no overflow, a finite state, max
+    depth < 0.5. Returns (state, seconds stepping)."""
     import torch
 
-    from nudge_tpu_torch import engine, scenes
-    from nudge_tpu_torch.ops import narrowphase_kernel as npk
-    from nudge_tpu_torch.ops import setup_kernel, solver_kernel
+    from nudge_tpu_torch import engine
+    from nudge_tpu_torch.ops import broadphase, grid
+
+    t_all = 0.0
+    for w0 in range(0, steps, window):
+        t0 = time.perf_counter()
+        st, m = engine.simulate(st, cfg, window)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        t_all += dt
+        w1 = w0 + window
+        if bool(m.overflow.any()):
+            raise AssertionError(f"{label}: overflow in steps {w0}..{w1}: "
+                                 f"bits {m.overflow_bits.tolist()}")
+        if not finite_state(st):
+            raise AssertionError(f"{label}: non-finite state after step {w1}")
+        depth = float(m.max_depth.max())
+        if depth >= 0.5:
+            raise AssertionError(f"{label}: max depth {depth} >= 0.5 by step "
+                                 f"{w1}")
+        pairs = f"pairs {int(m.pair_demand[-1])}"
+        if pairs_by_class:        # one more broadphase, outside the timing
+            wc = broadphase.world_colliders(st)
+            bb, bs, ss = grid.grid_broadphase(st, wc, cfg)
+            pairs = (f"pairs bb/bs/ss {int(bb.count)}/{int(bs.count)}/"
+                     f"{int(ss.count)}")
+        log(card, f"{label} steps {w0}-{w1}: {window / dt:.3f} steps/s, "
+            f"contacts {int(m.contact_count[-1])}, manifolds "
+            f"{int(m.manifold_demand[-1])}, {pairs}, max depth {depth:.4f}, "
+            f"KE {float(m.kinetic_energy[-1]):.4g}, "
+            f"spill {int(m.spill_count.max())}")
+    return st, t_all
+
+
+def need_launches(label, launches, kernels):
+    for k in kernels:
+        if launches[k] <= 0:
+            raise AssertionError(f"{label}: kernel {k} was not launched")
+
+
+def phase_slice(card, dev):
+    from nudge_tpu_torch import scenes
 
     b = scenes.scene_pile(N_PILE)
     cfg = pile_config(b, N_PILE)
     st = b.finalize(cfg, device=dev)
-    counters = {"box_box": npk.box_box_slots, "setup": setup_kernel.setup,
-                "solve": solver_kernel.solve}
-    torch.cuda.synchronize()
-    for fn in counters.values():
-        fn.launches = 0
-    t_all = 0.0
-    for w0 in range(0, SLICE_STEPS, WINDOW):
-        t0 = time.perf_counter()
-        st, m = engine.simulate(st, cfg, WINDOW)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        t_all += dt
-        if bool(m.overflow.any()):
-            raise AssertionError(f"overflow in steps {w0}..{w0 + WINDOW}: "
-                                 f"bits {m.overflow_bits.tolist()}")
-        if not finite_state(st):
-            raise AssertionError(f"non-finite state after step {w0 + WINDOW}")
-        depth = float(m.max_depth.max())
-        if depth >= 0.5:
-            raise AssertionError(f"max depth {depth} >= 0.5 by step "
-                                 f"{w0 + WINDOW}")
-        log(card, f"pile steps {w0}-{w0 + WINDOW}: {WINDOW / dt:.3f} steps/s, "
-            f"contacts {int(m.contact_count[-1])}, manifolds "
-            f"{int(m.manifold_demand[-1])}, pairs {int(m.pair_demand[-1])}, "
-            f"max depth {depth:.4f}, KE {float(m.kinetic_energy[-1]):.4g}, "
-            f"spill {int(m.spill_count.max())}")
-    launches = {k: fn.launches for k, fn in counters.items()}
-    for k, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {k} was not launched on the main path")
+    with KernelsOnly() as run:
+        st, t_all = run_windows(card, "pile", st, cfg, SLICE_STEPS, WINDOW)
+    need_launches("pile", run.launches, ("box_box", "setup", "solve"))
     log(card, f"pile: {SLICE_STEPS} steps in {t_all:.2f} s "
-        f"({SLICE_STEPS / t_all:.3f} steps/s); launches {launches}")
-    return launches
+        f"({SLICE_STEPS / t_all:.3f} steps/s); launches {run.launches}")
+    return run.launches
 
 
-def phase_repeat(card, dev):
-    import torch
+def phase_mixed(card, dev):
+    """Config 3 for MIXED_STEPS steps; every dynamic sphere's centre must
+    stay above SPHERE_MIN_Y."""
+    b, cfg = mixed_scene()
+    st = b.finalize(cfg, device=dev)
+    with KernelsOnly() as run:
+        st, t_all = run_windows(card, "config 3", st, cfg, MIXED_STEPS,
+                                MIXED_WINDOW, pairs_by_class=True)
+    need_launches("config 3", run.launches,
+                  ("box_box", "pairs_1pt", "setup", "solve"))
+    sp = st.spheres
+    body = sp.body[sp.valid].long()
+    body = body[st.bodies.inv_mass[body] > 0]
+    low = float(st.bodies.pos[body, 1].min())
+    if low <= SPHERE_MIN_Y:
+        raise AssertionError(f"config 3: a sphere's centre is at y={low} "
+                             f"<= {SPHERE_MIN_Y}")
+    log(card, f"config 3: {MIXED_STEPS} steps in {t_all:.2f} s "
+        f"({MIXED_STEPS / t_all:.3f} steps/s); {body.shape[0]} dynamic "
+        f"spheres, lowest centre y {low:.4f}; launches {run.launches}")
+    return run.launches
 
-    from nudge_tpu_torch import engine, scenes
+
+def phase_fresh(card, st):
+    """The 20,480 pile with persistent_coloring=False from the state of
+    phase 3: the coloring kernel must run once per step."""
+    from nudge_tpu_torch import scenes
 
     b = scenes.scene_pile(N_PILE)
-    cfg = pile_config(b, N_PILE)
+    cfg = pile_config(b, N_PILE).replace(persistent_coloring=False)
+    with KernelsOnly() as run:
+        st, t_all = run_windows(card, "fresh coloring", st, cfg, FRESH_STEPS,
+                                FRESH_WINDOW)
+    need_launches("fresh coloring", run.launches, ("box_box", "setup", "solve"))
+    if run.launches["coloring"] != FRESH_STEPS:
+        raise AssertionError(f"fresh coloring: the coloring kernel ran "
+                             f"{run.launches['coloring']} times in "
+                             f"{FRESH_STEPS} steps")
+    log(card, f"fresh coloring: {FRESH_STEPS} steps in {t_all:.2f} s "
+        f"({FRESH_STEPS / t_all:.3f} steps/s); launches {run.launches}")
+    return run.launches
+
+
+def repeat(card, label, b, cfg, dev):
+    """Two REPEAT_STEPS-step runs from the same start must be bitwise
+    equal."""
+    import torch
+
+    from nudge_tpu_torch import engine
+
     runs = []
     for _ in range(2):
         st, m = engine.simulate(b.finalize(cfg, device=dev), cfg, REPEAT_STEPS)
@@ -347,13 +559,22 @@ def phase_repeat(card, dev):
     (a, ma), (c, mc) = runs
     for f in ("pos", "quat", "vel", "angvel"):
         if not torch.equal(getattr(a.bodies, f), getattr(c.bodies, f)):
-            raise AssertionError(f"repeat runs differ in bodies.{f}")
+            raise AssertionError(f"{label} repeat runs differ in bodies.{f}")
     for f in ("impulse", "pseudo", "valid"):
         if not torch.equal(getattr(a.cache, f), getattr(c.cache, f)):
-            raise AssertionError(f"repeat runs differ in cache.{f}")
+            raise AssertionError(f"{label} repeat runs differ in cache.{f}")
     if not torch.equal(ma.kinetic_energy, mc.kinetic_energy):
-        raise AssertionError("repeat runs differ in kinetic energy")
-    log(card, f"determinism: two {REPEAT_STEPS}-step pile runs bitwise equal")
+        raise AssertionError(f"{label} repeat runs differ in kinetic energy")
+    log(card, f"determinism: two {REPEAT_STEPS}-step {label} runs bitwise "
+        "equal")
+
+
+def phase_repeat(card, dev):
+    from nudge_tpu_torch import scenes
+
+    b = scenes.scene_pile(N_PILE)
+    repeat(card, "pile", b, pile_config(b, N_PILE), dev)
+    repeat(card, "config 3", *mixed_scene(), dev)
 
 
 def main():
@@ -363,13 +584,16 @@ def main():
     card = phase_device()
     dev = torch.device("cuda", 0)
     phase_build(card)
-    records = phase_compare(card, dev)
+    records, pile_state = phase_compare(card, dev)
+    records["pairs_1pt"] = phase_compare_1pt(card, dev)
     phase_config1(card, dev)
     launches = phase_slice(card, dev)
+    launches["pairs_1pt"] = phase_mixed(card, dev)["pairs_1pt"]
+    launches["coloring"] = phase_fresh(card, pile_state)["coloring"]
     phase_repeat(card, dev)
     kernels = [dict(name=k, route="cuda", source=SOURCE_OF[k],
                     replaces=TPU_KERNEL_OF[k], launches=launches[k],
-                    **records[k]) for k in ("box_box", "setup", "solve")]
+                    **records[k]) for k in TPU_KERNEL_OF]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

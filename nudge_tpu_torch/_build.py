@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-At the first kernel call, `nvcc` compiles every `.cu` file under `csrc/`
-into one shared library with a plain C interface, which is loaded with
+At the first kernel call, `nvcc` compiles every `.cu` file under `csrc/`,
+one process per file, all started together, and links the objects into
+one shared library with a plain C interface, which is loaded with
 ctypes. The library lives in `build/nudge_tpu_torch/` at the repository
 root, named by a hash of the sources and flags, so an edit to any kernel
 rebuilds it and an unchanged tree reuses it. Nothing here runs at import.
@@ -23,9 +24,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 _SRC = _PKG / "csrc"
 _BUILD = _PKG.parent / "build" / "nudge_tpu_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
+                     "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -37,6 +38,8 @@ _SIGNATURES = {
     "nudge_setup": [_P] * 15 + [_I] + [_F] * 9 + [_I] * 3 + [_P] * 23 + [_P],
     "nudge_segment_apply": [_P] * 4 + [_I] * 3 + [_P],
     "nudge_solve": [_P] * 30 + [_I] * 5 + [_P] * 5 + [_I] + [_P],
+    "nudge_pairs_1pt": [_P] * 12 + [_I] * 2 + [_P] * 8 + [_P],
+    "nudge_color_rounds": [_P] * 5 + [_I] * 3 + [_P] * 2 + [_P],
 }
 
 
@@ -95,14 +98,39 @@ def library() -> KernelLibrary:
     log = ""
     if not out.exists():
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
+        objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in cu]
+        nvcc = _nvcc()
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(cu, objs)]
+        outs = [p.communicate()[0] for p in procs]
+        log = "".join(f"--- {src.name}\n{o}" for src, o in zip(cu, outs))
+        failed = [src.name for src, p in zip(cu, procs) if p.returncode]
+        if not failed:
+            res = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                                  *map(str, objs)], capture_output=True,
+                                 text=True)
+            log += res.stdout + res.stderr
+            if res.returncode:
+                failed = ["link"]
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
         os.replace(tmp, out)
     _LOADED = KernelLibrary(out, log)
     return _LOADED
+
+
+def check_cuda(kernel: str, name: str, t, dtype, shape):
+    """Raise unless `t` is a contiguous CUDA tensor of `dtype` and `shape`:
+    the kernels take nothing else."""
+    if not t.is_cuda or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous():
+        raise ValueError(f"{kernel} kernel: {name} must be a contiguous CUDA "
+                         f"{dtype} tensor of shape {tuple(shape)}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
 def ptr(t) -> int:

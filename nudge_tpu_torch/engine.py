@@ -1,13 +1,14 @@
 """The simulation step: collide -> warm start -> setup -> solve -> advance
 (PyTorch port of `nudge_tpu.engine`).
 
-`step` runs on whatever device the state lives on: on CUDA tensors the
-narrowphase, setup and solve go through the hand-written kernels, on CPU
-tensors through their plain twins. `simulate` is a Python loop over steps.
+`step` runs on whatever device the state lives on: on CUDA tensors both
+narrowphases, the fresh coloring's claim rounds, setup and solve go
+through the hand-written kernels, on CPU tensors through their plain
+twins. `simulate` is a Python loop over steps.
 
-This slice runs the engine's default path with every body awake; sleeping,
-the persistent broadphase, spheres and the differentiable mode raise
-NotImplementedError instead of running a partial path.
+It runs boxes and spheres, with the cached or the fresh coloring and every
+body awake; sleeping, the persistent broadphase and the differentiable
+mode raise NotImplementedError instead of running a partial path.
 """
 
 from __future__ import annotations
@@ -38,9 +39,6 @@ def check_supported(cfg: SimConfig):
         if getattr(cfg, knob):
             raise NotImplementedError(
                 f"SimConfig.{knob}=True is not ported yet ({where})")
-    if cfg.max_spheres > 0:
-        raise NotImplementedError(
-            "sphere colliders are not ported yet (ROADMAP Queue 1 item 10)")
 
 
 @dataclasses.dataclass

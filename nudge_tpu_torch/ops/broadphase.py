@@ -21,6 +21,8 @@ class WorldColliders(NamedTuple):
     box_pos: torch.Tensor     # f32[B,3]
     box_quat: torch.Tensor    # f32[B,4]
     box_body: torch.Tensor    # i32[B]
+    sph_pos: torch.Tensor     # f32[S,3]
+    sph_body: torch.Tensor    # i32[S]
 
 
 @dataclasses.dataclass
@@ -44,13 +46,14 @@ class CandidatePairs:
 
 
 def world_colliders(state: SimState) -> WorldColliders:
-    """World transforms of the box colliders. Padded colliders (body -1)
-    read the last body, as the reference's wrapped gather does."""
-    bd, bx = state.bodies, state.boxes
+    """World transforms of the box and sphere colliders. Padded colliders
+    (body -1) read the last body, as the reference's wrapped gather does."""
+    bd, bx, sp = state.bodies, state.boxes, state.spheres
     bq = bd.quat[bx.body]
     box_quat = quat_mul(bq, bx.lquat)
     box_pos = bd.pos[bx.body] + quat_rotate(bq, bx.lpos)
-    return WorldColliders(box_pos, box_quat, bx.body)
+    sph_pos = bd.pos[sp.body] + quat_rotate(bd.quat[sp.body], sp.lpos)
+    return WorldColliders(box_pos, box_quat, bx.body, sph_pos, sp.body)
 
 
 def box_aabbs(half, wpos, wquat, margin: float):
@@ -58,6 +61,11 @@ def box_aabbs(half, wpos, wquat, margin: float):
     R = torch.abs(quat_to_mat(wquat))
     ext = (R[..., 0] * half[..., 0:1] + R[..., 1] * half[..., 1:2]
            + R[..., 2] * half[..., 2:3]) + margin
+    return wpos - ext, wpos + ext
+
+
+def sphere_aabbs(radius, wpos, margin: float):
+    ext = (radius + margin)[..., None]
     return wpos - ext, wpos + ext
 
 
@@ -140,8 +148,9 @@ def empty_pairs(device) -> CandidatePairs:
 
 
 def allpairs_broadphase(state: SimState, wc: WorldColliders, cfg: SimConfig):
-    """Masked all-pairs broadphase over boxes. Returns (bb, bs, ss)."""
-    bodies, sleep, bx = state.bodies, state.sleep, state.boxes
+    """Masked all-pairs broadphase. Returns (bb, bs, ss) CandidatePairs; the
+    sphere classes are empty when the config has no spheres."""
+    bodies, sleep, bx, sp = state.bodies, state.sleep, state.boxes, state.spheres
     blo, bhi = box_aabbs(bx.half, wc.box_pos, wc.box_quat, cfg.aabb_margin)
     nb = cfg.max_boxes
     bb_mask = _aabb_overlap(blo, bhi, blo, bhi)
@@ -152,5 +161,23 @@ def allpairs_broadphase(state: SimState, wc: WorldColliders, cfg: SimConfig):
                             state.connections, cfg)
     bb = _compact_pairs(bb_mask, cfg.max_box_box_pairs, nb)
     bb = bb.replace(flags=bb.overflow.to(torch.int32))
-    empty = empty_pairs(blo.device)
-    return bb, empty, empty
+    if cfg.max_spheres == 0:
+        empty = empty_pairs(blo.device)
+        return bb, empty, empty
+
+    slo, shi = sphere_aabbs(sp.radius, wc.sph_pos, cfg.aabb_margin)
+    ns = sp.radius.shape[0]
+    bs_mask = _aabb_overlap(blo, bhi, slo, shi)
+    bs_mask &= bx.valid[:, None] & sp.valid[None, :]
+    bs_mask &= _pair_filter(bodies, sleep, bx.body[:, None], sp.body[None, :],
+                            state.connections, cfg)
+    bs = _compact_pairs(bs_mask, cfg.max_box_sphere_pairs, ns)
+
+    ss_mask = _aabb_overlap(slo, shi, slo, shi)
+    ju = torch.arange(ns, device=slo.device)
+    ss_mask &= ju[:, None] < ju[None, :]
+    ss_mask &= sp.valid[:, None] & sp.valid[None, :]
+    ss_mask &= _pair_filter(bodies, sleep, sp.body[:, None], sp.body[None, :],
+                            state.connections, cfg)
+    ss = _compact_pairs(ss_mask, cfg.max_sphere_sphere_pairs, ns)
+    return bb, bs, ss

@@ -1,0 +1,126 @@
+"""Greedy Luby manifold coloring, the claim rounds: the CUDA kernel's
+wrapper.
+
+Replaces `nudge_tpu/ops/coloring_kernel.py: color_manifolds_pallas`
+(kernel body `_color_kernel`). Per round c, every uncolored valid manifold
+i claims its dynamic bodies with the token i ^ round_hash(c) (a bijection
+of the indices, so tokens stay unique) by a scatter-min; a manifold whose
+token holds both claims takes color c. Within a color no dynamic body
+repeats. The rounds stop when every valid manifold is colored, or after
+max_colors - 1 rounds.
+
+The TPU kernel ran every round in one `pallas_call`, with one-hot matmuls
+over membership-bitmask tile windows in place of the scatter-min and the
+gather-back. The CUDA kernel (csrc/coloring.cu) is one block that runs
+every round in one launch: atomicMin claims into a per-body table, a block
+barrier, then the win check. The plain twin `color_rounds_plain` is the
+reference's XLA loop, which reads one flag back to the host per round.
+
+`color_rounds` dispatches by device: CPU tensors go to the twin; CUDA
+tensors launch the kernel or raise. Both return the raw colors, i32[M]:
+the round a manifold won, or -1 for anything not colored (invalid, or past
+the last round).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+
+INF_I32 = 2 ** 31 - 1
+
+
+def _wrap32(x: int) -> int:
+    return ((x + 2 ** 31) % 2 ** 32) - 2 ** 31
+
+
+def round_hash(c: int) -> int:
+    """The per-round Luby priority constant, in int32 wraparound arithmetic:
+    h = (c+1)·0x9E3779B9; h = (h ^ (h >> 13))·0x85EBCA6B; h & 0x3FFFFF."""
+    h = _wrap32((c + 1) * _wrap32(0x9E3779B9))
+    h = _wrap32((h ^ (h >> 13)) * _wrap32(0x85EBCA6B))
+    return h & 0x3FFFFF
+
+
+def claim_min(n_bodies, body_a, body_b, token_a, token_b):
+    """Per-body minimum of the tokens claimed on it (INF_I32 if none)."""
+    claim = torch.full((n_bodies,), INF_I32, dtype=torch.int32,
+                       device=token_a.device)
+    claim.scatter_reduce_(0, body_a.to(torch.int64), token_a, "amin")
+    claim.scatter_reduce_(0, body_b.to(torch.int64), token_b, "amin")
+    return claim
+
+
+def color_rounds_plain(body_a, body_b, valid, dyn, n_bodies: int,
+                       max_colors: int):
+    """The claim rounds as the reference's loop, one host read per round."""
+    dyn_a, dyn_b = dyn[body_a], dyn[body_b]
+    m = body_a.shape[0]
+    idx = torch.arange(m, dtype=torch.int32, device=dyn.device)
+    color = torch.full((m,), -1, dtype=torch.int32, device=dyn.device)
+    c = 0
+    while c < max_colors - 1 and bool(torch.any(valid & (color < 0))):
+        token = idx ^ round_hash(c)
+        uncolored = valid & (color < 0)
+        token_a = torch.where(uncolored & dyn_a, token, INF_I32)
+        token_b = torch.where(uncolored & dyn_b, token, INF_I32)
+        claim = claim_min(n_bodies, body_a, body_b, token_a, token_b)
+        ok_a = ~dyn_a | (claim[body_a] == token)
+        ok_b = ~dyn_b | (claim[body_b] == token)
+        color = torch.where(uncolored & ok_a & ok_b, c, color)
+        c += 1
+    return color
+
+
+_HASHES: dict = {}
+
+
+def _round_hashes(n: int, device) -> torch.Tensor:
+    """round_hash(0..n-1) as an i32 tensor on `device` (computed on the
+    host: the hash needs int32 wraparound and an arithmetic shift)."""
+    key = (n, str(device))
+    if key not in _HASHES:
+        _HASHES[key] = torch.tensor([round_hash(c) for c in range(n)],
+                                    dtype=torch.int32, device=device)
+    return _HASHES[key]
+
+
+def color_rounds_cuda(body_a, body_b, valid, dyn, n_bodies: int,
+                      max_colors: int):
+    """The claim rounds from the CUDA kernel, all in one launch."""
+    m = body_a.shape[0]
+    i32 = torch.int32
+    ins = dict(body_a=(body_a, i32, (m,)), body_b=(body_b, i32, (m,)),
+               valid=(valid, torch.bool, (m,)),
+               dyn=(dyn, torch.bool, (n_bodies,)))
+    for name, (t, dt, shape) in ins.items():
+        _build.check_cuda("coloring", name, t, dt, shape)
+    dev = body_a.device
+    n_rounds = max(max_colors - 1, 0)
+    hashes = _round_hashes(max(n_rounds, 1), dev)
+    claim = torch.empty((max(n_bodies, 1),), dtype=i32, device=dev)
+    color = torch.empty((m,), dtype=i32, device=dev)
+    if m:
+        _build.library().call(
+            "nudge_color_rounds", *[_build.ptr(t) for t, _, _ in ins.values()],
+            _build.ptr(hashes), m, n_bodies, n_rounds, _build.ptr(claim),
+            _build.ptr(color), _build.stream_of(body_a))
+        color_rounds.launches += 1
+    return color
+
+
+def color_rounds(body_a, body_b, valid, dyn, n_bodies: int, max_colors: int):
+    """Raw greedy colors of the manifolds (body_a/body_b i32[M], valid
+    bool[M], dyn bool[n_bodies]): the winning round, or -1."""
+    dev = body_a.device
+    if dev.type == "cpu":
+        return color_rounds_plain(body_a, body_b, valid, dyn, n_bodies,
+                                  max_colors)
+    if dev.type == "cuda":
+        return color_rounds_cuda(body_a, body_b, valid, dyn, n_bodies,
+                                 max_colors)
+    raise NotImplementedError(f"coloring: no kernel for device {dev}")
+
+
+color_rounds.launches = 0

@@ -1,5 +1,5 @@
 """Contact generation: broadphase -> narrowphase -> manifold compaction
-(PyTorch port of `nudge_tpu.ops.contacts`, box-box only).
+(PyTorch port of `nudge_tpu.ops.contacts`).
 
 Contacts are grouped by collider pair into manifolds of up to 4 points
 sharing (body_a, body_b, normal, friction); the solver works per manifold.
@@ -18,6 +18,7 @@ from . import narrowphase as nps
 from .broadphase import (
     allpairs_broadphase, compact_mask, world_colliders,
 )
+from .narrowphase_1pt import pairs_1pt_slots
 from .narrowphase_kernel import box_box_slots
 
 POINTS = nps.BOX_BOX_POINTS
@@ -41,8 +42,9 @@ class Manifolds:
     valid: torch.Tensor        # bool[M]
     count: torch.Tensor        # i32 true manifold count (may exceed M)
     overflow: torch.Tensor     # bool
-    # bit0 box-box pairs | bit3 manifold compaction | bit5 grid cell
-    # density | bit6 grid expand capacity
+    # bit0 box-box pairs | bit1 box-sphere pairs | bit2 sphere-sphere pairs
+    # | bit3 manifold compaction | bit5 grid cell density | bit6 grid expand
+    # capacity
     overflow_bits: Optional[torch.Tensor] = None
     pair_demand: Optional[torch.Tensor] = None
 
@@ -54,9 +56,14 @@ class Manifolds:
         return dataclasses.replace(self, **kw)
 
 
-def narrowphase_all(state: SimState, wc, bb, cfg: SimConfig):
-    """Per-pair manifold slot arrays over the box-box candidates."""
-    return box_box_slots(state.boxes, wc, bb)
+def narrowphase_all(state: SimState, wc, bb, bs, ss, cfg: SimConfig):
+    """Per-pair manifold slot arrays over all candidates, in the order
+    box-box, box-sphere, sphere-sphere."""
+    slots = box_box_slots(state.boxes, wc, bb)
+    if bs.a.shape[0] + ss.a.shape[0] == 0:
+        return slots
+    one = pairs_1pt_slots(state.boxes, state.spheres, wc, bs, ss)
+    return {k: torch.cat([slots[k], one[k]]) for k in slots}
 
 
 def compact_manifolds(slots: dict, cfg: SimConfig, pair_overflow,
@@ -128,13 +135,19 @@ def collide(state: SimState, cfg: SimConfig) -> Manifolds:
         raise NotImplementedError(
             "persistent_broadphase is not ported yet (ROADMAP Queue 1 item 9)")
     wc = world_colliders(state)
-    bb, _, _ = _base_broadphase(cfg)(state, wc, cfg)
-    slots = narrowphase_all(state, wc, bb, cfg)
+    bb, bs, ss = _base_broadphase(cfg)(state, wc, cfg)
+    slots = narrowphase_all(state, wc, bb, bs, ss, cfg)
     pair_overflow = bb.overflow
     bits = bb.overflow.to(torch.int32)
+    pair_demand = bb.count
+    for cls, bit in ((bs, 2), (ss, 4)):
+        if cls.a.shape[0] > 0:
+            pair_overflow = pair_overflow | cls.overflow
+            bits = bits | torch.where(cls.overflow, bit, 0).to(torch.int32)
+            pair_demand = pair_demand + cls.count
     if bb.flags is not None:        # grid pair/density/expand -> bits 0/5/6
         pair_overflow = pair_overflow | (bb.flags != 0)
         bits = bits | (bb.flags & 1)
         bits = bits | (((bb.flags >> 1) & 3) << 5)
     man = compact_manifolds(slots, cfg, pair_overflow, pair_bits=bits)
-    return man.replace(pair_demand=bb.count)
+    return man.replace(pair_demand=pair_demand)

@@ -31,7 +31,7 @@ from ..config import SimConfig
 from ..state import SimState
 from .broadphase import (
     CandidatePairs, WorldColliders, _connection_mask, _pair_filter, box_aabbs,
-    compact_mask, dead_mask, empty_pairs,
+    compact_mask, dead_mask, empty_pairs, sphere_aabbs,
 )
 
 # Half stencil: home cell first, then the 13 lexicographically positive
@@ -43,13 +43,20 @@ _OFFSETS = _OFF_ALL[(_OFF_ALL[:, 0] * 9 + _OFF_ALL[:, 1] * 3
 
 
 def _all_aabbs(state: SimState, wc: WorldColliders, cfg: SimConfig):
-    bx = state.boxes
+    """Collider arrays over global ids, boxes first, then spheres: lo/hi[G,3],
+    body[G], valid[G]."""
+    bx, sp = state.boxes, state.spheres
     lo, hi = box_aabbs(bx.half, wc.box_pos, wc.box_quat, cfg.aabb_margin)
-    valid = bx.valid
+    body, valid = bx.body, bx.valid
+    if cfg.max_spheres > 0:
+        slo, shi = sphere_aabbs(sp.radius, wc.sph_pos, cfg.aabb_margin)
+        lo, hi = torch.cat([lo, slo]), torch.cat([hi, shi])
+        body = torch.cat([body, sp.body])
+        valid = torch.cat([valid, sp.valid])
     dead = dead_mask(state.bodies, state.sleep, cfg)
     if dead is not None:
-        valid = valid & ~dead[torch.clamp_min(bx.body, 0)]
-    return lo, hi, bx.body, valid
+        valid = valid & ~dead[torch.clamp_min(body, 0)]
+    return lo, hi, body, valid
 
 
 def _median_or_one(ext, valid):
@@ -173,15 +180,24 @@ def grid_broadphase(state: SimState, wc: WorldColliders, cfg: SimConfig):
     sel, sel_valid, total = compact_mask(flat_keep, pcap)
     a_s = torch.where(sel_valid, flat_a[sel], 0)
     b_s = torch.where(sel_valid, flat_b[sel], 0)
-    is_bb = sel_valid & (b_s < cfg.max_boxes)
-    ii, vv, cnt_bb = compact_mask(is_bb, cfg.max_box_box_pairs)
-    flags = (torch.where(total > pcap, 1, 0)
-             | torch.where(density_overflow, 2, 0)
-             | torch.where(expand_overflow, 4, 0)).to(torch.int32)
-    bb = CandidatePairs(
-        a=torch.where(vv, a_s[ii], 0).to(torch.int32),
-        b=torch.where(vv, b_s[ii], 0).to(torch.int32),
-        valid=vv, count=cnt_bb, flags=flags,
-    )
-    empty = empty_pairs(dev)
-    return bb, empty, empty
+
+    def split(mask, cap_c, a_vals, b_vals):
+        ii, vv, cnt_c = compact_mask(mask, cap_c)
+        return CandidatePairs(
+            a=torch.where(vv, a_vals[ii], 0).to(torch.int32),
+            b=torch.where(vv, b_vals[ii], 0).to(torch.int32),
+            valid=vv, count=cnt_c)
+
+    nb = cfg.max_boxes
+    bb = split(sel_valid & (b_s < nb), cfg.max_box_box_pairs, a_s, b_s)
+    bb = bb.replace(flags=(torch.where(total > pcap, 1, 0)
+                           | torch.where(density_overflow, 2, 0)
+                           | torch.where(expand_overflow, 4, 0)).to(torch.int32))
+    if cfg.max_spheres == 0:
+        empty = empty_pairs(dev)
+        return bb, empty, empty
+    bs = split(sel_valid & (a_s < nb) & (b_s >= nb), cfg.max_box_sphere_pairs,
+               a_s, b_s - nb)
+    ss = split(sel_valid & (a_s >= nb), cfg.max_sphere_sphere_pairs,
+               a_s - nb, b_s - nb)
+    return bb, bs, ss

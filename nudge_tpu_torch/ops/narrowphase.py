@@ -1,10 +1,13 @@
-"""Box-box narrowphase: SAT over 15 axes + closed-form face clip (PyTorch
-port of `nudge_tpu.ops.narrowphase`).
+"""Narrowphase: box-box SAT over 15 axes + closed-form face clip, and the
+one-point box-sphere and sphere-sphere contacts (PyTorch port of
+`nudge_tpu.ops.narrowphase`).
 
-This is the plain twin of the CUDA kernel in csrc/narrowphase.cu: the same
-math batched over candidate pairs with tensors, where the reference writes
-it per pair and vmaps it. Per-pair dynamic axis choices (reference axis,
-incident axis, edge pair) become gathers along a small last dimension.
+`box_sphere` and `sphere_sphere` are the plain twins of the CUDA kernel in
+csrc/narrowphase_1pt.cu. `box_box` is the plain twin of the CUDA kernel in
+csrc/narrowphase.cu: the same math batched over candidate pairs with
+tensors, where the reference writes it per pair and vmaps it. Per-pair
+dynamic axis choices (reference axis, incident axis, edge pair) become
+gathers along a small last dimension.
 
   - SAT over the 15 classic axes with |R| + _ABS_EPS robustness; an edge
     axis must beat the best face axis by 5% (_FACE_EDGE_BIAS);
@@ -344,3 +347,51 @@ def box_box(ha, qa, pa, hb, qb, pb):
     normal = torch.where(ec, normal_e, normal_f)
     return {"pos": pos, "normal": normal, "depth": depth, "feat": feat,
             "valid": valid}
+
+
+def box_sphere(h, qa, pa, radius, pb):
+    """Box A[P] against sphere B[P]: one contact each. Returns a dict of
+    pos[P,3] (world), normal[P,3] (A -> B), depth[P] and valid[P]; the
+    feature id is always 0. Every 3x3 product is summed in index order, as
+    csrc/narrowphase_1pt.cu does."""
+    Ra = quat_to_mat(qa)
+    c = _mtv(Ra, pb - pa)                 # sphere centre in the box frame
+    clamped = torch.minimum(torch.maximum(c, -h), h)
+    delta = c - clamped
+    d2 = (delta[:, 0] * delta[:, 0] + delta[:, 1] * delta[:, 1]
+          + delta[:, 2] * delta[:, 2])
+    outside = d2 > 1e-12
+    dist = torch.sqrt(torch.clamp_min(d2, 1e-12))
+
+    # centre outside the box: push along centre-to-closest-point
+    n_out = delta / dist[:, None]
+    depth_out = radius - dist
+
+    # centre inside the box: push out through the least-penetrated face
+    # (torch.argmin takes the first minimum, as jnp.argmin does)
+    face_pen = h - torch.abs(c)
+    k = torch.argmin(face_pen, dim=-1)
+    sgn = torch.where(_take(c, k) >= 0.0, 1.0, -1.0)
+    on_k = torch.arange(3, device=h.device)[None, :] == k[:, None]
+    n_in = torch.where(on_k, sgn[:, None], 0.0)
+    depth_in = radius + _take(face_pen, k)
+    pos_in = torch.where(on_k, sgn[:, None] * h, c)
+
+    n_local = torch.where(outside[:, None], n_out, n_in)
+    depth = torch.where(outside, depth_out, depth_in)
+    pos_local = torch.where(outside[:, None], clamped, pos_in)
+    return {"pos": _mv(Ra, pos_local) + pa, "normal": _mv(Ra, n_local),
+            "depth": depth, "valid": depth > 0.0}
+
+
+def sphere_sphere(ra, pa, rb, pb):
+    """Sphere A[P] against sphere B[P]: one contact at the overlap midpoint
+    (same dict as box_sphere)."""
+    d = pb - pa
+    d2 = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+    dist = torch.sqrt(torch.clamp_min(d2, 1e-12))
+    up = torch.tensor([0.0, 1.0, 0.0], dtype=d.dtype, device=d.device)
+    n = torch.where((d2 > 1e-12)[:, None], d / dist[:, None], up)
+    depth = (ra + rb) - dist
+    pos = pa + n * (ra - 0.5 * depth)[:, None]
+    return {"pos": pos, "normal": n, "depth": depth, "valid": depth > 0.0}

@@ -45,14 +45,6 @@ def box_box_slots_plain(bx: Boxes, wc: WorldColliders, bb: CandidatePairs):
     )
 
 
-def _check(t, dtype, shape, name):
-    if not t.is_cuda or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
-            or not t.is_contiguous():
-        raise ValueError(f"box_box kernel: {name} must be a contiguous CUDA "
-                         f"{dtype} tensor of shape {tuple(shape)}, got "
-                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
-
-
 def box_box_slots_cuda(bx: Boxes, wc: WorldColliders, bb: CandidatePairs):
     """Per-pair manifold slots from the CUDA kernel."""
     nb = bx.half.shape[0]
@@ -65,7 +57,7 @@ def box_box_slots_cuda(bx: Boxes, wc: WorldColliders, bb: CandidatePairs):
                a=(bb.a, torch.int32, (p,)), b=(bb.b, torch.int32, (p,)),
                valid=(bb.valid, torch.bool, (p,)))
     for name, (t, dt, shape) in ins.items():
-        _check(t, dt, shape, name)
+        _build.check_cuda("box_box", name, t, dt, shape)
     lib = _build.library()
     dev = bx.half.device
     out = dict(

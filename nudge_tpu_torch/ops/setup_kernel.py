@@ -62,14 +62,6 @@ def segment_apply(lib, state, keys, perm, vals, stride, mode):
              _build.stream_of(state))
 
 
-def _check(name, t, dtype, shape):
-    if not t.is_cuda or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
-            or not t.is_contiguous():
-        raise ValueError(f"setup kernel: {name} must be a contiguous CUDA "
-                         f"{dtype} tensor of shape {tuple(shape)}, got "
-                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
-
-
 def setup_cuda(bodies: Bodies, man: Manifolds, warm, cfg: SimConfig,
                coloring=None, pwarm=None):
     """The setup kernel plus the two warm-start segment sums."""
@@ -96,7 +88,7 @@ def setup_cuda(bodies: Bodies, man: Manifolds, warm, cfg: SimConfig,
         ("warm", warm, f32, (m, P, 3)), ("pwarm", pwarm, f32, (m, P)),
     ]
     for name, t, dt, shape in ins:
-        _check(name, t, dt, shape)
+        _build.check_cuda("setup", name, t, dt, shape)
 
     def e(*shape):
         return torch.empty(shape, dtype=f32, device=dev)

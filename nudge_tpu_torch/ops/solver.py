@@ -23,33 +23,12 @@ import torch
 from ..config import CONTACT_POINTS, SimConfig
 from ..mathx import cross, dot, orthonormal_basis, quat_rotate, quat_rotate_inv
 from ..state import Bodies, ColorCache
+from .coloring_kernel import INF_I32, claim_min, color_rounds, round_hash
 from .contacts import Manifolds
-
-_INF_I32 = 2 ** 31 - 1
-
-
-def _wrap32(x: int) -> int:
-    return ((x + 2 ** 31) % 2 ** 32) - 2 ** 31
-
-
-def round_hash(c: int) -> int:
-    """The per-round Luby priority constant, in int32 wraparound arithmetic:
-    h = (c+1)·0x9E3779B9; h = (h ^ (h >> 13))·0x85EBCA6B; h & 0x3FFFFF."""
-    h = _wrap32((c + 1) * _wrap32(0x9E3779B9))
-    h = _wrap32((h ^ (h >> 13)) * _wrap32(0x85EBCA6B))
-    return h & 0x3FFFFF
 
 
 def _i64(x):
     return x.to(torch.int64)
-
-
-def _claim_min(n_bodies, body_a, body_b, token_a, token_b):
-    claim = torch.full((n_bodies,), _INF_I32, dtype=torch.int32,
-                       device=token_a.device)
-    claim.scatter_reduce_(0, _i64(body_a), token_a, "amin")
-    claim.scatter_reduce_(0, _i64(body_b), token_b, "amin")
-    return claim
 
 
 def _inv_inertia_apply(quat, inv_inertia_diag, v):
@@ -158,25 +137,15 @@ def _finish(color, spilled, man, relax, cfg):
 
 
 def color_manifolds(man: Manifolds, bodies: Bodies, cfg: SimConfig):
-    """Greedy Luby coloring by iterated scatter-min claims. Returns
-    (color[M], n_colors, relax[M], spill_count, spill_color)."""
+    """Greedy Luby coloring by iterated scatter-min claims
+    (`coloring_kernel.color_rounds`), then the spill handling and the
+    height relabel. Returns (color[M], n_colors, relax[M], spill_count,
+    spill_color)."""
     n_bodies = bodies.pos.shape[0]
     dyn = bodies.inv_mass > 0.0
     dyn_a, dyn_b = dyn[man.body_a], dyn[man.body_b]
-    m = man.ga.shape[0]
-    idx = torch.arange(m, dtype=torch.int32, device=dyn.device)
-    color = torch.full((m,), -1, dtype=torch.int32, device=dyn.device)
-    c = 0
-    while c < cfg.max_colors - 1 and bool(torch.any(man.valid & (color < 0))):
-        token = idx ^ round_hash(c)
-        uncolored = man.valid & (color < 0)
-        token_a = torch.where(uncolored & dyn_a, token, _INF_I32)
-        token_b = torch.where(uncolored & dyn_b, token, _INF_I32)
-        claim = _claim_min(n_bodies, man.body_a, man.body_b, token_a, token_b)
-        ok_a = ~dyn_a | (claim[man.body_a] == token)
-        ok_b = ~dyn_b | (claim[man.body_b] == token)
-        color = torch.where(uncolored & ok_a & ok_b, c, color)
-        c += 1
+    color = color_rounds(man.body_a, man.body_b, man.valid, dyn, n_bodies,
+                         cfg.max_colors)
     color, relax, spilled = _spill_relax(man, color, dyn_a, dyn_b, n_bodies,
                                          cfg)
     return _finish(color, spilled, man, relax, cfg)
@@ -239,9 +208,9 @@ def color_manifolds_cached(man: Manifolds, bodies: Bodies, cfg: SimConfig,
         elig = (uncolored
                 & ((forbid[ba * K + c] == 0) | ~dyn_a)
                 & ((forbid[bb * K + c] == 0) | ~dyn_b))
-        token_a = torch.where(elig & dyn_a, token, _INF_I32)
-        token_b = torch.where(elig & dyn_b, token, _INF_I32)
-        claim = _claim_min(n_bodies, man.body_a, man.body_b, token_a, token_b)
+        token_a = torch.where(elig & dyn_a, token, INF_I32)
+        token_b = torch.where(elig & dyn_b, token, INF_I32)
+        claim = claim_min(n_bodies, man.body_a, man.body_b, token_a, token_b)
         ok_a = ~dyn_a | (claim[man.body_a] == token)
         ok_b = ~dyn_b | (claim[man.body_b] == token)
         win = elig & ok_a & ok_b

@@ -65,8 +65,8 @@ class Boxes(_Replace):
 
 @dataclasses.dataclass
 class Spheres(_Replace):
-    """Sphere colliders. The port's slice simulates boxes only, so this
-    holds the reference's single padding slot."""
+    """Sphere colliders. A config without spheres keeps the reference's
+    single padding slot (body -1)."""
 
     body: torch.Tensor       # i32[S]
     radius: torch.Tensor     # f32[S]

@@ -1,5 +1,6 @@
 """Shared helpers for the tests that hold the PyTorch port against the JAX
-package: carry states, configs and manifolds across as numpy arrays."""
+package: carry states, configs and manifolds across as numpy arrays, and
+build the same test scene in both packages."""
 
 import dataclasses
 
@@ -8,7 +9,9 @@ import torch
 
 import nudge_tpu.config as jconfig
 import nudge_tpu_torch.config as pconfig
+from nudge_tpu import scenes as jscenes
 from nudge_tpu.ops import contacts as jcontacts
+from nudge_tpu_torch import scenes as pscenes
 from nudge_tpu_torch.ops import contacts as pcontacts
 from nudge_tpu_torch.state import state_from_numpy
 
@@ -58,6 +61,32 @@ def jax_manifolds(pman):
     return jcontacts.Manifolds(**kw)
 
 
+def pressed_mixed_pile(n=120, **over):
+    """A mixed pile (walls, grid broadphase) pressed into resting columns:
+    each body sits on the one below it (or on the ground) 5 mm deep, so
+    that box-box, box-sphere and sphere-sphere contacts exist from step 0,
+    in both packages. Returns (port cfg, JAX cfg, JAX state, port state)."""
+    import jax.numpy as jnp
+
+    pb = pscenes.scene_pile(n, sphere_frac=0.3, seed=5, walls=True)
+    pcfg = pb.auto_config(broadphase="grid", **over)
+    jcfg = jax_cfg(pcfg)
+    jst = jscenes.scene_pile(n, sphere_frac=0.3, seed=5,
+                             walls=True).finalize(jcfg)
+    pos = np.array(jst.bodies.pos)
+    half_y = np.full(pos.shape[0], 0.5)
+    sph = np.asarray(jst.spheres.body)
+    half_y[sph[sph >= 0]] = np.asarray(jst.spheres.radius)[sph >= 0]
+    cols = int(np.ceil(n ** (1 / 3))) ** 2        # scene_pile's grid columns
+    top = np.zeros(cols)
+    for k in range(n):                            # body 0 is the ground
+        c, body = k % cols, k + 1
+        pos[body, 1] = top[c] + half_y[body] - 0.005
+        top[c] = pos[body, 1] + half_y[body]
+    jst = jst.replace(bodies=jst.bodies.replace(pos=jnp.asarray(pos)))
+    return pcfg, jcfg, jst, to_port_state(jst)
+
+
 def np_(x):
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
@@ -74,4 +103,5 @@ def assert_close(a, b, atol, name=""):
 
 
 __all__ = ["tree", "to_port_state", "jax_cfg", "port_manifolds",
-           "jax_manifolds", "assert_equal", "assert_close", "np_"]
+           "jax_manifolds", "pressed_mixed_pile", "assert_equal",
+           "assert_close", "np_"]

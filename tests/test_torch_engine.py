@@ -1,6 +1,7 @@
 """The port's whole step against the JAX engine: a small grid pile stepped
-side by side, config 1 to rest, determinism, config parity, and the rule
-that the package never imports JAX."""
+side by side, config 1 to rest, the sphere scenes of tests/test_engine.py,
+determinism, config parity, and the rule that the package never imports
+JAX."""
 
 import dataclasses
 import subprocess
@@ -62,7 +63,7 @@ def test_package_imports_no_jax():
 
 @pytest.mark.parametrize("knob", [
     dict(sleeping=True), dict(persistent_broadphase=True),
-    dict(differentiable=True), dict(max_spheres=8)])
+    dict(differentiable=True)])
 def test_unported_modes_raise(knob):
     b = pscenes.scene_single_box()
     cfg = b.auto_config(**knob)
@@ -164,3 +165,46 @@ def test_two_runs_are_bitwise_equal():
     for f in ("impulse", "pseudo", "valid"):
         assert torch.equal(getattr(a.cache, f), getattr(b.cache, f)), f
     assert torch.equal(ma.kinetic_energy, mb.kinetic_energy)
+
+
+# tests/test_engine.py's sphere scenes, with its gates. The port's plain
+# solve costs ~0.1 s a step on the CPU, so each runs until it has come to
+# rest rather than the reference test's 400 / 400 / 200 steps.
+
+def _rollout(b, steps):
+    cfg = b.auto_config()
+    st, m = pengine.simulate(b.finalize(cfg), cfg, steps)
+    assert not bool(m.overflow.any())
+    return cfg, np_(st.bodies.pos)
+
+
+def _ground():
+    b = pscenes.SceneBuilder()
+    b.add_static_box((50, 0.5, 50), (0, -0.5, 0))
+    return b
+
+
+def test_sphere_rests_on_ground():
+    b = _ground()
+    b.add_sphere(0.5, (0, 2.0, 0))
+    cfg, pos = _rollout(b, 120)
+    assert abs(pos[1, 1] - 0.5) <= cfg.slop + 2e-3, pos[1]
+
+
+def test_sphere_on_box_mixed():
+    b = _ground()
+    b.add_box((0.5, 0.5, 0.5), (0, 0.5, 0))
+    b.add_sphere(0.3, (0, 1.6, 0))
+    _, pos = _rollout(b, 120)
+    assert abs(pos[1, 1] - 0.5) < 0.02
+    assert abs(pos[2, 1] - 1.3) < 0.02
+    assert np.isfinite(pos).all()
+
+
+def test_two_spheres_stack():
+    b = _ground()
+    b.add_sphere(0.5, (0, 0.5, 0))
+    b.add_sphere(0.5, (0.01, 1.5, 0))
+    _, pos = _rollout(b, 60)
+    assert np.isfinite(pos).all()
+    assert pos[1, 1] > 0.45 and pos[2, 1] > 0.45

@@ -15,6 +15,8 @@ import torch
 
 from nudge_tpu_torch import engine, scenes
 from nudge_tpu_torch.ops import broadphase, cache, contacts, grid, integrate
+from nudge_tpu_torch.ops import coloring_kernel as ck
+from nudge_tpu_torch.ops import narrowphase_1pt as p1pt
 from nudge_tpu_torch.ops import narrowphase_kernel as npk
 from nudge_tpu_torch.ops import setup_kernel, solver, solver_kernel
 
@@ -46,6 +48,14 @@ def _pressed_pile(n, dev, **over):
     dyn = st.bodies.inv_mass > 0
     pos[dyn, 1] = 0.5 + (pos[dyn, 1] - 0.75) * (0.995 / 1.15)
     return cfg, st.replace(bodies=st.bodies.replace(pos=pos))
+
+
+def _falling_mixed_pile(n, dev, steps, **over):
+    """A mixed pile (30% spheres, walls) after `steps` steps of its drop."""
+    b = scenes.scene_pile(n, sphere_frac=0.3, seed=5)
+    cfg = b.auto_config(broadphase="grid", **over)
+    st, _ = engine.simulate(b.finalize(cfg, device=dev), cfg, steps)
+    return cfg, st
 
 
 def _stage_inputs(cfg, st):
@@ -123,3 +133,53 @@ def test_engine_on_cuda_launches_every_kernel_and_repeats(dev):
             step_count=st0.step_count.cpu()), cfg, 5)
     np.testing.assert_allclose(a.bodies.pos.cpu().numpy(),
                                c.bodies.pos.numpy(), rtol=0, atol=1e-4)
+
+
+def test_pairs_1pt_kernel_matches_twin(dev):
+    cfg, st = _falling_mixed_pile(400, dev, 40)
+    wc = broadphase.world_colliders(st)
+    _, bs, ss = grid.grid_broadphase(st, wc, cfg)
+    k = p1pt.pairs_1pt_slots_cuda(st.boxes, st.spheres, wc, bs, ss)
+    p = p1pt.pairs_1pt_slots_plain(st.boxes, st.spheres, wc, bs, ss)
+    torch.cuda.synchronize()
+    for key in ("point_valid", "feat", "body_a", "body_b", "ga", "gb"):
+        assert torch.equal(k[key], p[key]), key
+    assert int(bs.valid.sum()) > 20 and int(ss.valid.sum()) > 5
+    assert int(p["point_valid"].sum()) > 20
+    for key in ("pos", "depth", "normal", "friction"):
+        _close(k[key], p[key], key)
+
+
+@pytest.mark.parametrize("max_colors", [24, 4])
+def test_coloring_kernel_matches_twin(dev, max_colors):
+    """Raw colors bit for bit: int32 atomicMin claims do not depend on
+    their order."""
+    cfg, st = _pressed_pile(300, dev, broadphase="grid")
+    st, _ = engine.simulate(st, cfg, 3)
+    man = contacts.collide(st, cfg)
+    dyn = st.bodies.inv_mass > 0.0
+    args = (man.body_a, man.body_b, man.valid, dyn, dyn.shape[0], max_colors)
+    n0 = ck.color_rounds.launches
+    k = ck.color_rounds_cuda(*args)
+    p = ck.color_rounds_plain(*args)
+    torch.cuda.synchronize()
+    assert ck.color_rounds.launches == n0 + 1
+    assert torch.equal(k, p)
+    spilled = int(((p < 0) & man.valid).sum())
+    assert (spilled > 0) == (max_colors == 4)
+
+
+def test_mixed_pile_fresh_coloring_launches_every_kernel_and_repeats(dev):
+    cfg, st0 = _falling_mixed_pile(400, dev, 30, persistent_coloring=False)
+    counters = (npk.box_box_slots, p1pt.pairs_1pt_slots, ck.color_rounds,
+                setup_kernel.setup, solver_kernel.solve)
+    before = [c.launches for c in counters]
+    a, ma = engine.simulate(st0, cfg, 5)
+    b, mb = engine.simulate(st0, cfg, 5)
+    torch.cuda.synchronize()
+    assert all(c.launches == n + 10 for c, n in zip(counters, before))
+    for f in ("pos", "quat", "vel", "angvel"):
+        assert torch.equal(getattr(a.bodies, f), getattr(b.bodies, f)), f
+    assert torch.equal(ma.kinetic_energy, mb.kinetic_energy)
+    assert not bool(ma.overflow.any())
+    assert bool(torch.isfinite(a.bodies.pos).all())
