@@ -16,19 +16,40 @@ no result):
      config 3 after 120 steps;
   4. config 1: one box dropped on the ground, 500 steps, held to the rest
      gates of tests/test_engine.py;
-  5. the slice: the 20,480-box pile (bench.tuned_config capacities, every
-     body awake) for 150 steps through nudge_tpu_torch.engine.simulate, with
-     every kernel's launch count;
+  5. the awake pile: the 20,480-box pile (bench.tuned_config capacities,
+     every body awake) for 150 steps through nudge_tpu_torch.engine.simulate,
+     with every kernel's launch count;
   6. config 3: the 2,048-body mixed pile (25% spheres, walls) for 300 steps,
      its spheres held above the ground;
   7. fresh coloring: the 20,480-box pile with persistent_coloring=False for
      60 steps from the state of phase 3, the coloring kernel once a step;
   8. determinism: two 30-step runs of the pile, and two of config 3, are
-     bitwise equal.
+     bitwise equal;
+  9. config 1 asleep and parked: the single box in the reference mode
+     (sleeping + persistent broadphase) for 300 steps: asleep, velocity
+     exactly 0, at rest height, and the all-asleep park taken on some steps
+     with no kernel launch on them;
+ 10. wake on impact: tests/test_sleeping.py's stack and impactor with the
+     persistent broadphase, 250 steps, the impactor fired, 200 steps: the
+     stack sleeps before the impact and wakes with it;
+ 11. the slice: the 20,480-box pile in the reference mode (bench.py's
+     reference mode: tuned_config capacities, sleeping and the persistent
+     broadphase) on r5_c4_fidelity's scene (seed 3) from spawn for 3,000
+     steps in windows of 100, held in every window to no overflow, a
+     finite state, every sleeper's velocity exactly 0 under its awake
+     load, max depth < 0.5 and, from step 300 on, a total energy that does
+     not rise; at the end to a max depth (last window, and the
+     final state's resting contacts) <= 0.02, awake < 25%, no coloring
+     conflict and no dead body;
+ 12. bench.py's headline scene (seed 0) the same way, its end depth
+     reported instead of gated, its settled rate (the last 500 steps),
+     and two 30-step runs from its final state, bitwise equal;
+ 13. config 3 in the reference mode for 1,500 steps: spheres above the
+     ground, total energy that does not rise from step 600 on.
 
-Phases 5-7 each zero the kernels' launch counts before they run and read
-them after, and run with the plain twins replaced by functions that raise:
-the main paths go through the kernels only.
+Phases 5-7 and 9-13 each zero the kernels' launch counts before they run
+and read them after, and run with the plain twins replaced by functions
+that raise: the main paths go through the kernels only.
 
 The last line of standard output is one JSON object
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
@@ -63,6 +84,25 @@ MIXED_WINDOW = 50
 FRESH_STEPS = 60
 FRESH_WINDOW = 20
 SPHERE_MIN_Y = 0.2         # tests/test_sphere_kernel.py's gate
+CONFIG1_REF_STEPS = 300    # tests/test_sleeping.py's single-box horizon
+WAKE_BEFORE, WAKE_AFTER = 250, 200   # tests/test_sleeping.py's impact test
+REF_STEPS = 3000           # docs/FIDELITY.md's r5_c4_fidelity horizon
+FIDELITY_SEED = 3          # r5_c4_fidelity's scene (debug_limit_cycle.py)
+REF_WINDOW = 100
+REF_HALF = 50              # sync points inside a window (impact rate)
+IMPACT_STEPS = 150         # the impact window bench.py reports
+SETTLED_TAIL = 500         # the settled-pile rate: the last 500 steps
+REF_ENERGY_FROM = 300
+REF_DEPTH_END = 0.02       # the reference ends at 0.0077 ~ slop
+AWAKE_END = 0.25           # bench.py's sleep-onset line (< 25% awake)
+MIXED_REF_STEPS = 1500
+MIXED_ENERGY_FROM = 600
+# Total energy may not rise window over window by more than this share of
+# itself: the pile's E is ~1e6 J, float32 positions round each body's m*g*y
+# to ~1e-7 of it, so rounding stays ~100x under the bound, and a rise past
+# it (12 J on the 20,480 pile: one box lifted by a metre) is a real energy
+# source. The largest tolerance the gate allows.
+ENERGY_RTOL = 1e-5
 
 TPU_KERNEL_OF = {
     "box_box": "nudge_tpu/ops/narrowphase_kernel.py:535",
@@ -134,6 +174,15 @@ def pile_config(builder, n):
         max_box_box_pairs=max(1024, int(n * 8.0)),
         max_manifolds=max(512, int(n * 3.0)), grid_density=16,
         fat_pair_factor=2, sleeping=False, persistent_broadphase=False)
+
+
+def reference_config(builder, n):
+    """bench.py's reference mode (`bench.py:324`): tuned_config's
+    capacities with sleeping and the persistent broadphase on. At 20,480
+    bodies: 163,840 tight and 327,680 fat box-box pair slots, 61,440
+    manifold slots and parked-pair rows, grid density 16."""
+    return pile_config(builder, n).replace(sleeping=True,
+                                           persistent_broadphase=True)
 
 
 def counters():
@@ -288,7 +337,7 @@ def phase_compare(card, dev):
 
     # --- setup at the step's manifolds ---
     bodies = integrate.apply_gravity(st.bodies, st.sleep, cfg)
-    man = contacts.collide(st, cfg)
+    man, _ = contacts.collide(st, cfg)
     warm, pwarm = cache.read_cached_impulses(st.cache, man, cfg)
     col, _ = solver.color_manifolds_cached(man, bodies, cfg, st.colors)
     kcon, kvelw, kacc = setup_kernel.setup_cuda(bodies, man, warm, cfg, col,
@@ -433,14 +482,6 @@ def phase_config1(card, dev):
         f"(JAX reference {CONFIG1_Y}), |v| {v:.3g}, KE {ke:.3g}")
 
 
-def finite_state(st):
-    import torch
-
-    b = st.bodies
-    return all(bool(torch.isfinite(x).all())
-               for x in (b.pos, b.quat, b.vel, b.angvel))
-
-
 def run_windows(card, label, st, cfg, steps, window, pairs_by_class=False):
     """Steps `st` through engine.simulate in windows of `window` steps and
     holds each window to the slice gates: no overflow, a finite state, max
@@ -449,6 +490,7 @@ def run_windows(card, label, st, cfg, steps, window, pairs_by_class=False):
 
     from nudge_tpu_torch import engine
     from nudge_tpu_torch.ops import broadphase, grid
+    from nudge_tpu_torch.utils.debug import finite_state
 
     t_all = 0.0
     for w0 in range(0, steps, window):
@@ -577,6 +619,339 @@ def phase_repeat(card, dev):
     repeat(card, "config 3", *mixed_scene(), dev)
 
 
+def total_energy(st, cfg):
+    """KE + sum of m*g*h over the dynamic bodies (KE as StepMetrics counts
+    it, h along -gravity), in float64."""
+    import torch
+
+    b = st.bodies
+    m_inv = b.inv_mass.double()
+    mass = torch.where(m_inv > 0, 1.0 / m_inv.clamp_min(1e-12), 0.0)
+    v = b.vel.double()
+    g = torch.tensor(cfg.gravity, dtype=torch.float64, device=b.pos.device)
+    return float(0.5 * torch.sum(mass * (v * v).sum(-1))
+                 - torch.sum(mass * (b.pos.double() @ g)))
+
+
+def phase_config1_parked(card, dev):
+    """Config 1 in the reference mode: the box falls asleep, and the park
+    (no kernel launch) takes over."""
+    import torch
+
+    from nudge_tpu_torch import engine, scenes
+
+    b = scenes.scene_single_box(2.0)
+    cfg = b.auto_config(sleeping=True, persistent_broadphase=True)
+    st = b.finalize(cfg, device=dev)
+    parked = 0
+    awake = []
+    with KernelsOnly() as run:
+        t0 = time.perf_counter()
+        for _ in range(CONFIG1_REF_STEPS):
+            before = sum(fn.launches for fn in counters().values())
+            p0 = engine.step.parked
+            st, m = engine.step(st, cfg)
+            awake.append(m.awake_count)
+            if engine.step.parked > p0:
+                parked += 1
+                if sum(fn.launches for fn in counters().values()) != before:
+                    raise AssertionError("config 1 asleep: a kernel was "
+                                         "launched on a parked step")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    need_launches("config 1 asleep", run.launches, ("box_box", "setup",
+                                                    "solve"))
+    awake = torch.stack(awake).tolist()
+    y = float(st.bodies.pos[1, 1])
+    still = not (bool(st.bodies.vel[1].any()) or bool(st.bodies.angvel[1].any()))
+    if (bool(st.sleep.awake[1]) or awake[-1] != 0 or not still
+            or abs(y - 0.5) >= 0.02 or parked == 0):
+        raise AssertionError(f"config 1 asleep gates: awake {awake[-1]}, "
+                             f"velocity zero {still}, y {y}, parked steps "
+                             f"{parked}")
+    log(card, f"config 1 asleep: {CONFIG1_REF_STEPS} steps in {dt:.2f} s; "
+        f"asleep from step {awake.index(0) + 1}, parked on {parked} steps "
+        f"with no kernel launch; y {y:.8f}, velocity exactly 0; launches "
+        f"{run.launches}")
+
+
+def phase_wake(card, dev):
+    """tests/test_sleeping.py's impact test with the persistent
+    broadphase: the stack sleeps, the impactor wakes it."""
+    import torch
+
+    from nudge_tpu_torch import engine
+    from nudge_tpu_torch.scenes import SceneBuilder
+    from nudge_tpu_torch.utils.debug import finite_state
+
+    b = SceneBuilder()
+    b.add_static_box((50, 0.5, 50), (0, -0.5, 0))
+    for i in range(3):
+        b.add_box((0.5, 0.5, 0.5), (0, 0.5 + i * 1.001, 0))
+    b.add_box((0.5, 0.5, 0.5), (-6.0, 0.5, 0), mass=4.0)
+    cfg = b.auto_config(sleeping=True, sleep_frames=30,
+                        persistent_broadphase=True)
+    with KernelsOnly() as run:
+        st, _ = engine.simulate(b.finalize(cfg, device=dev), cfg, WAKE_BEFORE)
+        asleep_before = not bool(st.sleep.awake[1:4].any())
+        parked_pairs = int((st.sleep.pairs[:, 0] >= 0).sum())
+        vel = st.bodies.vel.clone()
+        vel[4] = torch.tensor([8.0, 0.0, 0.0], device=dev)
+        awake = st.sleep.awake.clone()
+        awake[4] = True
+        st = st.replace(bodies=st.bodies.replace(vel=vel),
+                        sleep=st.sleep.replace(awake=awake))
+        st, m = engine.simulate(st, cfg, WAKE_AFTER)
+    need_launches("wake", run.launches, ("box_box", "setup", "solve"))
+    woke = int(m.awake_count.max())
+    if not (asleep_before and parked_pairs >= 2 and woke >= 4
+            and finite_state(st)):
+        raise AssertionError(f"wake gates: stack asleep before {asleep_before}"
+                             f", parked pairs {parked_pairs}, awake after "
+                             f"{woke}, finite {finite_state(st)}")
+    log(card, f"wake: stack asleep after {WAKE_BEFORE} steps with "
+        f"{parked_pairs} parked pairs; the impact woke {woke} bodies; "
+        f"launches {run.launches}")
+
+
+def run_reference(card, label, st, cfg, steps, energy_from, spheres=False):
+    """Steps `st` in the reference mode in windows of REF_WINDOW, syncing
+    every REF_HALF steps, and holds every window to no overflow, a finite
+    state, sleepers at exactly zero velocity, max depth < 0.5, total energy that does not rise from step
+    `energy_from` on (ENERGY_RTOL) and, with `spheres`, every dynamic
+    sphere's centre above SPHERE_MIN_Y. Returns (state, dict of the
+    trajectory: cumulative seconds at every REF_HALF steps, awake count,
+    rebuilds and parks per window, the last window's max depth)."""
+    import torch
+
+    from nudge_tpu_torch import engine
+    from nudge_tpu_torch.ops import persistent_bp
+    from nudge_tpu_torch.utils.debug import finite_state
+
+    times, awake, rebuilds, parks = [0.0], [], [], []
+    e_prev = depth = None
+    sp_body = st.spheres.body[st.spheres.valid].long()
+    sp_body = sp_body[st.bodies.inv_mass[sp_body] > 0]
+    for w0 in range(0, steps, REF_WINDOW):
+        rb0 = persistent_bp.persistent_broadphase.rebuilds
+        pk0 = engine.step.parked
+        ms = []
+        for _ in range(REF_WINDOW // REF_HALF):
+            t0 = time.perf_counter()
+            st, m = engine.simulate(st, cfg, REF_HALF)
+            torch.cuda.synchronize()
+            times.append(times[-1] + time.perf_counter() - t0)
+            ms.append(m)
+        w1 = w0 + REF_WINDOW
+        rebuilds.append(persistent_bp.persistent_broadphase.rebuilds - rb0)
+        parks.append(engine.step.parked - pk0)
+        over = any(bool(m.overflow.any()) for m in ms)
+        depth = max(float(m.max_depth.max()) for m in ms)
+        spill = max(int(m.spill_count.max()) for m in ms)
+        m = ms[-1]
+        awake.append(int(m.awake_count[-1]))
+        energy = total_energy(st, cfg)
+        if over:
+            bits = sorted({int(x) for mm in ms for x in mm.overflow_bits})
+            raise AssertionError(f"{label}: overflow in steps {w0}..{w1}: "
+                                 f"bits {bits}")
+        if not finite_state(st):
+            raise AssertionError(f"{label}: non-finite state after step {w1}")
+        # sleepers are static for the solve, so the kernels never write
+        # velocity into one, even under an awake load
+        asleep = (st.bodies.inv_mass > 0) & ~st.sleep.awake
+        if (bool(st.bodies.vel[asleep].any())
+                or bool(st.bodies.angvel[asleep].any())):
+            raise AssertionError(f"{label}: a sleeper has nonzero velocity "
+                                 f"after step {w1}")
+        if depth >= 0.5:
+            raise AssertionError(f"{label}: max depth {depth} >= 0.5 in "
+                                 f"steps {w0}..{w1}")
+        if (e_prev is not None and w0 >= energy_from
+                and energy > e_prev + ENERGY_RTOL * abs(e_prev)):
+            raise AssertionError(f"{label}: total energy rose from {e_prev} "
+                                 f"to {energy} in steps {w0}..{w1}")
+        low = ""
+        if spheres:
+            y = float(st.bodies.pos[sp_body, 1].min())
+            if y <= SPHERE_MIN_Y:
+                raise AssertionError(f"{label}: a sphere's centre is at "
+                                     f"y={y} <= {SPHERE_MIN_Y} at step {w1}")
+            low = f", lowest sphere y {y:.4f}"
+        log(card, f"{label} steps {w0}-{w1}: "
+            f"{REF_WINDOW / (times[-1] - times[-3]):.3f} steps/s, awake "
+            f"{awake[-1]}, rebuilds {rebuilds[-1]}, parked {parks[-1]}, "
+            f"contacts {int(m.contact_count[-1])}, manifolds "
+            f"{int(m.manifold_demand[-1])}, pairs {int(m.pair_demand[-1])}, "
+            f"max depth {depth:.4f}, KE {float(m.kinetic_energy[-1]):.6g}, "
+            f"E {energy:.10g}, spill {spill}{low}")
+        e_prev = energy
+    return st, dict(times=times, awake=awake, rebuilds=rebuilds,
+                    parks=parks, depth=depth)
+
+
+def next_step_conflicts(st, cfg):
+    """(conflicts, spill, manifolds) of the coloring that a step from `st`
+    runs, as the solve sees it (sleepers static); the spill color, where
+    conflicts are allowed, is left out."""
+    import types
+
+    import torch
+
+    from nudge_tpu_torch.ops import contacts, integrate, solver
+    from nudge_tpu_torch.utils.debug import coloring_conflicts
+
+    bodies = integrate.apply_gravity(st.bodies, st.sleep, cfg)
+    man, _ = contacts.collide(st, cfg)
+    asleep = ~st.sleep.awake
+    bodies = bodies.replace(
+        inv_mass=torch.where(asleep, 0.0, bodies.inv_mass),
+        inv_inertia=torch.where(asleep[:, None], 0.0, bodies.inv_inertia))
+    (color, _, _, spill, spill_color), _ = solver.color_manifolds_cached(
+        man, bodies, cfg, st.colors)
+    con = types.SimpleNamespace(color=color, body_a=man.body_a,
+                                body_b=man.body_b,
+                                valid=man.valid & (color != spill_color))
+    return (int(coloring_conflicts(con, bodies)), int(spill),
+            int(man.valid.sum()))
+
+
+def clone_state(st):
+    import dataclasses
+
+    groups = ("bodies", "boxes", "spheres", "cache", "sleep", "bp", "colors")
+    return st.replace(
+        connections=st.connections.clone(), step_count=st.step_count.clone(),
+        **{g: dataclasses.replace(getattr(st, g), **{
+            f.name: getattr(getattr(st, g), f.name).clone()
+            for f in dataclasses.fields(getattr(st, g))}) for g in groups})
+
+
+def repeat_from(card, label, st, cfg):
+    """Two REPEAT_STEPS-step runs from clones of `st`: bodies, contact
+    cache, sleep state and every persistent-broadphase array bitwise
+    equal."""
+    import dataclasses
+
+    import torch
+
+    from nudge_tpu_torch import engine
+
+    a, _ = engine.simulate(clone_state(st), cfg, REPEAT_STEPS)
+    c, _ = engine.simulate(clone_state(st), cfg, REPEAT_STEPS)
+    torch.cuda.synchronize()
+    for g in ("bodies", "cache", "sleep", "bp"):
+        for f in dataclasses.fields(getattr(a, g)):
+            if not torch.equal(getattr(getattr(a, g), f.name),
+                               getattr(getattr(c, g), f.name)):
+                raise AssertionError(f"{label} repeat runs differ in "
+                                     f"{g}.{f.name}")
+    log(card, f"determinism: two {REPEAT_STEPS}-step {label} runs from its "
+        "final state bitwise equal (bodies, cache, sleep, bp)")
+
+
+def resting_depth(st, cfg):
+    """(max depth, overflow) over every contact of `st` with every body
+    counted awake: sleepers keep no live contacts, so the metric of a
+    parked step is 0 while the resting pile still has its depths."""
+    import torch
+
+    from nudge_tpu_torch.ops import contacts
+
+    woke = st.replace(
+        sleep=st.sleep.replace(awake=torch.ones_like(st.sleep.awake)),
+        bp=st.bp.replace(stale=torch.ones_like(st.bp.stale)))
+    man, _ = contacts.collide(woke, cfg)
+    depth = torch.amax(torch.where(man.point_valid, man.depth, 0.0))
+    return float(depth), bool(man.overflow)
+
+
+def reference_pile(card, label, dev, seed, fidelity):
+    """The 20,480 pile in the reference mode from spawn for REF_STEPS
+    steps, with run_reference's window gates, then awake < AWAKE_END, no
+    coloring conflict and no dead body at the end; with `fidelity` also
+    the last window's max depth and the final state's resting depth at
+    most REF_DEPTH_END. Returns (launch counts, final state, config)."""
+    from nudge_tpu_torch import scenes
+
+    b = scenes.scene_pile(N_PILE, seed=seed)
+    cfg = reference_config(b, N_PILE)
+    st = b.finalize(cfg, device=dev)
+    with KernelsOnly() as run:
+        st, tr = run_reference(card, label, st, cfg, REF_STEPS,
+                               REF_ENERGY_FROM)
+    need_launches(label, run.launches, ("box_box", "setup", "solve"))
+    t = tr["times"]
+    impact = IMPACT_STEPS / t[IMPACT_STEPS // REF_HALF]
+    settled = SETTLED_TAIL / (t[-1] - t[-1 - SETTLED_TAIL // REF_HALF])
+    dyn = st.bodies.inv_mass > 0
+    dead = int((dyn & ~st.sleep.awake
+                & (st.bodies.pos[:, 1] < cfg.kill_plane_y)).sum())
+    conflicts, spill, n_man = next_step_conflicts(st, cfg)
+    rest, rest_over = resting_depth(st, cfg)
+    awake = tr["awake"][-1]
+    log(card, f"{label}: {REF_STEPS} steps in {t[-1]:.2f} s; impact steps "
+        f"0-{IMPACT_STEPS} {impact:.3f} steps/s; last {SETTLED_TAIL} steps "
+        f"{settled:.3f} steps/s; awake by window {tr['awake']}; rebuilds "
+        f"{sum(tr['rebuilds'])} (by window {tr['rebuilds']}); parked steps "
+        f"{sum(tr['parks'])}; last window max depth {tr['depth']:.4f}; "
+        f"resting depth of the final state {rest:.4f} (overflow "
+        f"{rest_over}); {dead} dead; {conflicts} coloring conflicts over "
+        f"{n_man} manifolds ({spill} spilled); launches {run.launches}")
+    ok = awake < AWAKE_END * N_PILE and conflicts == 0 and dead == 0
+    if fidelity:
+        ok = ok and max(tr["depth"], rest) <= REF_DEPTH_END and not rest_over
+    if not ok:
+        raise AssertionError(
+            f"{label} end gates: awake {awake} (< {AWAKE_END * N_PILE}), "
+            f"conflicts {conflicts}, dead {dead}"
+            + (f", max depth {tr['depth']} and resting depth {rest} (<= "
+               f"{REF_DEPTH_END})" if fidelity else ""))
+    return run.launches, st, cfg
+
+
+def phase_reference_pile(card, dev):
+    """The slice, on r5_c4_fidelity's own scene (scene_pile(20480, seed=3),
+    scripts/debug_limit_cycle.py): every end gate."""
+    return reference_pile(card, "reference pile", dev, FIDELITY_SEED,
+                          fidelity=True)[0]
+
+
+def phase_bench_pile(card, dev):
+    """bench.py's headline scene (scene_pile(20480), seed 0) in the
+    reference mode: its settled rate, and two bitwise-equal runs from its
+    final state. Its last-window depth is reported, not gated: the
+    reference's own run of this scene was not quiet either (BENCH_r05:
+    4,062 awake after 3,600 steps, KE rising 4.2 -> 47.13)."""
+    launches, st, cfg = reference_pile(card, "bench pile", dev, 0,
+                                       fidelity=False)
+    with KernelsOnly():
+        repeat_from(card, "bench pile", st, cfg)
+    return launches
+
+
+def phase_reference_mixed(card, dev):
+    """Config 3 in the reference mode: the settle gate of BASELINE config
+    3 (energy non-increasing after settle)."""
+    from nudge_tpu_torch import scenes
+
+    b = scenes.scene_pile(N_MIXED, sphere_frac=SPHERE_FRAC)
+    cfg = reference_config(b, N_MIXED)
+    st = b.finalize(cfg, device=dev)
+    with KernelsOnly() as run:
+        st, tr = run_reference(card, "config 3 reference", st, cfg,
+                               MIXED_REF_STEPS, MIXED_ENERGY_FROM,
+                               spheres=True)
+    need_launches("config 3 reference", run.launches,
+                  ("box_box", "pairs_1pt", "setup", "solve"))
+    t = tr["times"]
+    log(card, f"config 3 reference: {MIXED_REF_STEPS} steps in {t[-1]:.2f} s "
+        f"({MIXED_REF_STEPS / t[-1]:.3f} steps/s); awake by window "
+        f"{tr['awake']}; rebuilds {sum(tr['rebuilds'])}; parked steps "
+        f"{sum(tr['parks'])}; launches {run.launches}")
+    return run.launches
+
+
 def main():
     sys.path.insert(0, REPO)
     import torch
@@ -587,10 +962,16 @@ def main():
     records, pile_state = phase_compare(card, dev)
     records["pairs_1pt"] = phase_compare_1pt(card, dev)
     phase_config1(card, dev)
-    launches = phase_slice(card, dev)
-    launches["pairs_1pt"] = phase_mixed(card, dev)["pairs_1pt"]
-    launches["coloring"] = phase_fresh(card, pile_state)["coloring"]
+    phase_slice(card, dev)
+    phase_mixed(card, dev)
+    coloring = phase_fresh(card, pile_state)["coloring"]
     phase_repeat(card, dev)
+    phase_config1_parked(card, dev)
+    phase_wake(card, dev)
+    launches = phase_reference_pile(card, dev)     # the slice's main path
+    phase_bench_pile(card, dev)
+    launches["pairs_1pt"] = phase_reference_mixed(card, dev)["pairs_1pt"]
+    launches["coloring"] = coloring
     kernels = [dict(name=k, route="cuda", source=SOURCE_OF[k],
                     replaces=TPU_KERNEL_OF[k], launches=launches[k],
                     **records[k]) for k in TPU_KERNEL_OF]

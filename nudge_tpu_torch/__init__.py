@@ -1,10 +1,12 @@
 """nudge_tpu_torch — the PyTorch/CUDA port of the nudge_tpu rigid-body engine.
 
-The JAX package `nudge_tpu` is the reference. This package runs its default
-box-pile path in PyTorch: plain tensor code everywhere, and hand-written
-CUDA kernels (csrc/) for the box-box narrowphase, the constraint setup and
-the iterated solve whenever the state lives on a CUDA device. On CPU tensors
-each kernel's plain PyTorch twin runs instead.
+The JAX package `nudge_tpu` is the reference. This package runs its box
+and sphere piles, awake or in the reference mode (sleeping + persistent
+broadphase), in PyTorch: plain tensor code everywhere, and hand-written
+CUDA kernels (csrc/) for both narrowphases, the fresh coloring's claim
+rounds, the constraint setup and the iterated solve whenever the state
+lives on a CUDA device. On CPU tensors each kernel's plain PyTorch twin
+runs instead.
 """
 
 from .config import SimConfig

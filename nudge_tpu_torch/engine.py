@@ -6,9 +6,14 @@ narrowphases, the fresh coloring's claim rounds, setup and solve go
 through the hand-written kernels, on CPU tensors through their plain
 twins. `simulate` is a Python loop over steps.
 
-It runs boxes and spheres, with the cached or the fresh coloring and every
-body awake; sleeping, the persistent broadphase and the differentiable
-mode raise NotImplementedError instead of running a partial path.
+It runs boxes and spheres, with the cached or the fresh coloring, with or
+without sleeping and the persistent broadphase (together: the reference
+mode of the JAX bench). The reference's two `lax.cond`s that depend only
+on the state a step starts from (any dynamic body awake: step or park;
+`persistent_bp.needs_rebuild`: fat rebuild or reuse) are Python branches
+here, on flags read to the host in one transfer per step. The
+differentiable mode raises NotImplementedError instead of running a
+partial path.
 """
 
 from __future__ import annotations
@@ -18,18 +23,19 @@ import dataclasses
 import torch
 
 from .config import SimConfig
+from .mathx import dot
 from .ops import setup_kernel, solver_kernel
 from .ops.cache import read_cached_impulses, write_cached_impulses
 from .ops.contacts import collide
 from .ops.integrate import advance, apply_gravity, apply_position_correction
+from .ops.persistent_bp import needs_rebuild
+from .ops.sleeping import update_sleep
 from .ops.solver import (
     accumulated_world_impulse, color_manifolds, color_manifolds_cached,
 )
 from .state import SimState
 
 _NOT_YET = {
-    "sleeping": "ROADMAP Queue 1 item 9",
-    "persistent_broadphase": "ROADMAP Queue 1 item 9",
     "differentiable": "ROADMAP Queue 1 item 13",
 }
 
@@ -57,11 +63,55 @@ class StepMetrics:
 
 
 def step(state: SimState, cfg: SimConfig):
-    """One simulation step. Returns (new_state, StepMetrics)."""
+    """One simulation step. Returns (new_state, StepMetrics).
+
+    With sleeping on, a scene whose every dynamic body is asleep skips the
+    whole contact pipeline (the park): nothing inside the engine can wake
+    an all-asleep scene, so the skip is exact."""
     check_supported(cfg)
+    rebuild = None
+    if cfg.sleeping or cfg.persistent_broadphase:
+        flags = []
+        if cfg.sleeping:
+            flags.append(torch.any(state.sleep.awake & state.bodies.dynamic))
+        if cfg.persistent_broadphase:
+            flags.append(needs_rebuild(state, cfg))
+        host = torch.stack(flags).tolist()       # one host read for both
+        if cfg.sleeping and not host[0]:
+            return _step_parked(state)
+        if cfg.persistent_broadphase:
+            rebuild = host[-1]
+    return _step_active(state, cfg, rebuild)
+
+
+def _step_parked(state: SimState):
+    """All-asleep fast path: state unchanged except the step counter, and
+    all-zero metrics."""
+    step.parked += 1
+    dev = state.device
+    z_i = torch.zeros((), dtype=torch.int32, device=dev)
+    z_f = torch.zeros((), dtype=torch.float32, device=dev)
+    metrics = StepMetrics(
+        contact_count=z_i, max_depth=z_f, spill_count=z_i,
+        overflow=torch.zeros((), dtype=torch.bool, device=dev),
+        awake_count=z_i, kinetic_energy=z_f, overflow_bits=z_i,
+        manifold_demand=z_i, pair_demand=z_i)
+    return state.replace(step_count=state.step_count + 1), metrics
+
+
+def _step_active(state: SimState, cfg: SimConfig, rebuild):
     bodies = apply_gravity(state.bodies, state.sleep, cfg)
-    contacts = collide(state, cfg)
+    contacts, bp = collide(state, cfg, rebuild=rebuild)
     warm, pwarm = read_cached_impulses(state.cache, contacts, cfg)
+    if cfg.sleeping:
+        # sleepers are static for coloring, setup and solve, so the solver
+        # never writes velocity into them; true mass comes back before
+        # advance
+        im0, ii0 = bodies.inv_mass, bodies.inv_inertia
+        asleep = ~state.sleep.awake
+        bodies = bodies.replace(
+            inv_mass=torch.where(asleep, 0.0, im0),
+            inv_inertia=torch.where(asleep[:, None], 0.0, ii0))
     if cfg.persistent_coloring:
         coloring, colors = color_manifolds_cached(contacts, bodies, cfg,
                                                   state.colors)
@@ -74,32 +124,47 @@ def step(state: SimState, cfg: SimConfig):
                             angvel=velw[:, 3:6].contiguous())
     cache = write_cached_impulses(contacts, accumulated_world_impulse(con, acc),
                                   pseudo_acc)
+    if cfg.sleeping:
+        bodies = bodies.replace(inv_mass=im0, inv_inertia=ii0)
 
     bodies = advance(bodies, state.sleep, cfg)
     if cfg.split_impulse:
         bodies = apply_position_correction(
             bodies, (velw[:, 6:9], velw[:, 9:12]), state.sleep, cfg)
+    sleep = state.sleep
+    if cfg.sleeping:
+        # the wake gate's "fast" mask is taken from the state the step
+        # started from (pre-gravity, pre-solve); wake_factor hysteresis keeps
+        # settled jigglers from re-waking their sleeping neighbours
+        wf2 = cfg.wake_factor ** 2
+        v0, w0 = state.bodies.vel, state.bodies.angvel
+        fast0 = ((dot(v0, v0) > wf2 * cfg.sleep_lin_vel ** 2)
+                 | (dot(w0, w0) > wf2 * cfg.sleep_ang_vel ** 2))
+        sleep, bodies = update_sleep(bodies, contacts, state.sleep, cfg,
+                                     fast=fast0)
 
-    new_state = state.replace(bodies=bodies, cache=cache, colors=colors,
-                              step_count=state.step_count + 1)
+    new_state = state.replace(bodies=bodies, cache=cache, sleep=sleep, bp=bp,
+                              colors=colors, step_count=state.step_count + 1)
     dyn = bodies.dynamic
-    v = bodies.vel
-    v2 = v[:, 0] * v[:, 0] + v[:, 1] * v[:, 1] + v[:, 2] * v[:, 2]
     ke = 0.5 * torch.sum(torch.where(
-        dyn, v2 / torch.clamp_min(bodies.inv_mass, 1e-12), 0.0))
+        dyn, dot(bodies.vel, bodies.vel) / torch.clamp_min(bodies.inv_mass,
+                                                            1e-12), 0.0))
     metrics = StepMetrics(
         contact_count=contacts.contact_count,
         max_depth=torch.amax(torch.where(contacts.point_valid, contacts.depth,
                                          0.0)),
         spill_count=con.spill_count,
         overflow=contacts.overflow,
-        awake_count=torch.sum((dyn & state.sleep.awake).to(torch.int32)),
+        awake_count=torch.sum((dyn & sleep.awake).to(torch.int32)),
         kinetic_energy=ke,
         overflow_bits=contacts.overflow_bits,
         manifold_demand=contacts.count,
         pair_demand=contacts.pair_demand,
     )
     return new_state, metrics
+
+
+step.parked = 0
 
 
 def simulate(state: SimState, cfg: SimConfig, steps: int):

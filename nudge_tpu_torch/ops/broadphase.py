@@ -118,8 +118,9 @@ def _compact_pairs(mask, cap: int, n_cols: int) -> CandidatePairs:
 
 
 def dead_mask(bodies, sleep, cfg: SimConfig):
-    """bool[N]: bodies force-slept below the kill plane, or None when the
-    kill plane is off (always, while the port runs without sleeping)."""
+    """bool[N]: bodies force-slept below the kill plane (they have left
+    the world and leave the broadphase), or None when the kill plane or
+    sleeping is off."""
     if cfg.kill_plane_y <= -1e8 or not cfg.sleeping:
         return None
     return (bodies.dynamic & ~sleep.awake

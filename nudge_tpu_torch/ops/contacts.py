@@ -16,7 +16,7 @@ from ..config import SimConfig
 from ..state import SimState
 from . import narrowphase as nps
 from .broadphase import (
-    allpairs_broadphase, compact_mask, world_colliders,
+    allpairs_broadphase, compact_mask, dead_mask, world_colliders,
 )
 from .narrowphase_1pt import pairs_1pt_slots
 from .narrowphase_kernel import box_box_slots
@@ -43,8 +43,8 @@ class Manifolds:
     count: torch.Tensor        # i32 true manifold count (may exceed M)
     overflow: torch.Tensor     # bool
     # bit0 box-box pairs | bit1 box-sphere pairs | bit2 sphere-sphere pairs
-    # | bit3 manifold compaction | bit5 grid cell density | bit6 grid expand
-    # capacity
+    # | bit3 manifold compaction | bit4 persistent-broadphase rebuild
+    # | bit5 grid cell density | bit6 grid expand capacity
     overflow_bits: Optional[torch.Tensor] = None
     pair_demand: Optional[torch.Tensor] = None
 
@@ -129,13 +129,33 @@ def _base_broadphase(cfg: SimConfig):
     return allpairs_broadphase
 
 
-def collide(state: SimState, cfg: SimConfig) -> Manifolds:
-    """Broadphase + narrowphase + compaction for one step."""
-    if cfg.persistent_broadphase:
-        raise NotImplementedError(
-            "persistent_broadphase is not ported yet (ROADMAP Queue 1 item 9)")
+def collide(state: SimState, cfg: SimConfig, rebuild=None):
+    """Broadphase + narrowphase + compaction for one step. Returns
+    (Manifolds, BPCache): the cache threads the persistent broadphase
+    between steps (ops/persistent_bp; `rebuild` is the host's copy of its
+    rebuild decision, read there when None)."""
     wc = world_colliders(state)
-    bb, bs, ss = _base_broadphase(cfg)(state, wc, cfg)
+    base = _base_broadphase(cfg)
+    if cfg.persistent_broadphase:
+        from .persistent_bp import persistent_broadphase
+
+        # the rebuild caches pairs as if every body were awake, so waking
+        # islands reconnect at once; dead bodies (below the kill plane)
+        # never wake and stay out of the rebuild
+        dead = dead_mask(state.bodies, state.sleep, cfg)
+        rb_awake = torch.ones_like(state.sleep.awake)
+        if dead is not None:
+            rb_awake = rb_awake & ~dead
+        awake_state = state.replace(sleep=state.sleep.replace(awake=rb_awake))
+
+        def base_awake(_, wcx, cfgx):
+            return base(awake_state, wcx, cfgx)
+
+        (bb, bs, ss), bp = persistent_broadphase(state, wc, cfg, base_awake,
+                                                 rebuild)
+    else:
+        bb, bs, ss = base(state, wc, cfg)
+        bp = state.bp
     slots = narrowphase_all(state, wc, bb, bs, ss, cfg)
     pair_overflow = bb.overflow
     bits = bb.overflow.to(torch.int32)
@@ -149,5 +169,10 @@ def collide(state: SimState, cfg: SimConfig) -> Manifolds:
         pair_overflow = pair_overflow | (bb.flags != 0)
         bits = bits | (bb.flags & 1)
         bits = bits | (((bb.flags >> 1) & 3) << 5)
+    if cfg.persistent_broadphase:
+        # rebuild-time drops poison every reuse step until the next rebuild
+        pair_overflow = pair_overflow | bp.overflow
+        bits = bits | torch.where(bp.overflow, 16, 0).to(torch.int32)
+        bits = bits | torch.where(bp.overflow, ((bp.flags >> 1) & 3) << 5, 0)
     man = compact_manifolds(slots, cfg, pair_overflow, pair_bits=bits)
-    return man.replace(pair_demand=pair_demand)
+    return man.replace(pair_demand=pair_demand), bp

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from .config import SimConfig
+from .ops.persistent_bp import empty_bp_cache
 from .state import (
     Bodies, Boxes, SimState, SleepState, Spheres, empty_cache,
     empty_color_cache,
@@ -303,8 +304,8 @@ class SceneBuilder:
         if self.connections:
             conn[: len(self.connections)] = np.asarray(self.connections, np.int32)
 
-        def t(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        def t(a):   # np.array, not ascontiguousarray: 0-d stays 0-d
+            return torch.from_numpy(np.array(a, order="C")).to(device)
 
         return SimState(
             bodies=Bodies(
@@ -337,6 +338,7 @@ class SceneBuilder:
                 awake=t(np.ones((cfg.max_bodies,), bool)),
                 pairs=t(np.full((cfg.max_manifolds, 2), -1, np.int32)),
             ),
+            bp=empty_bp_cache(cfg, cfg.max_bodies, device),
             colors=empty_color_cache(cfg, device),
             connections=t(conn),
             step_count=t(np.zeros((), np.int32)),

@@ -11,8 +11,8 @@ of `state.bodies.pos`. Padding conventions are the reference's:
 
 `state_from_numpy` / `state_to_numpy` carry a state across as a nested dict
 of numpy arrays, so the JAX package and this one can step the same state.
-The persistent-broadphase cache (`bp`) of the JAX state is not carried: the
-port runs the per-step broadphase only.
+The persistent-broadphase cache (`bp`) is carried without the reference's
+tight-list memo fields, which the port does not model (ops/persistent_bp).
 """
 
 from __future__ import annotations
@@ -116,6 +116,7 @@ class SimState(_Replace):
     spheres: Spheres
     cache: ContactCache
     sleep: SleepState
+    bp: "BPCache"              # persistent broadphase cache (ops/persistent_bp)
     colors: ColorCache
     connections: torch.Tensor  # i32[K,2] suppressed body pairs; -1 pad
     step_count: torch.Tensor   # i32 scalar
@@ -150,6 +151,8 @@ def empty_cache(cfg: SimConfig, device=None) -> ContactCache:
 
 def empty_state(cfg: SimConfig, device=None) -> SimState:
     """All-padding state at capacity; fill via scenes.SceneBuilder."""
+    from .ops.persistent_bp import empty_bp_cache
+
     n, b, s = cfg.max_bodies, cfg.max_boxes, max(cfg.max_spheres, 1)
     k = cfg.max_connections
 
@@ -179,6 +182,7 @@ def empty_state(cfg: SimConfig, device=None) -> SimState:
             awake=full((n,), True, torch.bool),
             pairs=full((cfg.max_manifolds, 2), -1, _I32),
         ),
+        bp=empty_bp_cache(cfg, n, device),
         colors=empty_color_cache(cfg, device),
         connections=full((k, 2), -1, _I32),
         step_count=full((), 0, _I32),
@@ -189,10 +193,12 @@ def empty_state(cfg: SimConfig, device=None) -> SimState:
 # numpy bridge
 # ---------------------------------------------------------------------------
 
-_GROUPS = {
-    "bodies": Bodies, "boxes": Boxes, "spheres": Spheres,
-    "cache": ContactCache, "sleep": SleepState, "colors": ColorCache,
-}
+def _groups():
+    from .ops.persistent_bp import BPCache
+
+    return {"bodies": Bodies, "boxes": Boxes, "spheres": Spheres,
+            "cache": ContactCache, "sleep": SleepState, "bp": BPCache,
+            "colors": ColorCache}
 
 
 def _to_tensor(x, device) -> torch.Tensor:
@@ -207,10 +213,10 @@ def _to_tensor(x, device) -> torch.Tensor:
 def state_from_numpy(tree: dict, device) -> SimState:
     """SimState from a nested dict of numpy arrays laid out like the JAX
     package's SimState (`{"bodies": {"pos": ...}, ..., "step_count": ...}`).
-    Keys the port does not model (the persistent-broadphase `bp`) are
+    Keys the port does not model (the tight-list memo of the JAX `bp`) are
     ignored."""
     kw = {}
-    for name, cls in _GROUPS.items():
+    for name, cls in _groups().items():
         sub = tree[name]
         kw[name] = cls(**{f.name: _to_tensor(sub[f.name], device)
                           for f in dataclasses.fields(cls)})
@@ -222,7 +228,7 @@ def state_from_numpy(tree: dict, device) -> SimState:
 def state_to_numpy(state: SimState) -> dict:
     """Nested dict of numpy arrays, the inverse of `state_from_numpy`."""
     out = {}
-    for name in _GROUPS:
+    for name in _groups():
         sub = getattr(state, name)
         out[name] = {f.name: getattr(sub, f.name).detach().cpu().numpy()
                      for f in dataclasses.fields(sub)}

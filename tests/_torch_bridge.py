@@ -13,7 +13,7 @@ from nudge_tpu import scenes as jscenes
 from nudge_tpu.ops import contacts as jcontacts
 from nudge_tpu_torch import scenes as pscenes
 from nudge_tpu_torch.ops import contacts as pcontacts
-from nudge_tpu_torch.state import state_from_numpy
+from nudge_tpu_torch.state import state_from_numpy, state_to_numpy
 
 # fields of the JAX SimConfig that the port drops (TPU-only knobs)
 DROPPED = {"xla_solver_max_bodies", "aligned_fast_path"}
@@ -30,6 +30,29 @@ def tree(obj):
 
 def to_port_state(jstate, device="cpu"):
     return state_from_numpy(tree(jstate), device)
+
+
+def to_jax_state(pstate, jcfg):
+    """The JAX SimState holding a port state. The port does not model the
+    persistent broadphase's tight-list memo: those fields come from the JAX
+    `empty_bp_cache`, with memo_ok False (the reference then recomputes
+    the tight list)."""
+    import jax.numpy as jnp
+    from nudge_tpu import state as jstate
+    from nudge_tpu.ops import persistent_bp as jpbp
+
+    d = state_to_numpy(pstate)
+    classes = dict(bodies=jstate.Bodies, boxes=jstate.Boxes,
+                   spheres=jstate.Spheres, cache=jstate.ContactCache,
+                   sleep=jstate.SleepState, colors=jstate.ColorCache)
+    kw = {g: cls(**{k: jnp.asarray(v) for k, v in d[g].items()})
+          for g, cls in classes.items()}
+    memo = jpbp.empty_bp_cache(jcfg, d["bodies"]["pos"].shape[0])
+    bp = {f.name: getattr(memo, f.name) for f in dataclasses.fields(memo)}
+    bp.update({k: jnp.asarray(v) for k, v in d["bp"].items()})
+    kw["bp"] = jpbp.BPCache(**bp)
+    return jstate.SimState(connections=jnp.asarray(d["connections"]),
+                           step_count=jnp.asarray(d["step_count"]), **kw)
 
 
 def jax_cfg(pcfg, **kw):
@@ -102,6 +125,6 @@ def assert_close(a, b, atol, name=""):
                                err_msg=name)
 
 
-__all__ = ["tree", "to_port_state", "jax_cfg", "port_manifolds",
+__all__ = ["tree", "to_port_state", "to_jax_state", "jax_cfg", "port_manifolds",
            "jax_manifolds", "pressed_mixed_pile", "assert_equal",
            "assert_close", "np_"]

@@ -40,14 +40,18 @@ def test_scene_finalizes_like_reference(n):
     pt = to_port_state(jb.finalize(jcfg))      # the bridge itself
     own = pb.finalize(pcfg)
     back = state_to_numpy(own)
-    for group in ("bodies", "boxes", "spheres", "cache", "sleep", "colors"):
-        for k, v in jt[group].items():
+    for group in ("bodies", "boxes", "spheres", "cache", "sleep", "bp",
+                  "colors"):
+        for k in back[group]:        # the bp memo fields are not ported
+            v = jt[group][k]
             assert_equal(getattr(getattr(own, group), k), v, f"{group}.{k}")
             assert_equal(getattr(getattr(pt, group), k), v, f"{group}.{k}")
             assert_equal(back[group][k], v, f"{group}.{k}")
             assert back[group][k].dtype == v.dtype, f"{group}.{k}"
+            assert back[group][k].shape == v.shape, f"{group}.{k}"
     for k in ("connections", "step_count"):
         assert_equal(back[k], jt[k], k)
+        assert back[k].shape == jt[k].shape, k
 
 
 def _pairs_both(n, spacing, broadphase):

@@ -1,5 +1,7 @@
 """The port's whole step against the JAX engine: a small grid pile stepped
-side by side, config 1 to rest, the sphere scenes of tests/test_engine.py,
+side by side, reference-mode steps (sleeping + persistent broadphase) of a
+mixed pile, the all-asleep park, the awake count of a step where a body
+falls asleep, config 1 to rest, the sphere scenes of tests/test_engine.py,
 determinism, config parity, and the rule that the package never imports
 JAX."""
 
@@ -30,10 +32,12 @@ from nudge_tpu_torch.ops import cache as pcache
 from nudge_tpu_torch.ops import contacts as pcontacts
 from nudge_tpu_torch.ops import grid as pgrid
 from nudge_tpu_torch.ops import integrate as pint
+from nudge_tpu_torch.ops import persistent_bp as ppbp
 from nudge_tpu_torch.ops import solver as psolver
 
 from _torch_bridge import (
-    DROPPED, assert_close, assert_equal, jax_cfg, np_, to_port_state,
+    DROPPED, assert_close, assert_equal, jax_cfg, np_, pressed_mixed_pile,
+    to_port_state,
 )
 
 torch.set_num_threads(2)
@@ -61,9 +65,7 @@ def test_package_imports_no_jax():
     subprocess.run([sys.executable, "-c", code], check=True)
 
 
-@pytest.mark.parametrize("knob", [
-    dict(sleeping=True), dict(persistent_broadphase=True),
-    dict(differentiable=True)])
+@pytest.mark.parametrize("knob", [dict(differentiable=True)])
 def test_unported_modes_raise(knob):
     b = pscenes.scene_single_box()
     cfg = b.auto_config(**knob)
@@ -107,7 +109,7 @@ def test_grid_pile_steps_match_reference():
         for f in ("a", "b", "valid", "count", "flags"):
             assert_equal(getattr(pbb, f), getattr(jbb, f), f"step {k} pairs.{f}")
         bodies = pint.apply_gravity(pst.bodies, pst.sleep, pcfg)
-        pman = pcontacts.collide(pst, pcfg)
+        pman, _ = pcontacts.collide(pst, pcfg)
         for f in ("body_a", "body_b", "ga", "gb", "valid", "count", "overflow",
                   "point_valid", "feat"):
             assert_equal(getattr(pman, f), getattr(jman, f), f"step {k} man.{f}")
@@ -134,6 +136,96 @@ def test_grid_pile_steps_match_reference():
                      f"step {k} quat")
         assert_equal(pm.contact_count, jm.contact_count, f"step {k}")
         assert not bool(pm.overflow)
+
+
+def _assert_states_match(pst, jst, what):
+    """Integers and booleans of the whole state bitwise, body floats within
+    POS_ATOL."""
+    for g in ("sleep", "bp", "cache", "colors"):
+        for f in dataclasses.fields(getattr(pst, g)):
+            a = getattr(getattr(pst, g), f.name)
+            if a.dtype in (torch.int32, torch.bool):
+                assert_equal(a, getattr(getattr(jst, g), f.name),
+                             f"{what} {g}.{f.name}")
+    assert_equal(pst.step_count, jst.step_count, f"{what} step_count")
+    for f in ("pos", "quat", "vel", "angvel"):
+        assert_close(getattr(pst.bodies, f), getattr(jst.bodies, f), POS_ATOL,
+                     f"{what} bodies.{f}")
+
+
+METRIC_INTS = ("contact_count", "spill_count", "overflow", "awake_count",
+               "overflow_bits", "manifold_demand", "pair_demand")
+
+
+def test_reference_mode_steps_match_reference():
+    """Sleeping + persistent broadphase on a pressed 48-body mixed pile
+    (boxes, spheres, walls, grid), one step at a time from the JAX state
+    carried across: bodies fall asleep island by island, parked pairs
+    build up, the cache is rebuilt and reused."""
+    pcfg, jcfg, jst, _ = pressed_mixed_pile(
+        48, sleeping=True, persistent_broadphase=True, sleep_frames=3)
+    jstep = jax.jit(lambda s: jengine.step(s, jcfg))
+    rebuilds = 0
+    for k in range(6):
+        rb0 = ppbp.persistent_broadphase.rebuilds
+        pst, pm = pengine.step(to_port_state(jst), pcfg)
+        rebuilds += ppbp.persistent_broadphase.rebuilds - rb0
+        jst, jm = jstep(jst)
+        _assert_states_match(pst, jst, f"step {k}")
+        for f in METRIC_INTS:
+            assert_equal(getattr(pm, f), getattr(jm, f), f"step {k} {f}")
+        assert_close(pm.kinetic_energy, jm.kinetic_energy, 1e-3,
+                     f"step {k} KE")
+        assert not bool(pm.overflow)
+    assert 0 < rebuilds < 6
+    assert int(pm.awake_count) < 40
+    assert int((pst.sleep.pairs[:, 0] >= 0).sum()) > 5
+
+
+def _box_at_rest(**over):
+    b = pscenes.scene_single_box(0.495)
+    pcfg = b.auto_config(sleeping=True, **over)
+    jcfg = jax_cfg(pcfg)
+    return pcfg, jcfg, jscenes.scene_single_box(0.495).finalize(jcfg)
+
+
+def test_park_matches_reference():
+    """With every dynamic body asleep the step is the park: the state comes
+    back unchanged except step_count + 1, with all-zero metrics, as the
+    JAX engine's `_step_parked` gives."""
+    pcfg, jcfg, jst = _box_at_rest(persistent_broadphase=True)
+    jst = jst.replace(sleep=jst.sleep.replace(
+        awake=jnp.zeros_like(jst.sleep.awake)))
+    pst = to_port_state(jst)
+    parked0 = pengine.step.parked
+    rebuilds0 = ppbp.persistent_broadphase.rebuilds
+    pnew, pm = pengine.step(pst, pcfg)
+    jnew, jm = jax.jit(lambda s: jengine.step(s, jcfg))(jst)
+    assert pengine.step.parked == parked0 + 1
+    assert ppbp.persistent_broadphase.rebuilds == rebuilds0
+    for f in dataclasses.fields(pengine.StepMetrics):
+        assert_equal(getattr(pm, f.name), getattr(jm, f.name), f.name)
+        assert not bool(getattr(pm, f.name))
+    assert int(pnew.step_count) == int(pst.step_count) + 1
+    for g in ("bodies", "boxes", "spheres", "cache", "sleep", "bp", "colors"):
+        for f in dataclasses.fields(getattr(pst, g)):
+            a = getattr(getattr(pnew, g), f.name)
+            assert torch.equal(a, getattr(getattr(pst, g), f.name)), f.name
+            assert_equal(a, getattr(getattr(jnew, g), f.name), f.name)
+
+
+def test_awake_count_is_read_after_update_sleep():
+    """A resting box that qualifies to sleep on this step: the metric
+    counts it asleep, as the JAX engine does (read from the sleep state
+    the step produced, not the one it started from)."""
+    pcfg, jcfg, jst = _box_at_rest(sleep_frames=30)
+    jst = jst.replace(sleep=jst.sleep.replace(
+        idle=jnp.full_like(jst.sleep.idle, 29)))
+    pst, pm = pengine.step(to_port_state(jst), pcfg)
+    jst2, jm = jax.jit(lambda s: jengine.step(s, jcfg))(jst)
+    assert bool(jst.sleep.awake[1]) and not bool(jst2.sleep.awake[1])
+    assert_equal(pst.sleep.awake, jst2.sleep.awake, "awake")
+    assert int(pm.awake_count) == int(jm.awake_count) == 0
 
 
 def test_single_box_settles_like_reference():

@@ -60,7 +60,7 @@ def _falling_mixed_pile(n, dev, steps, **over):
 
 def _stage_inputs(cfg, st):
     bodies = integrate.apply_gravity(st.bodies, st.sleep, cfg)
-    man = contacts.collide(st, cfg)
+    man, _ = contacts.collide(st, cfg)
     warm, pwarm = cache.read_cached_impulses(st.cache, man, cfg)
     col, _ = solver.color_manifolds_cached(man, bodies, cfg, st.colors)
     return bodies, man, warm, pwarm, col
@@ -127,7 +127,7 @@ def test_engine_on_cuda_launches_every_kernel_and_repeats(dev):
             g: dataclasses.replace(getattr(st0, g), **{
                 f.name: getattr(getattr(st0, g), f.name).cpu()
                 for f in dataclasses.fields(getattr(st0, g))})
-            for g in ("bodies", "boxes", "spheres", "cache", "sleep",
+            for g in ("bodies", "boxes", "spheres", "cache", "sleep", "bp",
                       "colors")},
             connections=st0.connections.cpu(),
             step_count=st0.step_count.cpu()), cfg, 5)
@@ -156,7 +156,7 @@ def test_coloring_kernel_matches_twin(dev, max_colors):
     their order."""
     cfg, st = _pressed_pile(300, dev, broadphase="grid")
     st, _ = engine.simulate(st, cfg, 3)
-    man = contacts.collide(st, cfg)
+    man, _ = contacts.collide(st, cfg)
     dyn = st.bodies.inv_mass > 0.0
     args = (man.body_a, man.body_b, man.valid, dyn, dyn.shape[0], max_colors)
     n0 = ck.color_rounds.launches
@@ -183,3 +183,52 @@ def test_mixed_pile_fresh_coloring_launches_every_kernel_and_repeats(dev):
     assert torch.equal(ma.kinetic_energy, mb.kinetic_energy)
     assert not bool(ma.overflow.any())
     assert bool(torch.isfinite(a.bodies.pos).all())
+
+
+def _through_twins(monkeypatch):
+    """Route every kernel wrapper's CUDA branch to its plain twin."""
+    for mod, name in ((npk, "box_box_slots"), (p1pt, "pairs_1pt_slots"),
+                      (ck, "color_rounds"), (setup_kernel, "setup"),
+                      (solver_kernel, "solve")):
+        monkeypatch.setattr(mod, f"{name}_cuda", getattr(mod, f"{name}_plain"))
+
+
+def test_reference_mode_step_matches_twins(dev, monkeypatch):
+    """Reference-mode steps (sleeping + persistent broadphase) of a pressed
+    pile on the card, through the kernels and through the twins on the
+    same CUDA tensors: sleep state and cache bitwise, bodies within the
+    kernels' tolerance, and every sleeper's velocity exactly zero under
+    its awake load."""
+    cfg, st = _pressed_pile(300, dev, broadphase="grid", sleeping=True,
+                            persistent_broadphase=True, sleep_frames=10_000)
+    st, _ = engine.simulate(st, cfg, 2)
+    # the two bottom layers asleep under an awake load (nobody else can
+    # qualify to sleep, and resting bodies are too slow to wake them)
+    low = (st.bodies.inv_mass > 0) & (st.bodies.pos[:, 1] < 2.0)
+    zero = torch.zeros_like(st.bodies.vel)
+    st = st.replace(
+        bodies=st.bodies.replace(
+            vel=torch.where(low[:, None], zero, st.bodies.vel),
+            angvel=torch.where(low[:, None], zero, st.bodies.angvel)),
+        sleep=st.sleep.replace(awake=st.sleep.awake & ~low))
+    counters = (npk.box_box_slots, setup_kernel.setup, solver_kernel.solve)
+    for _ in range(3):
+        before = [c.launches for c in counters]
+        k, km = engine.step(st, cfg)
+        assert all(c.launches == n + 1 for c, n in zip(counters, before))
+        with monkeypatch.context() as m:
+            _through_twins(m)
+            t, tm = engine.step(st, cfg)
+        torch.cuda.synchronize()
+        for g in ("sleep", "bp"):
+            for f in dataclasses.fields(getattr(k, g)):
+                assert torch.equal(getattr(getattr(k, g), f.name),
+                                   getattr(getattr(t, g), f.name)), f.name
+        for f in ("pos", "quat", "vel", "angvel"):
+            _close(getattr(k.bodies, f), getattr(t.bodies, f), f)
+        assert torch.equal(km.awake_count, tm.awake_count)
+        asleep = (st.bodies.inv_mass > 0) & ~st.sleep.awake & ~k.sleep.awake
+        assert int(asleep.sum()) > 0 and int(km.awake_count) > 0
+        assert not bool(k.bodies.vel[asleep].any())
+        assert not bool(k.bodies.angvel[asleep].any())
+        st = k

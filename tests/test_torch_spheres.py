@@ -241,7 +241,7 @@ def test_mixed_pile_steps_match_reference(persistent_coloring):
     classes = np.zeros(3, int)
     for k in range(4):
         jman = jcollide(jst)
-        pman = pcontacts.collide(pst, pcfg)
+        pman, _ = pcontacts.collide(pst, pcfg)
         _assert_manifolds(pman, jman, f"step {k}")
         nb = pcfg.max_boxes
         ga, gb = np.asarray(jman.ga), np.asarray(jman.gb)
