@@ -10,10 +10,15 @@ no result):
   2. build: compiles the kernels under nudge_tpu_torch/csrc/ with nvcc;
   3. kernel vs twin: on the 20,480-box pile after 40 steps, each CUDA kernel
      (box-box narrowphase, setup, solve, coloring rounds) against its plain
-     PyTorch twin on the same CUDA tensors, with both times; the solve and
-     the coloring once more with only 4 colors, so that the spill paths run
-     at full size; then the one-point (box-sphere, sphere-sphere) kernel on
-     config 3 after 120 steps;
+     PyTorch twin on the same CUDA tensors, with both times and the
+     kernel's device time from torch.profiler: setup over the live slots of
+     the solve's color-sorted order, unpacked to manifold order and held to
+     the twin on every live manifold; the solve from the twin's setup
+     packed into the kernel's layout, bitwise equal to the twin, its
+     launches from one input bitwise equal to each other, one device
+     kernel a call; the solve and the coloring once more with only 4
+     colors, so that the spill paths run at full size; then the one-point
+     (box-sphere, sphere-sphere) kernel on config 3 after 120 steps;
   4. config 1: one box dropped on the ground, 500 steps, held to the rest
      gates of tests/test_engine.py;
   5. the awake pile: the 20,480-box pile (bench.tuned_config capacities,
@@ -45,7 +50,11 @@ no result):
      reported instead of gated, its settled rate (the last 500 steps),
      and two 30-step runs from its final state, bitwise equal;
  13. config 3 in the reference mode for 1,500 steps: spheres above the
-     ground, total energy that does not rise from step 600 on.
+     ground, total energy that does not rise from step 600 on;
+ 14. profile: torch.profiler over 10 steps of the awake pile (phase 3's
+     state) and of the fidelity scene at step 2,150 of phase 11 (settling,
+     ~700 awake): device events a step, the device's busy share, and the
+     solve's and setup's device time and launches a step.
 
 Phases 5-7 and 9-13 each zero the kernels' launch counts before they run
 and read them after, and run with the plain twins replaced by functions
@@ -103,6 +112,36 @@ MIXED_ENERGY_FROM = 600
 # it (12 J on the 20,480 pile: one box lifted by a metre) is a real energy
 # source. The largest tolerance the gate allows.
 ENERGY_RTOL = 1e-5
+SOLVE_REPEATS = 10         # launches of the solve from one input, bitwise
+PROFILE_STEPS = 10         # steps under torch.profiler per profiled state
+SETTLED_AT = 2150          # the fidelity scene settling (~700 awake)
+
+# The least time the card could take for a kernel's work (bound_ms): bytes
+# each input read once and each output written once, over HBM's 3.35 TB/s,
+# against operations over the float32 peak outside the tensor cores, 67
+# TFLOP/s (NVIDIA H100 SXM data sheet, 700 W), the larger of the two. Bytes
+# and operations are counted per live item of this run, from the sources:
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# box-box: ~3,000 float operations per live pair (15 SAT axes, 24 clip
+# candidates, the 4-point reduction; csrc/narrowphase.cu)
+BOXBOX_OPS_PER_PAIR = 3000
+# one-point: ~200 per live pair (csrc/narrowphase_1pt.cu)
+PAIRS_1PT_OPS_PER_PAIR = 200
+# setup, per live manifold: 156 B of geometry, warm starts and ids, relax
+# 4 B and 36 B of order, slot and body-sorted entries in; 556 B of rows, 64
+# B of accumulators and 24 B of frame out; ~2,200 operations (three
+# effective masses and the biases for each of 4 points). Per body: 68 B of
+# state in, 48 B of velw out.
+SETUP_BYTES_PER_MANIFOLD = 156 + 4 + 36 + 556 + 64 + 24
+SETUP_BYTES_PER_BODY = 68 + 48
+SETUP_OPS_PER_MANIFOLD = 2200
+# solve, per live manifold: 556 B of rows, 64 B of accumulators and its 4 B
+# slot in (the accumulators out, 64 B, count per manifold slot); ~750
+# operations a sweep (the 4-point chain with the pseudo channel). Per body
+# velw in and out.
+SOLVE_BYTES_PER_MANIFOLD = 556 + 64 + 4
+SOLVE_OPS_PER_MANIFOLD = 750
 
 TPU_KERNEL_OF = {
     "box_box": "nudge_tpu/ops/narrowphase_kernel.py:535",
@@ -260,6 +299,48 @@ def timed(fn, reps=5, warm=2):
     return start.elapsed_time(stop) / reps
 
 
+def bound(n_bytes, n_ops):
+    """bound_ms and bound_by for a kernel that must move n_bytes and do
+    n_ops float operations."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=None)
+
+
+def short_name(name):
+    """A device kernel's name without namespaces, template arguments and
+    arguments."""
+    name = name.replace("(anonymous namespace)::", "")
+    return name.split("(")[0].split("<")[0].split("::")[-1] or name
+
+
+def device_ms(fn, reps=3):
+    """({kernel: device ms per call}, device kernels per call) of `fn`
+    under torch.profiler, after one call outside it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by, n = {}, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            k = short_name(e.name)
+            by[k] = by.get(k, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+            n += 1
+    return by, n / reps
+
+
+def fmt_dev(by):
+    return ", ".join(f"{k} {v:.4f} ms" for k, v in by.items()) or "no events"
+
+
 class Diff:
     """Checks kernel outputs against twin outputs within atol + rtol·|twin|
     and keeps the largest absolute error and the largest share of the
@@ -288,6 +369,44 @@ class Diff:
     def __str__(self):
         return (f"max abs err {self.err:.3g} ({100 * self.share:.1f}% of "
                 f"atol {self.atol:g} + rtol {self.rtol:g})")
+
+
+def compare_solve(label, packed, work, velw, con, acc, cfg, bitwise):
+    """The solve kernel from packed inputs against solve_plain from the
+    same constraints (bit for bit when `bitwise`); SOLVE_REPEATS launches
+    from one input bitwise equal; one device kernel per call. Returns
+    (Diff, wrapper ms, device ms by kernel)."""
+    import torch
+
+    from nudge_tpu_torch.ops import solver_kernel
+
+    def run(v, w):
+        v, a, p = solver_kernel.solve_cuda(v, packed, w, cfg)
+        return [v, *a, p]
+
+    k = run(velw.clone(), work.clone())
+    tv, ta, tp = solver_kernel.solve_plain(velw, con, acc, cfg)
+    torch.cuda.synchronize()
+    diff = Diff()
+    for name, x, y in zip(("velw", "acc_n", "acc_t1", "acc_t2", "pacc"), k,
+                          [tv, *ta, tp]):
+        if bitwise and not torch.equal(x, y):
+            raise AssertionError(f"{label}.{name}: not bitwise equal to the "
+                                 "twin")
+        diff.check(f"{label}.{name}", x, y)
+    for rep in range(1, SOLVE_REPEATS):
+        again = run(velw.clone(), work.clone())
+        for x, y in zip(again, k):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{label}: launch {rep + 1} from the "
+                                     "same input differs from the first")
+    v, w = velw.clone(), work.clone()
+    ms = timed(lambda: run(v, w))
+    dev, kernels = device_ms(lambda: run(v, w))
+    if kernels != 1:
+        raise AssertionError(f"{label}: {kernels} device kernels a solve "
+                             f"call, not one: {fmt_dev(dev)}")
+    return diff, ms, dev
 
 
 def phase_compare(card, dev):
@@ -330,70 +449,93 @@ def phase_compare(card, dev):
     diff.check("box_box.normal", k["normal"][ok], p["normal"][ok])
     ms = timed(lambda: npk.box_box_slots_cuda(st.boxes, wc, bb))
     plain_ms = timed(lambda: npk.box_box_slots_plain(st.boxes, wc, bb))
-    records["box_box"] = dict(max_abs_err=diff.err, ms=ms, plain_ms=plain_ms)
+    per_pair = sum(v[0].numel() * v.element_size() for v in k.values())
+    wc_bytes = sum(t.numel() * t.element_size() for t in wc)
+    records["box_box"] = dict(
+        max_abs_err=diff.err, ms=ms, plain_ms=plain_ms,
+        **bound(wc_bytes + n_live * (8 + per_pair),
+                n_live * BOXBOX_OPS_PER_PAIR))
     log(card, f"box_box: {bb.a.shape[0]} pair slots, {n_live} live, "
         f"{n_diff} differ (near-ties), {diff}; "
         f"kernel {ms:.3f} ms, twin {plain_ms:.3f} ms")
 
-    # --- setup at the step's manifolds ---
+    # --- setup at the step's manifolds, over the live slots of the solve's
+    # order, compared in manifold order after unpacking ---
     bodies = integrate.apply_gravity(st.bodies, st.sleep, cfg)
     man, _ = contacts.collide(st, cfg)
     warm, pwarm = cache.read_cached_impulses(st.cache, man, cfg)
     col, _ = solver.color_manifolds_cached(man, bodies, cfg, st.colors)
-    kcon, kvelw, kacc = setup_kernel.setup_cuda(bodies, man, warm, cfg, col,
-                                                pwarm)
+    order = solver_kernel.color_order(man, bodies, col, cfg)
+    live = man.valid
+    n_live = int(live.sum())
+    kcon, kvelw, kwork = setup_kernel.setup_cuda(bodies, man, warm, cfg, col,
+                                                 pwarm, order)
     tcon, tvelw, tacc = setup_kernel.setup_plain(bodies, man, warm, cfg, col,
                                                  pwarm)
     torch.cuda.synchronize()
     diff = Diff()
     diff.check("setup.velw", kvelw, tvelw)
-    for f in ("t1", "t2", "ra", "rb", "jna", "jnb", "jt1a", "jt1b", "jt2a",
-              "jt2b", "mn", "mt1", "mt2", "bias", "pos_bias", "pwarm", "im_a",
-              "im_b"):
-        diff.check(f"setup.{f}", getattr(kcon, f), getattr(tcon, f))
-    for i, (x, y) in enumerate(zip(kacc, tacc)):
-        diff.check(f"setup.acc{i}", x, y)
+    ucon = setup_kernel.unpack_constraints(kcon)
+    for f in ("n", "t1", "t2", "ra", "rb", "jna", "jnb", "jt1a", "jt1b",
+              "jt2a", "jt2b", "mn", "mt1", "mt2", "bias", "pos_bias", "pwarm",
+              "mu", "im_a", "im_b", "relax"):
+        diff.check(f"setup.{f}", getattr(ucon, f)[live], getattr(tcon, f)[live])
+    for f in ("point_valid", "body_a", "body_b"):
+        if not torch.equal(getattr(ucon, f)[live], getattr(tcon, f)[live]):
+            raise AssertionError(f"setup.{f} differs on live manifolds")
+    diff.check("setup.frame", kcon.frame[:, live],
+               torch.stack([tcon.t1, tcon.t2])[:, live])
+    for i, (x, y) in enumerate(zip(setup_kernel.unpack_acc(kwork, order),
+                                   tacc)):
+        diff.check(f"setup.acc{i}", x[live], y[live])
     ms = timed(lambda: setup_kernel.setup_cuda(bodies, man, warm, cfg, col,
-                                               pwarm))
+                                               pwarm, order))
+    order_ms = timed(lambda: solver_kernel.color_order(man, bodies, col, cfg))
     plain_ms = timed(lambda: setup_kernel.setup_plain(bodies, man, warm, cfg,
                                                       col, pwarm))
-    records["setup"] = dict(max_abs_err=diff.err, ms=ms, plain_ms=plain_ms)
-    log(card, f"setup: {man.valid.shape[0]} manifold slots, "
-        f"{int(man.valid.sum())} live, {int(col[1])} colors, "
-        f"{int(col[3])} spilled; {diff}; "
-        f"kernel {ms:.3f} ms, twin {plain_ms:.3f} ms")
+    dev_ms, _ = device_ms(lambda: setup_kernel.setup_cuda(
+        bodies, man, warm, cfg, col, pwarm, order))
+    n_bodies = bodies.pos.shape[0]
+    records["setup"] = dict(
+        max_abs_err=diff.err, ms=ms, plain_ms=plain_ms,
+        **bound(n_live * SETUP_BYTES_PER_MANIFOLD
+                + n_bodies * SETUP_BYTES_PER_BODY,
+                n_live * SETUP_OPS_PER_MANIFOLD))
+    log(card, f"setup: {man.valid.shape[0]} manifold slots, {n_live} live, "
+        f"{int(col[1])} colors, {int(col[3])} spilled; {diff}; "
+        f"kernel {ms:.3f} ms (device {fmt_dev(dev_ms)}), color order "
+        f"{order_ms:.3f} ms, twin {plain_ms:.3f} ms")
 
-    # --- solve from the kernel's setup ---
-    kv, ka, kp = solver_kernel.solve_cuda(kvelw, kcon, kacc, cfg)
-    tv, ta, tp = solver_kernel.solve_plain(kvelw, kcon, kacc, cfg)
-    torch.cuda.synchronize()
-    diff = Diff()
-    diff.check("solve.velw", kv, tv)
-    for i, (x, y) in enumerate(zip(ka + (kp,), ta + (tp,))):
-        diff.check(f"solve.acc{i}", x, y)
-    ms = timed(lambda: solver_kernel.solve_cuda(kvelw, kcon, kacc, cfg), 3, 1)
-    plain_ms = timed(lambda: solver_kernel.solve_plain(kvelw, kcon, kacc, cfg),
+    # --- the solve, from the twin's setup packed into the kernel's layout,
+    # so both sides start from the same bits ---
+    packed, work = setup_kernel.pack_constraints(tcon, tacc, order)
+    diff, ms, dev = compare_solve("solve", packed, work, tvelw, tcon, tacc,
+                                  cfg, bitwise=int(col[3]) == 0)
+    plain_ms = timed(lambda: solver_kernel.solve_plain(tvelw, tcon, tacc, cfg),
                      2, 1)
-    log(card, f"solve: {cfg.solver_iters} sweeps; {diff}; "
-        f"kernel {ms:.3f} ms, twin {plain_ms:.3f} ms")
+    log(card, f"solve: {cfg.solver_iters} sweeps x {int(col[1])} colors in "
+        f"one launch of a {solver_kernel.solve_cluster_size()}-CTA cluster; "
+        f"{diff}; kernel {ms:.3f} ms (device {fmt_dev(dev)}), twin "
+        f"{plain_ms:.3f} ms")
 
     # --- the spill color's Jacobi path: the same step colored with only
     # SPILL_COLORS colors, so most manifolds spill ---
     scfg = cfg.replace(max_colors=SPILL_COLORS)
     scol = solver.color_manifolds(man, bodies, scfg)
-    scon, svelw, sacc = setup_kernel.setup_cuda(bodies, man, warm, scfg, scol,
-                                                pwarm)
-    kv, ka, kp = solver_kernel.solve_cuda(svelw, scon, sacc, scfg)
-    tv, ta, tp = solver_kernel.solve_plain(svelw, scon, sacc, scfg)
-    torch.cuda.synchronize()
-    sdiff = Diff()
-    sdiff.check("solve(spill).velw", kv, tv)
-    for i, (x, y) in enumerate(zip(ka + (kp,), ta + (tp,))):
-        sdiff.check(f"solve(spill).acc{i}", x, y)
+    sorder = solver_kernel.color_order(man, bodies, scol, scfg)
+    scon, svelw, sacc = setup_kernel.setup_plain(bodies, man, warm, scfg, scol,
+                                                 pwarm)
+    spacked, swork = setup_kernel.pack_constraints(scon, sacc, sorder)
+    sdiff, sms, sdev = compare_solve("solve(spill)", spacked, swork, svelw,
+                                     scon, sacc, scfg, bitwise=False)
     log(card, f"solve with {SPILL_COLORS} colors: {int(scol[3])} of "
-        f"{int(man.valid.sum())} manifolds spilled; {sdiff}")
-    records["solve"] = dict(max_abs_err=max(diff.err, sdiff.err), ms=ms,
-                            plain_ms=plain_ms)
+        f"{n_live} manifolds spilled; {sdiff}; kernel {sms:.3f} ms (device "
+        f"{fmt_dev(sdev)})")
+    records["solve"] = dict(
+        max_abs_err=max(diff.err, sdiff.err), ms=ms, plain_ms=plain_ms,
+        **bound(n_live * SOLVE_BYTES_PER_MANIFOLD
+                + n_bodies * 2 * 48 + man.valid.shape[0] * 64,
+                n_live * cfg.solver_iters * SOLVE_OPS_PER_MANIFOLD))
 
     # --- the coloring rounds at the step's manifolds, bit for bit ---
     dyn = bodies.inv_mass > 0.0
@@ -410,8 +552,11 @@ def phase_compare(card, dev):
         ms = timed(lambda: coloring_kernel.color_rounds_cuda(*args))
         plain_ms = timed(lambda: coloring_kernel.color_rounds_plain(*args))
         if mc == cfg.max_colors:
-            records["coloring"] = dict(max_abs_err=err, ms=ms,
-                                       plain_ms=plain_ms)
+            # body ids and the live flag in, the raw color out, per live
+            # manifold; the dynamic flag per body
+            records["coloring"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                **bound(n_live * (4 + 4 + 1 + 4) + dyn.shape[0], 0))
         log(card, f"coloring with {mc} colors: bitwise equal; "
             f"{int(p.max()) + 1} rounds used, "
             f"{int(((p < 0) & man.valid).sum())} of {int(man.valid.sum())} "
@@ -456,7 +601,11 @@ def phase_compare_1pt(card, dev):
         f"{live.shape[0]} pair slots ({int(bs.valid.sum())} box-sphere, "
         f"{int(ss.valid.sum())} sphere-sphere live), {int(pv.sum())} "
         f"contacts; {diff}; kernel {ms:.3f} ms, twin {plain_ms:.3f} ms")
-    return dict(max_abs_err=diff.err, ms=ms, plain_ms=plain_ms)
+    per_pair = sum(v[0].numel() * v.element_size() for v in k.values())
+    wc_bytes = sum(t.numel() * t.element_size() for t in wc)
+    return dict(max_abs_err=diff.err, ms=ms, plain_ms=plain_ms,
+                **bound(wc_bytes + n_live * (8 + per_pair),
+                        n_live * PAIRS_1PT_OPS_PER_PAIR))
 
 
 def phase_config1(card, dev):
@@ -714,14 +863,16 @@ def phase_wake(card, dev):
         f"launches {run.launches}")
 
 
-def run_reference(card, label, st, cfg, steps, energy_from, spheres=False):
+def run_reference(card, label, st, cfg, steps, energy_from, spheres=False,
+                  keep_at=None):
     """Steps `st` in the reference mode in windows of REF_WINDOW, syncing
     every REF_HALF steps, and holds every window to no overflow, a finite
     state, sleepers at exactly zero velocity, max depth < 0.5, total energy that does not rise from step
     `energy_from` on (ENERGY_RTOL) and, with `spheres`, every dynamic
     sphere's centre above SPHERE_MIN_Y. Returns (state, dict of the
     trajectory: cumulative seconds at every REF_HALF steps, awake count,
-    rebuilds and parks per window, the last window's max depth)."""
+    rebuilds and parks per window, the last window's max depth, and a copy
+    of the state after `keep_at` steps, a multiple of REF_HALF)."""
     import torch
 
     from nudge_tpu_torch import engine
@@ -729,6 +880,7 @@ def run_reference(card, label, st, cfg, steps, energy_from, spheres=False):
     from nudge_tpu_torch.utils.debug import finite_state
 
     times, awake, rebuilds, parks = [0.0], [], [], []
+    kept = None
     e_prev = depth = None
     sp_body = st.spheres.body[st.spheres.valid].long()
     sp_body = sp_body[st.bodies.inv_mass[sp_body] > 0]
@@ -736,12 +888,14 @@ def run_reference(card, label, st, cfg, steps, energy_from, spheres=False):
         rb0 = persistent_bp.persistent_broadphase.rebuilds
         pk0 = engine.step.parked
         ms = []
-        for _ in range(REF_WINDOW // REF_HALF):
+        for h in range(REF_WINDOW // REF_HALF):
             t0 = time.perf_counter()
             st, m = engine.simulate(st, cfg, REF_HALF)
             torch.cuda.synchronize()
             times.append(times[-1] + time.perf_counter() - t0)
             ms.append(m)
+            if w0 + (h + 1) * REF_HALF == keep_at:
+                kept = clone_state(st)
         w1 = w0 + REF_WINDOW
         rebuilds.append(persistent_bp.persistent_broadphase.rebuilds - rb0)
         parks.append(engine.step.parked - pk0)
@@ -787,7 +941,7 @@ def run_reference(card, label, st, cfg, steps, energy_from, spheres=False):
             f"E {energy:.10g}, spill {spill}{low}")
         e_prev = energy
     return st, dict(times=times, awake=awake, rebuilds=rebuilds,
-                    parks=parks, depth=depth)
+                    parks=parks, depth=depth, kept=kept)
 
 
 def next_step_conflicts(st, cfg):
@@ -866,12 +1020,13 @@ def resting_depth(st, cfg):
     return float(depth), bool(man.overflow)
 
 
-def reference_pile(card, label, dev, seed, fidelity):
+def reference_pile(card, label, dev, seed, fidelity, keep_at=None):
     """The 20,480 pile in the reference mode from spawn for REF_STEPS
     steps, with run_reference's window gates, then awake < AWAKE_END, no
     coloring conflict and no dead body at the end; with `fidelity` also
     the last window's max depth and the final state's resting depth at
-    most REF_DEPTH_END. Returns (launch counts, final state, config)."""
+    most REF_DEPTH_END. Returns (launch counts, final state, config, the
+    state after `keep_at` steps)."""
     from nudge_tpu_torch import scenes
 
     b = scenes.scene_pile(N_PILE, seed=seed)
@@ -879,7 +1034,7 @@ def reference_pile(card, label, dev, seed, fidelity):
     st = b.finalize(cfg, device=dev)
     with KernelsOnly() as run:
         st, tr = run_reference(card, label, st, cfg, REF_STEPS,
-                               REF_ENERGY_FROM)
+                               REF_ENERGY_FROM, keep_at=keep_at)
     need_launches(label, run.launches, ("box_box", "setup", "solve"))
     t = tr["times"]
     impact = IMPACT_STEPS / t[IMPACT_STEPS // REF_HALF]
@@ -907,14 +1062,17 @@ def reference_pile(card, label, dev, seed, fidelity):
             f"conflicts {conflicts}, dead {dead}"
             + (f", max depth {tr['depth']} and resting depth {rest} (<= "
                f"{REF_DEPTH_END})" if fidelity else ""))
-    return run.launches, st, cfg
+    return run.launches, st, cfg, tr["kept"]
 
 
 def phase_reference_pile(card, dev):
     """The slice, on r5_c4_fidelity's own scene (scene_pile(20480, seed=3),
-    scripts/debug_limit_cycle.py): every end gate."""
-    return reference_pile(card, "reference pile", dev, FIDELITY_SEED,
-                          fidelity=True)[0]
+    scripts/debug_limit_cycle.py): every end gate. Returns (launch counts,
+    its state at step SETTLED_AT, config)."""
+    launches, _, cfg, settled = reference_pile(
+        card, "reference pile", dev, FIDELITY_SEED, fidelity=True,
+        keep_at=SETTLED_AT)
+    return launches, settled, cfg
 
 
 def phase_bench_pile(card, dev):
@@ -923,8 +1081,8 @@ def phase_bench_pile(card, dev):
     final state. Its last-window depth is reported, not gated: the
     reference's own run of this scene was not quiet either (BENCH_r05:
     4,062 awake after 3,600 steps, KE rising 4.2 -> 47.13)."""
-    launches, st, cfg = reference_pile(card, "bench pile", dev, 0,
-                                       fidelity=False)
+    launches, st, cfg, _ = reference_pile(card, "bench pile", dev, 0,
+                                          fidelity=False)
     with KernelsOnly():
         repeat_from(card, "bench pile", st, cfg)
     return launches
@@ -952,6 +1110,63 @@ def phase_reference_mixed(card, dev):
     return run.launches
 
 
+def profile_steps(card, label, st, cfg):
+    """torch.profiler over PROFILE_STEPS unsynchronised steps from a copy of
+    `st` (after one step outside it): device events a step, the device's
+    busy share of the host-clock window, and the device time a step of the
+    solve and of setup, with their launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from nudge_tpu_torch import engine
+
+    s, _ = engine.simulate(clone_state(st), cfg, 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        s, m = engine.simulate(s, cfg, PROFILE_STEPS)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+    kernels = {}
+    for e in ev:
+        k = short_name(e.name)
+        n, t = kernels.get(k, (0, 0.0))
+        kernels[k] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
+    solve = kernels.get("solve_kernel", (0, 0.0))
+    setup = [kernels.get(k, (0, 0.0)) for k in ("setup_kernel",
+                                                "warm_apply_kernel")]
+    per = PROFILE_STEPS
+    log(card, f"profile {label}: {per} steps, {wall_ms / per:.2f} ms a step "
+        f"under the profiler, {len(ev) / per:.1f} device events a step, "
+        f"device busy {100 * busy_ms / wall_ms:.1f}% ({busy_ms / per:.3f} ms "
+        f"a step); solve {solve[1] / per:.4f} ms a step in {solve[0]} "
+        f"launches; setup {setup[0][1] / per:.4f} + warm start "
+        f"{setup[1][1] / per:.4f} ms a step in {setup[0][0]} + {setup[1][0]} "
+        f"launches; awake {int(m.awake_count[-1])}, manifolds "
+        f"{int(m.manifold_demand[-1])}, spill {int(m.spill_count.max())}")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
+    log(card, f"profile {label}: top device kernels (launches, ms over "
+        f"{per} steps): " + "; ".join(f"{k} {n} {t:.3f}"
+                                      for k, (n, t) in top))
+
+
+def phase_profile(card, pile_state, settled, ref_cfg):
+    """Device events, busy share and the solve's and setup's device time
+    on the awake pile (phase 3's state) and on the fidelity scene settling
+    in the reference mode (step SETTLED_AT of phase 11)."""
+    from nudge_tpu_torch import scenes
+
+    b = scenes.scene_pile(N_PILE)
+    profile_steps(card, "awake pile (step 40)", pile_state,
+                  pile_config(b, N_PILE))
+    profile_steps(card, f"reference pile (fidelity scene, step {SETTLED_AT})",
+                  settled, ref_cfg)
+
+
 def main():
     sys.path.insert(0, REPO)
     import torch
@@ -968,10 +1183,12 @@ def main():
     phase_repeat(card, dev)
     phase_config1_parked(card, dev)
     phase_wake(card, dev)
-    launches = phase_reference_pile(card, dev)     # the slice's main path
+    # the slice's main path
+    launches, settled, ref_cfg = phase_reference_pile(card, dev)
     phase_bench_pile(card, dev)
     launches["pairs_1pt"] = phase_reference_mixed(card, dev)["pairs_1pt"]
     launches["coloring"] = coloring
+    phase_profile(card, pile_state, settled, ref_cfg)
     kernels = [dict(name=k, route="cuda", source=SOURCE_OF[k],
                     replaces=TPU_KERNEL_OF[k], launches=launches[k],
                     **records[k]) for k in TPU_KERNEL_OF]

@@ -125,6 +125,49 @@ __device__ __forceinline__ void orthonormal_basis(V3 n, V3* t1, V3* t2) {
 // v(3) | w(3) | pseudo v(3) | pseudo w(3).
 constexpr int kVelRow = 12;
 
+// The solve's constraint rows, field-major in color-sorted slot order: field
+// f of the manifold at slot s is rows[f * M + s], so neighbouring threads of
+// a color segment read neighbouring words. Vector fields are point-major
+// (ra of point p, component k at kRowRa + 3p + k). Body ids are int32 bits.
+// The same layout as ops/setup_kernel.py ROW_FIELDS (a CPU test holds the
+// two against each other).
+constexpr int kRowN = 0;
+constexpr int kRowT1 = 3;
+constexpr int kRowT2 = 6;
+constexpr int kRowRa = 9;
+constexpr int kRowRb = 21;
+constexpr int kRowJna = 33;
+constexpr int kRowJnb = 45;
+constexpr int kRowJt1a = 57;
+constexpr int kRowJt1b = 69;
+constexpr int kRowJt2a = 81;
+constexpr int kRowJt2b = 93;
+constexpr int kRowMn = 105;
+constexpr int kRowMt1 = 109;
+constexpr int kRowMt2 = 113;
+constexpr int kRowBias = 117;
+constexpr int kRowPosBias = 121;
+constexpr int kRowPwarm = 125;
+constexpr int kRowMu = 129;
+constexpr int kRowImA = 130;
+constexpr int kRowImB = 131;
+constexpr int kRowRelax = 132;
+constexpr int kRowPv = 133;
+constexpr int kRowBodyA = 137;
+constexpr int kRowBodyB = 138;
+constexpr int kRows = 139;
+
+// The solve's work rows, field-major in slot order: the accumulators
+// (λn, λt1, λt2, pseudo λ; 4 points each), then 24 scratch rows (setup's
+// warm-start velocity change of side a | side b, later the spill color's
+// post-pass velocities of side a | side b).
+constexpr int kWorkAccN = 0;
+constexpr int kWorkAccT1 = 4;
+constexpr int kWorkAccT2 = 8;
+constexpr int kWorkAccP = 12;
+constexpr int kWorkScratch = 16;
+constexpr int kWorkRows = 40;
+
 constexpr int kThreads = 128;
 
 __host__ __forceinline__ int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }

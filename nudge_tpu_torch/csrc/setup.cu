@@ -1,5 +1,5 @@
-// Contact-constraint setup (one thread per manifold, its <= 4 points in
-// sequence) and the deterministic per-body segment sum.
+// Contact-constraint setup, written straight into the solve's color-sorted
+// field-major rows, and the warm start's deterministic per-body sum.
 //
 // Replaces nudge_tpu/ops/setup_kernel.py: setup_pallas (_make_setup_kernel),
 // the first half of setup_solve_fused. Per manifold the kernel gathers body
@@ -8,22 +8,34 @@
 // responses I⁻¹(r×d), the effective masses and the biases (Baumgarte, the
 // approach-gated deep bias, the ungated anti-creep floor, the pseudo bias,
 // restitution); projects and clamps the warm and warm-pseudo impulses into
-// the accumulators. It writes the constraint rows that the solve kernel
-// reads, in the manifold-major layout of the plain twin's
-// ContactConstraints, so the two are compared field by field.
+// the accumulators.
+//
+// Layout, as the TPU kernel wrote it for its solve: the launch walks the
+// color-sorted slots s < live (live = offsets[max_colors], read on the
+// device) and takes the manifold i = order[s]; every row the solve reads is
+// stored at rows[f * M + s] (common.cuh kRow*), the accumulators and the
+// warm-start velocity changes at work[f * M + s] (kWork*). Walking slots
+// rather than manifolds makes every store coalesce: neighbouring threads
+// write neighbouring words of each field, and only the per-manifold reads
+// (~156 B) are gathered. Manifold slots past `live` are never touched; t1/t2
+// are also written in manifold order (`frame`, for the cache's world
+// impulse), whose non-live rows the caller zeroes.
 //
 // The warm-start velocity change does not depend on velocities, so the
-// kernel writes it per manifold and side (12 floats: v, w, pseudo v,
-// pseudo w) and segment_apply adds those into the bodies: one thread per
-// body, over the manifolds that touch it in a stably sorted order. No float
-// atomics: the sum order is fixed, so runs repeat bit for bit.
+// kernel stores it per manifold and side (12 floats: v, w, pseudo v,
+// pseudo w), and warm_apply adds those into the bodies: one thread per
+// body, which finds its entries in the stably body-sorted side-a and side-b
+// lists by binary search and sums them in list order (manifold order), side
+// a before side b. That is the order of the plain twin's sequential
+// index_add, and there are no float atomics, so runs repeat bit for bit.
 //
-// What bounds it on an H100: memory. Each manifold reads ~90 floats and
-// writes ~330 (the constraint rows are ~4x the geometry), so at 61,440
-// manifold slots one call moves ~100 MB; the arithmetic (three effective
-// masses per point) is far below the card's float rate. Outputs are written
-// as whole rows per thread; a [rows, M] layout with coalesced stores is the
-// next step if the solve's reads allow it.
+// What bounds it on an H100: memory. Per live manifold ~156 B are read and
+// ~656 B written (139 row words, 16 accumulators, 24 delta words, 24 B of
+// frame); at the pile's 11,971 live manifolds that is ~10 MB, ~3 us at
+// 3.35 TB/s; the arithmetic (three effective masses per point) is far
+// below the float rate. One thread per manifold with ~2,000 dependent
+// instructions, so at this size the chain's latency, not the bytes, sets
+// the time.
 
 #include "common.cuh"
 
@@ -36,14 +48,7 @@ struct SetupParams {
   int split, warm_start, use_pwarm;
 };
 
-struct SetupOut {
-  float *t1, *t2;
-  float *ra, *rb, *jna, *jnb, *jt1a, *jt1b, *jt2a, *jt2b;
-  float *mn, *mt1, *mt2, *bias, *pos_bias, *pwarm;
-  float *im_a, *im_b;
-  float *acc_n, *acc_t1, *acc_t2;
-  float *delta_a, *delta_b;
-};
+constexpr int kSetupBlocks = 264;  // 2 per SM; a grid-stride loop covers the rest
 
 __device__ __forceinline__ void eff(V3 ra, V3 rb, V3 d, Q4 qa, Q4 qb, V3 iia, V3 iib, float ima,
                                     float imb, V3* ja, V3* jb, float* m) {
@@ -62,202 +67,232 @@ __global__ void setup_kernel(const float* __restrict__ bpos, const float* __rest
                              const float* __restrict__ normal, const float* __restrict__ fric,
                              const float* __restrict__ mpos, const float* __restrict__ mdepth,
                              const bool* __restrict__ pvalid, const float* __restrict__ warm,
-                             const float* __restrict__ pwarm_in, int m, SetupParams P,
-                             SetupOut o) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= m) return;
-  const int a = body_a[i], b = body_b[i];
-  const V3 n = load3(normal + 3 * i);
-  V3 t1, t2;
-  orthonormal_basis(n, &t1, &t2);
-  store3(o.t1 + 3 * i, t1);
-  store3(o.t2 + 3 * i, t2);
-  const V3 pa = load3(bpos + 3 * a), pb = load3(bpos + 3 * b);
-  const Q4 qa = load4(bquat + 4 * a), qb = load4(bquat + 4 * b);
-  const V3 iia = load3(binvi + 3 * a), iib = load3(binvi + 3 * b);
-  const float ima = binvm[a], imb = binvm[b];
-  const V3 va0 = load3(bvel + 3 * a), vb0 = load3(bvel + 3 * b);
-  const V3 wa0 = load3(bang + 3 * a), wb0 = load3(bang + 3 * b);
-  const float mu = fric[i];
-  o.im_a[i] = ima;
-  o.im_b[i] = imb;
-
-  // Σ over points (in point order) of the warm impulses' effects
-  float sn = 0.0f, s1 = 0.0f, s2 = 0.0f, sp = 0.0f;
-  V3 dwa = v3(0.0f, 0.0f, 0.0f), dwb = dwa, pdwa = dwa, pdwb = dwa;
-
-  for (int p = 0; p < 4; ++p) {
-    const int ip = 4 * i + p;
-    const bool pv = pvalid[ip];
-    const V3 cp = load3(mpos + 3 * ip);
-    const V3 ra = sub(cp, pa), rb = sub(cp, pb);
-    V3 jna, jnb, jt1a, jt1b, jt2a, jt2b;
-    float mn, mt1, mt2;
-    eff(ra, rb, n, qa, qb, iia, iib, ima, imb, &jna, &jnb, &mn);
-    eff(ra, rb, t1, qa, qb, iia, iib, ima, imb, &jt1a, &jt1b, &mt1);
-    eff(ra, rb, t2, qa, qb, iia, iib, ima, imb, &jt2a, &jt2b, &mt2);
-
-    const float depth = mdepth[ip];
-    const float baum = fminf(P.bod * fmaxf(depth - P.slop, 0.0f), P.max_bias_vel);
-    float vn0 = 0.0f;
-    const bool need_vn0 = P.restitution > 0.0f || (P.split && P.deep_bias_gate >= 0.0f);
-    if (need_vn0) {
-      V3 vrel0 = sub(add(vb0, cross(wb0, rb)), add(va0, cross(wa0, ra)));
-      vn0 = dot(vrel0, n);
+                             const float* __restrict__ pwarm_in, const float* __restrict__ relax,
+                             const long long* __restrict__ order, const int* __restrict__ offsets,
+                             int max_colors, int m, SetupParams P, float* __restrict__ rows,
+                             float* __restrict__ work, float* __restrict__ frame) {
+  const int live = offsets[max_colors];
+  for (int s = blockIdx.x * blockDim.x + threadIdx.x; s < live; s += gridDim.x * blockDim.x) {
+    const long long i = order[s];
+    float* R = rows + s;  // R[f * m]: field f of this slot
+    float* W = work + s;
+    const long long fm = m;
+    const int a = body_a[i], b = body_b[i];
+    const V3 n = load3(normal + 3 * i);
+    V3 t1, t2;
+    orthonormal_basis(n, &t1, &t2);
+    store3(frame + 3 * i, t1);
+    store3(frame + 3 * (fm + i), t2);
+    const V3 pa = load3(bpos + 3 * a), pb = load3(bpos + 3 * b);
+    const Q4 qa = load4(bquat + 4 * a), qb = load4(bquat + 4 * b);
+    const V3 iia = load3(binvi + 3 * a), iib = load3(binvi + 3 * b);
+    const float ima = binvm[a], imb = binvm[b];
+    const V3 va0 = load3(bvel + 3 * a), vb0 = load3(bvel + 3 * b);
+    const V3 wa0 = load3(bang + 3 * a), wb0 = load3(bang + 3 * b);
+    const float mu = fric[i];
+    for (int k = 0; k < 3; ++k) {
+      R[(kRowN + k) * fm] = get(n, k);
+      R[(kRowT1 + k) * fm] = get(t1, k);
+      R[(kRowT2 + k) * fm] = get(t2, k);
     }
-    float bias, pos_bias;
-    if (P.split) {
-      bias = fminf(P.bod * fmaxf(depth - P.deep_bias_depth, 0.0f), P.max_bias_vel);
-      if (P.deep_bias_gate >= 0.0f) {
-        bias = fminf(bias, fmaxf(-vn0 - P.deep_bias_gate, 0.0f));
-        bias = fmaxf(bias, fminf(P.bod * fmaxf(depth - P.ungated_depth, 0.0f), P.ungated_vel));
+    R[kRowMu * fm] = mu;
+    R[kRowImA * fm] = ima;
+    R[kRowImB * fm] = imb;
+    R[kRowRelax * fm] = relax[i];
+    R[kRowBodyA * fm] = __int_as_float(a);
+    R[kRowBodyB * fm] = __int_as_float(b);
+
+    // Σ over points (in point order) of the warm impulses' effects
+    float sn = 0.0f, s1 = 0.0f, s2 = 0.0f, sp = 0.0f;
+    V3 dwa = v3(0.0f, 0.0f, 0.0f), dwb = dwa, pdwa = dwa, pdwb = dwa;
+
+    for (int p = 0; p < 4; ++p) {
+      const long long ip = 4 * i + p;
+      const bool pv = pvalid[ip];
+      const V3 cp = load3(mpos + 3 * ip);
+      const V3 ra = sub(cp, pa), rb = sub(cp, pb);
+      V3 jna, jnb, jt1a, jt1b, jt2a, jt2b;
+      float mn, mt1, mt2;
+      eff(ra, rb, n, qa, qb, iia, iib, ima, imb, &jna, &jnb, &mn);
+      eff(ra, rb, t1, qa, qb, iia, iib, ima, imb, &jt1a, &jt1b, &mt1);
+      eff(ra, rb, t2, qa, qb, iia, iib, ima, imb, &jt2a, &jt2b, &mt2);
+
+      const float depth = mdepth[ip];
+      const float baum = fminf(P.bod * fmaxf(depth - P.slop, 0.0f), P.max_bias_vel);
+      float vn0 = 0.0f;
+      const bool need_vn0 = P.restitution > 0.0f || (P.split && P.deep_bias_gate >= 0.0f);
+      if (need_vn0) {
+        V3 vrel0 = sub(add(vb0, cross(wb0, rb)), add(va0, cross(wa0, ra)));
+        vn0 = dot(vrel0, n);
       }
-      pos_bias = fminf(P.bod * fmaxf(depth - P.slop, 0.0f), P.max_pseudo_vel);
-    } else {
-      bias = baum;
-      pos_bias = 0.0f;
+      float bias, pos_bias;
+      if (P.split) {
+        bias = fminf(P.bod * fmaxf(depth - P.deep_bias_depth, 0.0f), P.max_bias_vel);
+        if (P.deep_bias_gate >= 0.0f) {
+          bias = fminf(bias, fmaxf(-vn0 - P.deep_bias_gate, 0.0f));
+          bias = fmaxf(bias, fminf(P.bod * fmaxf(depth - P.ungated_depth, 0.0f), P.ungated_vel));
+        }
+        pos_bias = fminf(P.bod * fmaxf(depth - P.slop, 0.0f), P.max_pseudo_vel);
+      } else {
+        bias = baum;
+        pos_bias = 0.0f;
+      }
+      if (P.restitution > 0.0f) bias = fmaxf(bias, P.restitution * fmaxf(-vn0 - 1.0f, 0.0f));
+
+      float an = 0.0f, at1 = 0.0f, at2 = 0.0f;
+      if (P.warm_start) {
+        const V3 wi = load3(warm + 3 * ip);
+        float n_ = fmaxf(dot(wi, n), 0.0f);
+        float bound = mu * n_;
+        float x1 = fminf(fmaxf(dot(wi, t1), -bound), bound);
+        float x2 = fminf(fmaxf(dot(wi, t2), -bound), bound);
+        an = pv ? n_ : 0.0f;
+        at1 = pv ? x1 : 0.0f;
+        at2 = pv ? x2 : 0.0f;
+      }
+      const float pw = (P.use_pwarm && pv) ? pwarm_in[ip] : 0.0f;
+
+      for (int k = 0; k < 3; ++k) {
+        const int c = 3 * p + k;
+        R[(kRowRa + c) * fm] = get(ra, k);
+        R[(kRowRb + c) * fm] = get(rb, k);
+        R[(kRowJna + c) * fm] = get(jna, k);
+        R[(kRowJnb + c) * fm] = get(jnb, k);
+        R[(kRowJt1a + c) * fm] = get(jt1a, k);
+        R[(kRowJt1b + c) * fm] = get(jt1b, k);
+        R[(kRowJt2a + c) * fm] = get(jt2a, k);
+        R[(kRowJt2b + c) * fm] = get(jt2b, k);
+      }
+      R[(kRowMn + p) * fm] = mn;
+      R[(kRowMt1 + p) * fm] = mt1;
+      R[(kRowMt2 + p) * fm] = mt2;
+      R[(kRowBias + p) * fm] = bias;
+      R[(kRowPosBias + p) * fm] = pos_bias;
+      R[(kRowPwarm + p) * fm] = pw;
+      R[(kRowPv + p) * fm] = pv ? 1.0f : 0.0f;
+      W[(kWorkAccN + p) * fm] = an;
+      W[(kWorkAccT1 + p) * fm] = at1;
+      W[(kWorkAccT2 + p) * fm] = at2;
+      W[(kWorkAccP + p) * fm] = pw;
+
+      // per-point angular terms, then the running sums over points
+      const V3 ta = add(add(scale(jna, an), scale(jt1a, at1)), scale(jt2a, at2));
+      const V3 tb = add(add(scale(jnb, an), scale(jt1b, at1)), scale(jt2b, at2));
+      const V3 pta = scale(jna, pw), ptb = scale(jnb, pw);
+      if (p == 0) {
+        sn = an;
+        s1 = at1;
+        s2 = at2;
+        sp = pw;
+        dwa = ta;
+        dwb = tb;
+        pdwa = pta;
+        pdwb = ptb;
+      } else {
+        sn = sn + an;
+        s1 = s1 + at1;
+        s2 = s2 + at2;
+        sp = sp + pw;
+        dwa = add(dwa, ta);
+        dwb = add(dwb, tb);
+        pdwa = add(pdwa, pta);
+        pdwb = add(pdwb, ptb);
+      }
     }
-    if (P.restitution > 0.0f) bias = fmaxf(bias, P.restitution * fmaxf(-vn0 - 1.0f, 0.0f));
 
-    float an = 0.0f, at1 = 0.0f, at2 = 0.0f;
-    if (P.warm_start) {
-      const V3 wi = load3(warm + 3 * ip);
-      float n_ = fmaxf(dot(wi, n), 0.0f);
-      float bound = mu * n_;
-      float x1 = fminf(fmaxf(dot(wi, t1), -bound), bound);
-      float x2 = fminf(fmaxf(dot(wi, t2), -bound), bound);
-      an = pv ? n_ : 0.0f;
-      at1 = pv ? x1 : 0.0f;
-      at2 = pv ? x2 : 0.0f;
-    }
-    const float pw = (P.use_pwarm && pv) ? pwarm_in[ip] : 0.0f;
-
-    store3(o.ra + 3 * ip, ra);
-    store3(o.rb + 3 * ip, rb);
-    store3(o.jna + 3 * ip, jna);
-    store3(o.jnb + 3 * ip, jnb);
-    store3(o.jt1a + 3 * ip, jt1a);
-    store3(o.jt1b + 3 * ip, jt1b);
-    store3(o.jt2a + 3 * ip, jt2a);
-    store3(o.jt2b + 3 * ip, jt2b);
-    o.mn[ip] = mn;
-    o.mt1[ip] = mt1;
-    o.mt2[ip] = mt2;
-    o.bias[ip] = bias;
-    o.pos_bias[ip] = pos_bias;
-    o.pwarm[ip] = pw;
-    o.acc_n[ip] = an;
-    o.acc_t1[ip] = at1;
-    o.acc_t2[ip] = at2;
-
-    // per-point angular terms, then the running sums over points
-    const V3 ta = add(add(scale(jna, an), scale(jt1a, at1)), scale(jt2a, at2));
-    const V3 tb = add(add(scale(jnb, an), scale(jt1b, at1)), scale(jt2b, at2));
-    const V3 pta = scale(jna, pw), ptb = scale(jnb, pw);
-    if (p == 0) {
-      sn = an;
-      s1 = at1;
-      s2 = at2;
-      sp = pw;
-      dwa = ta;
-      dwb = tb;
-      pdwa = pta;
-      pdwb = ptb;
-    } else {
-      sn = sn + an;
-      s1 = s1 + at1;
-      s2 = s2 + at2;
-      sp = sp + pw;
-      dwa = add(dwa, ta);
-      dwb = add(dwb, tb);
-      pdwa = add(pdwa, pta);
-      pdwb = add(pdwb, ptb);
+    const V3 Pw = add(add(scale(n, sn), scale(t1, s1)), scale(t2, s2));
+    const V3 Pp = scale(n, sp);
+    const V3 da[4] = {scale(neg(Pw), ima), neg(dwa), scale(neg(Pp), ima), neg(pdwa)};
+    const V3 db[4] = {scale(Pw, imb), dwb, scale(Pp, imb), pdwb};
+    for (int q = 0; q < 4; ++q) {
+      for (int k = 0; k < 3; ++k) {
+        W[(kWorkScratch + 3 * q + k) * fm] = get(da[q], k);
+        W[(kWorkScratch + kVelRow + 3 * q + k) * fm] = get(db[q], k);
+      }
     }
   }
+}
 
-  const V3 Pw = add(add(scale(n, sn), scale(t1, s1)), scale(t2, s2));
-  const V3 Pp = scale(n, sp);
-  float* da = o.delta_a + kVelRow * i;
-  float* db = o.delta_b + kVelRow * i;
-  store3(da + 0, scale(neg(Pw), ima));
-  store3(da + 3, neg(dwa));
-  store3(da + 6, scale(neg(Pp), ima));
-  store3(da + 9, neg(pdwa));
-  store3(db + 0, scale(Pw, imb));
-  store3(db + 3, dwb);
-  store3(db + 6, scale(Pp, imb));
-  store3(db + 9, pdwb);
+// First index of `v` in the ascending keys[0..n), or n.
+__device__ __forceinline__ int lower_bound(const int* __restrict__ keys, int n, int v) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (keys[mid] < v)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// velw[body] = (v, w, 0, 0) + Σ side-a deltas + Σ side-b deltas, each in the
+// order of its stably sorted entry list (keys[e]: the body of entry e, or
+// INT_MAX for entries that add nothing; perm[e]: its manifold).
+__global__ void warm_apply_kernel(const float* __restrict__ bvel, const float* __restrict__ bang,
+                                  const int* __restrict__ keys_a,
+                                  const long long* __restrict__ perm_a,
+                                  const int* __restrict__ keys_b,
+                                  const long long* __restrict__ perm_b,
+                                  const int* __restrict__ slot, const float* __restrict__ work,
+                                  int m, int n, float* __restrict__ velw) {
+  const int body = blockIdx.x * blockDim.x + threadIdx.x;
+  if (body >= n) return;
+  float acc[kVelRow];
+  for (int k = 0; k < 3; ++k) {
+    acc[k] = bvel[3 * body + k];
+    acc[3 + k] = bang[3 * body + k];
+    acc[6 + k] = 0.0f;
+    acc[9 + k] = 0.0f;
+  }
+  const long long fm = m;
+  for (int side = 0; side < 2; ++side) {
+    const int* keys = side ? keys_b : keys_a;
+    const long long* perm = side ? perm_b : perm_a;
+    const float* d = work + (kWorkScratch + side * kVelRow) * fm;
+    for (int j = lower_bound(keys, m, body); j < m && keys[j] == body; ++j) {
+      const int s = slot[perm[j]];
+      for (int c = 0; c < kVelRow; ++c) acc[c] = acc[c] + d[c * fm + s];
+    }
+  }
+  for (int c = 0; c < kVelRow; ++c) velw[kVelRow * body + c] = acc[c];
 }
 
 }  // namespace
-
-// One thread per body segment of a stably sorted (key, manifold) list.
-// keys[e] is the body of entry e (INT_MAX for entries to skip, sorted last),
-// perm[e] its manifold; rows of `vals` are kVelRow floats `stride` apart.
-// mode 0: state[body] += Σ vals (in entry order);
-// mode 1: state[body] += Σ (vals - state[body] as it was before the sum),
-// the Jacobi update of the solver's spill color.
-__global__ void segment_apply_kernel(float* __restrict__ state, const int* __restrict__ keys,
-                                     const long long* __restrict__ perm,
-                                     const float* __restrict__ vals, int n, int stride,
-                                     int mode) {
-  int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  const int body = keys[e];
-  if (body == 0x7fffffff) return;
-  if (e > 0 && keys[e - 1] == body) return;  // not the segment's first entry
-  float base[kVelRow], acc[kVelRow];
-  for (int c = 0; c < kVelRow; ++c) {
-    base[c] = state[kVelRow * body + c];
-    acc[c] = base[c];
-  }
-  for (int j = e; j < n && keys[j] == body; ++j) {
-    const float* row = vals + (long long)stride * perm[j];
-    if (mode == 0) {
-      for (int c = 0; c < kVelRow; ++c) acc[c] = acc[c] + row[c];
-    } else {
-      for (int c = 0; c < kVelRow; ++c) acc[c] = acc[c] + (row[c] - base[c]);
-    }
-  }
-  for (int c = 0; c < kVelRow; ++c) state[kVelRow * body + c] = acc[c];
-}
-
-extern "C" int nudge_segment_apply(float* state, const int* keys, const long long* perm,
-                                   const float* vals, int n, int stride, int mode,
-                                   void* stream) {
-  if (n > 0) {
-    segment_apply_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-        state, keys, perm, vals, n, stride, mode);
-  }
-  return (int)cudaGetLastError();
-}
 
 extern "C" int nudge_setup(
     // bodies
     const float* bpos, const float* bquat, const float* bvel, const float* bang,
     const float* binvm, const float* binvi,
-    // manifolds
+    // manifolds, their warm starts and under-relaxation
     const int* body_a, const int* body_b, const float* normal, const float* fric,
     const float* mpos, const float* mdepth, const bool* pvalid, const float* warm,
-    const float* pwarm_in, int m,
+    const float* pwarm_in, const float* relax,
+    // the color-sorted order, its segment offsets and the body-sorted entries
+    const long long* order, const int* offsets, const int* slot, const int* keys_a,
+    const long long* perm_a, const int* keys_b, const long long* perm_b, int max_colors, int m,
+    int n,
     // constants
     float bod, float slop, float max_bias_vel, float deep_bias_depth, float deep_bias_gate,
     float ungated_depth, float ungated_vel, float max_pseudo_vel, float restitution,
     int split, int warm_start, int use_pwarm,
-    // outputs
-    float* t1, float* t2, float* ra, float* rb, float* jna, float* jnb, float* jt1a,
-    float* jt1b, float* jt2a, float* jt2b, float* mn, float* mt1, float* mt2, float* bias,
-    float* pos_bias, float* pwarm, float* im_a, float* im_b, float* acc_n, float* acc_t1,
-    float* acc_t2, float* delta_a, float* delta_b, void* stream) {
+    // outputs: rows[kRows, m], work[kWorkRows, m], frame[2, m, 3], velw[n, 12]
+    float* rows, float* work, float* frame, float* velw, void* stream_) {
+  cudaStream_t stream = (cudaStream_t)stream_;
   SetupParams P{bod,           slop,        max_bias_vel,   deep_bias_depth, deep_bias_gate,
                 ungated_depth, ungated_vel, max_pseudo_vel, restitution,     split,
                 warm_start,    use_pwarm};
-  SetupOut o{t1,  t2,  ra,  rb,   jna,      jnb,      jt1a,  jt1b,  jt2a,   jt2b,   mn,     mt1,
-             mt2, bias, pos_bias, pwarm, im_a, im_b, acc_n, acc_t1, acc_t2, delta_a, delta_b};
   if (m > 0) {
-    setup_kernel<<<blocks_for(m), kThreads, 0, (cudaStream_t)stream>>>(
+    const int blocks = blocks_for(m) < kSetupBlocks ? blocks_for(m) : kSetupBlocks;
+    setup_kernel<<<blocks, kThreads, 0, stream>>>(
         bpos, bquat, bvel, bang, binvm, binvi, body_a, body_b, normal, fric, mpos, mdepth,
-        pvalid, warm, pwarm_in, m, P, o);
+        pvalid, warm, pwarm_in, relax, order, offsets, max_colors, m, P, rows, work, frame);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (n > 0) {
+    warm_apply_kernel<<<blocks_for(n), kThreads, 0, stream>>>(
+        bvel, bang, keys_a, perm_a, keys_b, perm_b, slot, work, m, n, velw);
   }
   return (int)cudaGetLastError();
 }

@@ -3,8 +3,9 @@
 
 `step` runs on whatever device the state lives on: on CUDA tensors both
 narrowphases, the fresh coloring's claim rounds, setup and solve go
-through the hand-written kernels, on CPU tensors through their plain
-twins. `simulate` is a Python loop over steps.
+through the hand-written kernels (the solve in one launch, with no host
+read), on CPU tensors through their plain twins. `simulate` is a Python
+loop over steps.
 
 It runs boxes and spheres, with the cached or the fresh coloring, with or
 without sleeping and the persistent broadphase (together: the reference
@@ -117,8 +118,12 @@ def _step_active(state: SimState, cfg: SimConfig, rebuild):
                                                   state.colors)
     else:
         coloring, colors = color_manifolds(contacts, bodies, cfg), state.colors
+    # the solve's color-sorted order, from the coloring; setup writes the
+    # solve's rows in it on the card (the CPU twins keep manifold order)
+    order = solver_kernel.color_order(contacts, bodies, coloring, cfg)
     con, velw, acc = setup_kernel.setup(bodies, contacts, warm, cfg,
-                                        coloring=coloring, pwarm=pwarm)
+                                        coloring=coloring, pwarm=pwarm,
+                                        order=order)
     velw, acc, pseudo_acc = solver_kernel.solve(velw, con, acc, cfg)
     bodies = bodies.replace(vel=velw[:, 0:3].contiguous(),
                             angvel=velw[:, 3:6].contiguous())

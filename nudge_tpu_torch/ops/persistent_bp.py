@@ -74,7 +74,8 @@ def fat_cfg(cfg: SimConfig) -> SimConfig:
     )
 
 
-def empty_bp_cache(cfg: SimConfig, n_bodies: int, device=None) -> BPCache:
+def empty_bp_cache(cfg: SimConfig, n_bodies: int,
+                   device="cuda") -> BPCache:
     fat = fat_cfg(cfg)
 
     def z(c):

@@ -263,8 +263,10 @@ class SceneBuilder:
         return SimConfig(**kw)
 
     # -- finalize ----------------------------------------------------------
-    def finalize(self, cfg: SimConfig, device="cpu") -> SimState:
-        """Pad to the config's capacities and build a SimState on `device`."""
+    def finalize(self, cfg: SimConfig, device="cuda") -> SimState:
+        """Pad to the config's capacities and build a SimState on `device`:
+        the card unless the caller asks for another (the CPU runs the
+        kernels' plain twins). Raises where torch has no CUDA device."""
         nb, nbx, nsp = len(self.pos), len(self.box_body), len(self.sph_body)
         if nb > cfg.max_bodies:
             raise ValueError(f"{nb} bodies > capacity {cfg.max_bodies}")

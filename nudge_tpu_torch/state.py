@@ -129,7 +129,7 @@ class SimState(_Replace):
 _F32, _I32 = torch.float32, torch.int32
 
 
-def empty_color_cache(cfg: SimConfig, device=None) -> ColorCache:
+def empty_color_cache(cfg: SimConfig, device="cuda") -> ColorCache:
     m = cfg.max_manifolds
     z = torch.zeros((m,), dtype=_I32, device=device)
     return ColorCache(ga=z, gb=z.clone(), color=z.clone(),
@@ -137,7 +137,7 @@ def empty_color_cache(cfg: SimConfig, device=None) -> ColorCache:
                       dynbits=z.clone())
 
 
-def empty_cache(cfg: SimConfig, device=None) -> ContactCache:
+def empty_cache(cfg: SimConfig, device="cuda") -> ContactCache:
     c = cfg.cache_capacity
     return ContactCache(
         ga=torch.zeros((c,), dtype=_I32, device=device),
@@ -149,7 +149,7 @@ def empty_cache(cfg: SimConfig, device=None) -> ContactCache:
     )
 
 
-def empty_state(cfg: SimConfig, device=None) -> SimState:
+def empty_state(cfg: SimConfig, device="cuda") -> SimState:
     """All-padding state at capacity; fill via scenes.SceneBuilder."""
     from .ops.persistent_bp import empty_bp_cache
 

@@ -38,7 +38,7 @@ def test_scene_finalizes_like_reference(n):
             assert getattr(pcfg, f.name) == getattr(jcfg, f.name), f.name
     jt = tree(jb.finalize(jcfg))
     pt = to_port_state(jb.finalize(jcfg))      # the bridge itself
-    own = pb.finalize(pcfg)
+    own = pb.finalize(pcfg, device="cpu")
     back = state_to_numpy(own)
     for group in ("bodies", "boxes", "spheres", "cache", "sleep", "bp",
                   "colors"):

@@ -69,7 +69,7 @@ def test_package_imports_no_jax():
 def test_unported_modes_raise(knob):
     b = pscenes.scene_single_box()
     cfg = b.auto_config(**knob)
-    st = b.finalize(cfg)
+    st = b.finalize(cfg, device="cpu")
     with pytest.raises(NotImplementedError):
         pengine.step(st, cfg)
 
@@ -233,7 +233,7 @@ def test_single_box_settles_like_reference():
     final height equal to the JAX engine's own CPU result."""
     b = pscenes.scene_single_box(2.0)
     cfg = b.auto_config()
-    st, m = pengine.simulate(b.finalize(cfg), cfg, 500)
+    st, m = pengine.simulate(b.finalize(cfg, device="cpu"), cfg, 500)
     pos = np_(st.bodies.pos[1])
     assert abs(pos[1] - 0.5) <= cfg.slop + 1e-3, pos
     assert np.linalg.norm(np_(st.bodies.vel[1])) < 1e-3
@@ -265,7 +265,8 @@ def test_two_runs_are_bitwise_equal():
 
 def _rollout(b, steps):
     cfg = b.auto_config()
-    st, m = pengine.simulate(b.finalize(cfg), cfg, steps)
+    st, m = pengine.simulate(b.finalize(cfg, device="cpu"), cfg,
+                             steps)
     assert not bool(m.overflow.any())
     return cfg, np_(st.bodies.pos)
 

@@ -86,28 +86,95 @@ def test_box_box_kernel_matches_twin(dev):
 
 @pytest.mark.parametrize("max_colors", [24, 2])
 def test_setup_and_solve_kernels_match_twins(dev, max_colors):
+    """Setup against setup_plain on every live manifold after unpacking;
+    the one-launch solve against solve_plain from the same packed inputs:
+    bitwise where no manifold spills, within tolerance with the spill
+    color's Jacobi sums (the twin's scatter-adds use atomics there)."""
     cfg, st = _pressed_pile(300, dev, broadphase="grid",
                             max_colors=max_colors)
     st, _ = engine.simulate(st, cfg, 3)        # warm caches
     bodies, man, warm, pwarm, col = _stage_inputs(cfg, st)
-    kcon, kvelw, kacc = setup_kernel.setup_cuda(bodies, man, warm, cfg, col,
-                                                pwarm)
+    order = solver_kernel.color_order(man, bodies, col, cfg)
+    kcon, kvelw, kwork = setup_kernel.setup_cuda(bodies, man, warm, cfg, col,
+                                                 pwarm, order)
     tcon, tvelw, tacc = setup_kernel.setup_plain(bodies, man, warm, cfg, col,
                                                  pwarm)
     torch.cuda.synchronize()
+    live = man.valid
+    ucon = setup_kernel.unpack_constraints(kcon)
     for f in dataclasses.fields(solver.ContactConstraints):
-        _close(getattr(kcon, f.name), getattr(tcon, f.name), f.name)
+        a, b = getattr(ucon, f.name), getattr(tcon, f.name)
+        if a.dim() and a.shape[0] == live.shape[0]:
+            a, b = a[live], b[live]
+        _close(a, b, f.name)
+    _close(kcon.t1[live], tcon.t1[live], "frame t1")
+    _close(kcon.t2[live], tcon.t2[live], "frame t2")
     _close(kvelw, tvelw, "velw")
-    for a, b in zip(kacc, tacc):
-        _close(a, b, "acc")
-    kv, ka, kp = solver_kernel.solve_cuda(kvelw, kcon, kacc, cfg)
-    tv, ta, tp = solver_kernel.solve_plain(kvelw, kcon, kacc, cfg)
+    for a, b in zip(setup_kernel.unpack_acc(kwork, order), tacc):
+        _close(a[live], b[live], "acc")
+
+    packed, work = setup_kernel.pack_constraints(tcon, tacc, order)
+    kv, ka, kp = solver_kernel.solve_cuda(tvelw.clone(), packed, work, cfg)
+    tv, ta, tp = solver_kernel.solve_plain(tvelw, tcon, tacc, cfg)
     torch.cuda.synchronize()
-    _close(kv, tv, "solved velw")
-    for a, b in zip(ka + (kp,), ta + (tp,)):
-        _close(a, b, "solved acc")
+    pairs = [(kv, tv, "solved velw")] + [
+        (a, b, "solved acc") for a, b in zip(ka + (kp,), ta + (tp,))]
+    for a, b, name in pairs:
+        if int(col[3]) == 0:
+            assert torch.equal(a, b), name
+        else:
+            _close(a, b, name)
     if max_colors == 2:
         assert int(col[3]) > 0
+    else:
+        assert int(col[3]) == 0
+
+
+def _solve_inputs(dev, max_colors):
+    cfg, st = _pressed_pile(300, dev, broadphase="grid",
+                            max_colors=max_colors)
+    st, _ = engine.simulate(st, cfg, 3)
+    bodies, man, warm, pwarm, col = _stage_inputs(cfg, st)
+    con, velw, work = setup_kernel.setup_cuda(bodies, man, warm, cfg, col,
+                                              pwarm)
+    return cfg, col, con, velw, work
+
+
+@pytest.mark.parametrize("max_colors", [24, 2])
+def test_solve_kernel_repeats_bitwise(dev, max_colors):
+    """Ten launches from one input give the same bits: a stale read of
+    another SM's velocity write would make them differ."""
+    cfg, col, con, velw, work = _solve_inputs(dev, max_colors)
+    runs = []
+    for _ in range(10):
+        v, a, p = solver_kernel.solve_cuda(velw.clone(), con, work.clone(),
+                                           cfg)
+        runs.append(torch.cat([v.reshape(-1), *[x.reshape(-1) for x in a],
+                               p.reshape(-1)]))
+    torch.cuda.synchronize()
+    assert not torch.equal(runs[0][:velw.numel()], velw.reshape(-1))
+    for r in runs[1:]:
+        assert torch.equal(r, runs[0])
+    assert (int(col[3]) > 0) == (max_colors == 2)
+
+
+def test_solve_is_one_launch(dev):
+    """The whole solve, every sweep and color, is one kernel on the
+    device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, col, con, velw, work = _solve_inputs(dev, 24)
+    v, w = velw.clone(), work.clone()
+    torch.cuda.synchronize()
+    n0 = solver_kernel.solve.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        solver_kernel.solve_cuda(v, con, w, cfg)
+        torch.cuda.synchronize()
+    assert solver_kernel.solve.launches == n0 + 1
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "solve_kernel" in kernels[0], kernels
+    assert int(col[1]) * cfg.solver_iters > 20     # many passes, one launch
 
 
 def test_engine_on_cuda_launches_every_kernel_and_repeats(dev):
@@ -188,9 +255,11 @@ def test_mixed_pile_fresh_coloring_launches_every_kernel_and_repeats(dev):
 def _through_twins(monkeypatch):
     """Route every kernel wrapper's CUDA branch to its plain twin."""
     for mod, name in ((npk, "box_box_slots"), (p1pt, "pairs_1pt_slots"),
-                      (ck, "color_rounds"), (setup_kernel, "setup"),
-                      (solver_kernel, "solve")):
+                      (ck, "color_rounds"), (solver_kernel, "solve")):
         monkeypatch.setattr(mod, f"{name}_cuda", getattr(mod, f"{name}_plain"))
+    # the twin keeps manifold order: it takes no slot order
+    monkeypatch.setattr(setup_kernel, "setup_cuda",
+                        lambda *a: setup_kernel.setup_plain(*a[:6]))
 
 
 def test_reference_mode_step_matches_twins(dev, monkeypatch):

@@ -149,9 +149,11 @@ def test_persistent_matches_full_rebuild():
     b = pscenes.scene_pile(24, seed=3)
     cfg_off = b.auto_config(persistent_broadphase=False)
     cfg_on = b.auto_config(persistent_broadphase=True)
-    st_off, m0 = pengine.simulate(b.finalize(cfg_off), cfg_off, 30)
+    st_off, m0 = pengine.simulate(b.finalize(cfg_off, device="cpu"),
+                                cfg_off, 30)
     rebuilds = ppbp.persistent_broadphase.rebuilds
-    st_on, m1 = pengine.simulate(b.finalize(cfg_on), cfg_on, 30)
+    st_on, m1 = pengine.simulate(b.finalize(cfg_on, device="cpu"),
+                               cfg_on, 30)
     assert 0 < ppbp.persistent_broadphase.rebuilds - rebuilds < 30
     assert int(m0.contact_count[-1]) == int(m1.contact_count[-1]) > 24
     np.testing.assert_allclose(np_(st_off.bodies.pos), np_(st_on.bodies.pos),

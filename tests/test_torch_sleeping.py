@@ -168,7 +168,8 @@ def test_parked_pair_rebuild_skip_is_identity():
 
 def _run(builder, steps, **over):
     cfg = builder.auto_config(sleeping=True, sleep_frames=30, **over)
-    st, m = pengine.simulate(builder.finalize(cfg), cfg, steps)
+    st, m = pengine.simulate(builder.finalize(cfg, device="cpu"), cfg,
+                             steps)
     return cfg, st, m
 
 
@@ -250,7 +251,7 @@ def test_sleeper_is_static_for_the_solver():
     b.add_box((0.5, 0.5, 0.5), (0, 0.6, 0))
     b.add_box((0.5, 0.5, 0.5), (0, 1.7, 0))
     cfg = b.auto_config(sleeping=True, sleep_frames=10_000)
-    st, _ = pengine.simulate(b.finalize(cfg), cfg, 40)
+    st, _ = pengine.simulate(b.finalize(cfg, device="cpu"), cfg, 40)
     vel, angvel = st.bodies.vel.clone(), st.bodies.angvel.clone()
     vel[1] = 0.0
     angvel[1] = 0.0
@@ -286,7 +287,7 @@ def test_mixed_stack_sleeps_with_energy_never_rising():
     b.add_sphere(0.3, (0, 1.6, 0))
     cfg = b.auto_config(sleeping=True, sleep_frames=30,
                         persistent_broadphase=True)
-    st = b.finalize(cfg)
+    st = b.finalize(cfg, device="cpu")
     parked0 = pengine.step.parked
     energies = []
     for _ in range(12):

@@ -91,7 +91,7 @@ def test_color_manifolds_cached_matches_reference(scene, max_colors):
     pcfg, jcfg, jb, pb, jman, pman = scene
     pcfg = pcfg.replace(max_colors=max_colors)
     jcfg = jcfg.replace(max_colors=max_colors)
-    pcc = empty_color_cache(pcfg)
+    pcc = empty_color_cache(pcfg, device="cpu")
     jcc = _jax_color_cache(pcc)
     # first frame from an empty cache, then a frame that hits the cache for
     # most manifolds and misses for the ones whose order changed

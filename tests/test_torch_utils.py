@@ -98,7 +98,7 @@ def test_jax_checkpoint_restores_into_port(tmp_path):
     path = tmp_path / "ref.npz"
     jckpt.save(str(path), jst)
     assert "bp/tight_bb_a" in np.load(path).files
-    like = pscenes.scene_pile(24, seed=2).finalize(pcfg)
+    like = pscenes.scene_pile(24, seed=2).finalize(pcfg, device="cpu")
     restored = pckpt.restore(str(path), like)
     _assert_states_equal(restored, to_port_state(jst))
     a, _ = pengine.step(restored, pcfg)
@@ -111,7 +111,7 @@ def test_port_checkpoint_roundtrip_is_bitwise(tmp_path):
     st, _ = pengine.simulate(to_port_state(jst), pcfg, 2)
     path = tmp_path / "sub" / "port.npz"
     pckpt.save(str(path), st)
-    like = pscenes.scene_pile(24, seed=2).finalize(pcfg)
+    like = pscenes.scene_pile(24, seed=2).finalize(pcfg, device="cpu")
     restored = pckpt.restore(str(path)[:-4], like)    # suffix optional
     _assert_states_equal(restored, st)
     a, ma = pengine.simulate(restored, pcfg, 2)
@@ -128,7 +128,7 @@ def test_restore_missing_field(tmp_path):
     data = dict(np.load(path))
     del data["bp/anchor_pos"]
     np.savez(path, **data)
-    like = pscenes.scene_pile(24, seed=2).finalize(pcfg)
+    like = pscenes.scene_pile(24, seed=2).finalize(pcfg, device="cpu")
     with pytest.raises(KeyError):
         pckpt.restore(str(path), like)
     loose = pckpt.restore(str(path), like, strict=False)
