@@ -7,15 +7,23 @@ no result):
 
   1. device: a CUDA device must be present; prints the card's name and
      power limit as nvidia-smi reports them;
-  2. build: compiles the kernels under nudge_tpu_torch/csrc/ with nvcc;
+  2. build: compiles the kernels under nudge_tpu_torch/csrc/ with nvcc and
+     prints each kernel's registers, stack frame and spills from ptxas;
+     the box-box kernel must have no stack frame and no spill;
   3. kernel vs twin: on the 20,480-box pile after 40 steps, each CUDA kernel
      (box-box narrowphase, setup, solve, coloring rounds) against its plain
-     PyTorch twin on the same CUDA tensors, with both times and the
-     kernel's device time from torch.profiler: setup over the live slots of
+     PyTorch twin on the same CUDA tensors, with both times, the kernel's
+     device time from CUDA events and the device operations a call
+     enqueues from a CUDA graph capture (nudge_tpu_torch/utils/timing.py;
+     box-box, the solve and the coloring one kernel and nothing else):
+     box-box on every live pair
+     of the step's candidate pairs (floats bitwise, dead slots without a
+     valid point); setup over the live slots of
      the solve's color-sorted order, unpacked to manifold order and held to
      the twin on every live manifold; the solve from the twin's setup
      packed into the kernel's layout, bitwise equal to the twin, its
      launches from one input bitwise equal to each other, one device
+     kernel a call; the coloring bitwise, ten launches equal, one device
      kernel a call; the solve and the coloring once more with only 4
      colors, so that the spill paths run at full size; then the one-point
      (box-sphere, sphere-sphere) kernel on config 3 after 120 steps;
@@ -45,7 +53,8 @@ no result):
      load, max depth < 0.5 and, from step 300 on, a total energy that does
      not rise; at the end to a max depth (last window, and the
      final state's resting contacts) <= 0.02, awake < 25%, no coloring
-     conflict and no dead body;
+     conflict and no dead body; then box-box against its twin once more at
+     step 2,150, where few of the pair slots are live, with its device time;
  12. bench.py's headline scene (seed 0) the same way, its end depth
      reported instead of gated, its settled rate (the last 500 steps),
      and two 30-step runs from its final state, bitwise equal;
@@ -54,7 +63,9 @@ no result):
  14. profile: torch.profiler over 10 steps of the awake pile (phase 3's
      state) and of the fidelity scene at step 2,150 of phase 11 (settling,
      ~700 awake): device events a step, the device's busy share, and the
-     solve's and setup's device time and launches a step.
+     solve's, setup's and box-box's device time and launches a step, with
+     how many of the port's kernel launches the profiler recorded (it
+     drops some at times: then these are lower bounds; nothing is gated).
 
 Phases 5-7 and 9-13 each zero the kernels' launch counts before they run
 and read them after, and run with the plain twins replaced by functions
@@ -114,6 +125,8 @@ MIXED_ENERGY_FROM = 600
 ENERGY_RTOL = 1e-5
 SOLVE_REPEATS = 10         # launches of the solve from one input, bitwise
 PROFILE_STEPS = 10         # steps under torch.profiler per profiled state
+PROFILE_LEAD_S = 1.0       # idle seconds at the start of a profiler window
+DEVICE_REPS = 10           # calls a device time averages
 SETTLED_AT = 2150          # the fidelity scene settling (~700 awake)
 
 # The least time the card could take for a kernel's work (bound_ms): bytes
@@ -123,9 +136,20 @@ SETTLED_AT = 2150          # the fidelity scene settling (~700 awake)
 # and operations are counted per live item of this run, from the sources:
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# box-box: ~3,000 float operations per live pair (15 SAT axes, 24 clip
-# candidates, the 4-point reduction; csrc/narrowphase.cu)
-BOXBOX_OPS_PER_PAIR = 3000
+# box-box, per live pair, counted from csrc/narrowphase.cu as one pair's
+# sequential work (adds, multiplies, divides, square roots, abs, min/max
+# and float compares): both cases run the two rotations (60),
+# R, t, |R| and tB (96), the 6 face axes with their pick (53), the 9 edge
+# axes with theirs (180), the case test (7) and friction (3): 399. The
+# face case adds the frame and the incident quad (115), the 24 candidates
+# (4 vertices 24, 4 corners 180, 16 edge crossings 368, depths 72), the
+# four reduction passes (514) and the 4 points out (86): 1,770 in all.
+# The edge case adds the axis (28), the supporting edges (81), their
+# closest points (31) and the point out (56): 595 in all. Phase 3 weights
+# them by the live pairs of each case (edge-case pairs carry feature ids
+# >= 1024).
+BOXBOX_OPS_FACE = 1770
+BOXBOX_OPS_EDGE = 595
 # one-point: ~200 per live pair (csrc/narrowphase_1pt.cu)
 PAIRS_1PT_OPS_PER_PAIR = 200
 # setup, per live manifold: 156 B of geometry, warm starts and ids, relax
@@ -179,6 +203,40 @@ def phase_device():
     return card
 
 
+# the entry functions of nudge_tpu_torch/csrc/
+DEVICE_KERNELS = ("box_box_kernel", "pairs_1pt_kernel", "setup_kernel",
+                  "warm_apply_kernel", "solve_kernel", "color_kernel")
+
+
+def ptxas_report(build_log):
+    """{kernel: (registers, stack frame bytes, spill store bytes, spill load
+    bytes)} from nvcc's -Xptxas -v output, by the name in DEVICE_KERNELS
+    that the mangled name holds."""
+    import re
+
+    out, name, frame = {}, None, (0, 0, 0)
+    for ln in build_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            frame = tuple(int(x) for x in m.groups())
+            continue
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            short = next((k for k in DEVICE_KERNELS if k in name), name)
+            out[short] = (int(m.group(1)), *frame)
+            name, frame = None, (0, 0, 0)
+    return out
+
+
 def phase_build(card):
     from nudge_tpu_torch import _build
 
@@ -188,9 +246,19 @@ def phase_build(card):
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_build.log"), "w") as f:
         f.write(lib.log)
-    regs = [ln.strip() for ln in lib.log.splitlines() if "registers" in ln]
-    log(card, f"build: {dt:.2f} s ({lib.path.name}); ptxas: "
-        + " | ".join(regs))
+    report = ptxas_report(lib.log)
+    log(card, f"build: {dt:.2f} s ({lib.path.name}); ptxas (registers, "
+        "stack frame, spill stores, spill loads in bytes): " + "; ".join(
+            f"{k} {r} regs, {fr} B frame, {ss}/{sl} B spill"
+            for k, (r, fr, ss, sl) in sorted(report.items())))
+    # the box-box kernel keeps every value in registers
+    if "box_box_kernel" not in report:
+        raise AssertionError("the build log holds no ptxas report for "
+                             "box_box_kernel")
+    _, frame, st, ld = report["box_box_kernel"]
+    if frame or st or ld:
+        raise AssertionError(f"box_box_kernel: {frame} B stack frame, {st} B "
+                             f"spill stores, {ld} B spill loads, not 0")
     return dt
 
 
@@ -316,29 +384,17 @@ def short_name(name):
     return name.split("(")[0].split("<")[0].split("::")[-1] or name
 
 
-def device_ms(fn, reps=3):
-    """({kernel: device ms per call}, device kernels per call) of `fn`
-    under torch.profiler, after one call outside it."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    by, n = {}, 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            k = short_name(e.name)
-            by[k] = by.get(k, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
-            n += 1
-    return by, n / reps
+def fmt_ops(ops):
+    return ", ".join(f"{n} {k}{'s' * (n != 1)}"
+                     for k, n in sorted(ops.items())) or "nothing"
 
 
-def fmt_dev(by):
-    return ", ".join(f"{k} {v:.4f} ms" for k, v in by.items()) or "no events"
+def one_kernel(label, ops):
+    """Fail unless a call enqueued one kernel and no other device
+    operation (`timing.device_ops`)."""
+    if ops != {"kernel": 1}:
+        raise AssertionError(f"{label}: a call enqueues {fmt_ops(ops)}, not "
+                             "one kernel")
 
 
 class Diff:
@@ -374,11 +430,12 @@ class Diff:
 def compare_solve(label, packed, work, velw, con, acc, cfg, bitwise):
     """The solve kernel from packed inputs against solve_plain from the
     same constraints (bit for bit when `bitwise`); SOLVE_REPEATS launches
-    from one input bitwise equal; one device kernel per call. Returns
-    (Diff, wrapper ms, device ms by kernel)."""
+    from one input bitwise equal; one kernel and nothing else enqueued a
+    call. Returns (Diff, wrapper ms, device ms)."""
     import torch
 
     from nudge_tpu_torch.ops import solver_kernel
+    from nudge_tpu_torch.utils import timing
 
     def run(v, w):
         v, a, p = solver_kernel.solve_cuda(v, packed, w, cfg)
@@ -402,36 +459,50 @@ def compare_solve(label, packed, work, velw, con, acc, cfg, bitwise):
                                      "same input differs from the first")
     v, w = velw.clone(), work.clone()
     ms = timed(lambda: run(v, w))
-    dev, kernels = device_ms(lambda: run(v, w))
-    if kernels != 1:
-        raise AssertionError(f"{label}: {kernels} device kernels a solve "
-                             f"call, not one: {fmt_dev(dev)}")
-    return diff, ms, dev
+    one_kernel(label, timing.device_ops(lambda: run(v, w)))
+    return diff, ms, timing.device_ms(lambda: run(v, w), DEVICE_REPS)
 
 
-def phase_compare(card, dev):
+def box_box_inputs(st, cfg):
+    """(boxes, world colliders, box-box pairs) as a step from `st` hands
+    them to the box-box kernel: contacts.collide's own, captured."""
+    from nudge_tpu_torch.ops import contacts
+
+    seen = []
+    real = contacts.box_box_slots
+
+    def grab(bx, wc, bb):
+        seen.append((bx, wc, bb))
+        return real(bx, wc, bb)
+
+    contacts.box_box_slots = grab
+    try:
+        contacts.collide(st, cfg)
+    finally:
+        contacts.box_box_slots = real
+    return seen[0]
+
+
+def compare_box_box(card, label, bx, wc, bb):
+    """The box-box kernel against its twin on every live pair: no more
+    than TIE_SHARE of them may differ in their integer outputs, the floats
+    of the rest bitwise equal; every dead slot without a valid point; one
+    kernel and nothing else enqueued a call; the kernel's device time.
+    Returns the record fields."""
     import torch
 
-    from nudge_tpu_torch import engine, scenes
-    from nudge_tpu_torch.ops import broadphase, cache, coloring_kernel
-    from nudge_tpu_torch.ops import contacts, grid, integrate, setup_kernel
     from nudge_tpu_torch.ops import narrowphase_kernel as npk
-    from nudge_tpu_torch.ops import solver, solver_kernel
+    from nudge_tpu_torch.utils import timing
 
-    b = scenes.scene_pile(N_PILE)
-    cfg = pile_config(b, N_PILE)
-    st, _ = engine.simulate(b.finalize(cfg, device=dev), cfg, COMPARE_AFTER)
-    torch.cuda.synchronize()
-    records = {}
-
-    # --- narrowphase at the grid's candidate pairs ---
-    wc = broadphase.world_colliders(st)
-    bb, _, _ = grid.grid_broadphase(st, wc, cfg)
-    k = npk.box_box_slots_cuda(st.boxes, wc, bb)
-    p = npk.box_box_slots_plain(st.boxes, wc, bb)
+    k = npk.box_box_slots_cuda(bx, wc, bb)
+    p = npk.box_box_slots_plain(bx, wc, bb)
     torch.cuda.synchronize()
     live = bb.valid
     n_live = int(live.sum())
+    n_slots = live.shape[0]
+    if bool(k["point_valid"][~live].any()):
+        raise AssertionError(f"box_box ({label}): a dead slot has a valid "
+                             "point")
     ints_same = live.clone()
     for key in ("point_valid", "feat"):
         ints_same &= (k[key] == p[key]).all(1)
@@ -439,25 +510,98 @@ def phase_compare(card, dev):
         ints_same &= k[key] == p[key]
     n_diff = int((live & ~ints_same).sum())
     if n_diff > TIE_SHARE * max(n_live, 1):
-        raise AssertionError(f"box_box: {n_diff} of {n_live} live pairs "
-                             "differ in their integer outputs")
+        raise AssertionError(f"box_box ({label}): {n_diff} of {n_live} live "
+                             "pairs differ in their integer outputs")
     ok = ints_same & live
     pv = p["point_valid"] & ok[:, None]
     diff = Diff()
     diff.check("box_box.pos", k["pos"][pv], p["pos"][pv])
     diff.check("box_box.depth", k["depth"][pv], p["depth"][pv])
     diff.check("box_box.normal", k["normal"][ok], p["normal"][ok])
-    ms = timed(lambda: npk.box_box_slots_cuda(st.boxes, wc, bb))
-    plain_ms = timed(lambda: npk.box_box_slots_plain(st.boxes, wc, bb))
-    per_pair = sum(v[0].numel() * v.element_size() for v in k.values())
+    diff.check("box_box.friction", k["friction"][ok], p["friction"][ok])
+    if diff.err != 0.0:
+        raise AssertionError(f"box_box ({label}): floats not bitwise equal "
+                             f"to the twin on live pairs ({diff})")
+    n_edge = int((live & (p["feat"][:, 0] >= 1024)).sum())
+    ms = timed(lambda: npk.box_box_slots_cuda(bx, wc, bb))
+    plain_ms = timed(lambda: npk.box_box_slots_plain(bx, wc, bb))
+    one_kernel(f"box_box ({label})", timing.device_ops(
+        lambda: npk.box_box_slots_cuda(bx, wc, bb)))
+    dev_ms = timing.device_ms(lambda: npk.box_box_slots_cuda(bx, wc, bb),
+                              DEVICE_REPS)
+    # pair_valid in and point_valid out for every slot; per live pair its
+    # two indices in and the slot's outputs (ga, gb are the inputs' own)
+    out_bytes = sum(v[0].numel() * v.element_size() for key, v in k.items()
+                    if key not in ("ga", "gb"))
     wc_bytes = sum(t.numel() * t.element_size() for t in wc)
-    records["box_box"] = dict(
-        max_abs_err=diff.err, ms=ms, plain_ms=plain_ms,
-        **bound(wc_bytes + n_live * (8 + per_pair),
-                n_live * BOXBOX_OPS_PER_PAIR))
-    log(card, f"box_box: {bb.a.shape[0]} pair slots, {n_live} live, "
-        f"{n_diff} differ (near-ties), {diff}; "
-        f"kernel {ms:.3f} ms, twin {plain_ms:.3f} ms")
+    rec = dict(max_abs_err=diff.err, ms=ms, plain_ms=plain_ms,
+               **bound(wc_bytes + n_slots * (1 + 4)
+                       + n_live * (8 + out_bytes),
+                       (n_live - n_edge) * BOXBOX_OPS_FACE
+                       + n_edge * BOXBOX_OPS_EDGE))
+    log(card, f"box_box ({label}): {n_slots} pair slots, {n_live} live "
+        f"({n_edge} edge case), {n_diff} differ (near-ties), {diff}; "
+        f"dead slots without a valid point; one kernel a call; kernel "
+        f"{ms:.4f} ms (device {dev_ms:.4f} ms), twin "
+        f"{plain_ms:.3f} ms; bound {rec['bound_ms']:.5f} ms "
+        f"({rec['bound_by']})")
+    return rec
+
+
+def compare_coloring(card, man, dyn, max_colors):
+    """The coloring kernel against its twin, bit for bit; SOLVE_REPEATS
+    launches from one input equal; one kernel and nothing else enqueued a
+    call. Returns (wrapper ms, twin ms, device ms)."""
+    import torch
+
+    from nudge_tpu_torch.ops import coloring_kernel as ck
+    from nudge_tpu_torch.utils import timing
+
+    args = (man.body_a, man.body_b, man.valid, dyn, dyn.shape[0], max_colors)
+    k = ck.color_rounds_cuda(*args)
+    p = ck.color_rounds_plain(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(k, p):
+        raise AssertionError(
+            f"coloring ({max_colors} colors): {int((k != p).sum())} of "
+            f"{k.shape[0]} raw colors differ")
+    for rep in range(1, SOLVE_REPEATS):
+        if not torch.equal(ck.color_rounds_cuda(*args), k):
+            raise AssertionError(f"coloring ({max_colors} colors): launch "
+                                 f"{rep + 1} from the same input differs")
+    ms = timed(lambda: ck.color_rounds_cuda(*args))
+    plain_ms = timed(lambda: ck.color_rounds_plain(*args))
+    one_kernel(f"coloring ({max_colors} colors)",
+               timing.device_ops(lambda: ck.color_rounds_cuda(*args)))
+    dev_ms = timing.device_ms(lambda: ck.color_rounds_cuda(*args),
+                              DEVICE_REPS)
+    log(card, f"coloring with {max_colors} colors: bitwise equal, "
+        f"{SOLVE_REPEATS} launches equal, one device kernel a call; "
+        f"{int(p.max()) + 1} rounds used, "
+        f"{int(((p < 0) & man.valid).sum())} of {int(man.valid.sum())} "
+        f"manifolds left uncolored; kernel {ms:.4f} ms (device "
+        f"{dev_ms:.4f} ms), twin {plain_ms:.3f} ms")
+    return ms, plain_ms, dev_ms
+
+
+def phase_compare(card, dev):
+    import torch
+
+    from nudge_tpu_torch import engine, scenes
+    from nudge_tpu_torch.ops import cache, contacts, integrate, setup_kernel
+    from nudge_tpu_torch.ops import solver, solver_kernel
+    from nudge_tpu_torch.utils import timing
+
+    b = scenes.scene_pile(N_PILE)
+    cfg = pile_config(b, N_PILE)
+    st, _ = engine.simulate(b.finalize(cfg, device=dev), cfg, COMPARE_AFTER)
+    torch.cuda.synchronize()
+    records = {}
+
+    # --- narrowphase at the step's candidate pairs (the grid's) ---
+    records["box_box"] = compare_box_box(card, f"awake pile, step "
+                                         f"{COMPARE_AFTER}",
+                                         *box_box_inputs(st, cfg))
 
     # --- setup at the step's manifolds, over the live slots of the solve's
     # order, compared in manifold order after unpacking ---
@@ -493,8 +637,12 @@ def phase_compare(card, dev):
     order_ms = timed(lambda: solver_kernel.color_order(man, bodies, col, cfg))
     plain_ms = timed(lambda: setup_kernel.setup_plain(bodies, man, warm, cfg,
                                                       col, pwarm))
-    dev_ms, _ = device_ms(lambda: setup_kernel.setup_cuda(
-        bodies, man, warm, cfg, col, pwarm, order))
+    def setup_call():
+        return setup_kernel.setup_cuda(bodies, man, warm, cfg, col, pwarm,
+                                       order)
+
+    dev_ms = timing.device_ms(setup_call, DEVICE_REPS)
+    setup_ops = timing.device_ops(setup_call)
     n_bodies = bodies.pos.shape[0]
     records["setup"] = dict(
         max_abs_err=diff.err, ms=ms, plain_ms=plain_ms,
@@ -503,7 +651,8 @@ def phase_compare(card, dev):
                 n_live * SETUP_OPS_PER_MANIFOLD))
     log(card, f"setup: {man.valid.shape[0]} manifold slots, {n_live} live, "
         f"{int(col[1])} colors, {int(col[3])} spilled; {diff}; "
-        f"kernel {ms:.3f} ms (device {fmt_dev(dev_ms)}), color order "
+        f"kernel {ms:.3f} ms (device {dev_ms:.4f} ms, a call enqueues "
+        f"{fmt_ops(setup_ops)}), color order "
         f"{order_ms:.3f} ms, twin {plain_ms:.3f} ms")
 
     # --- the solve, from the twin's setup packed into the kernel's layout,
@@ -515,7 +664,8 @@ def phase_compare(card, dev):
                      2, 1)
     log(card, f"solve: {cfg.solver_iters} sweeps x {int(col[1])} colors in "
         f"one launch of a {solver_kernel.solve_cluster_size()}-CTA cluster; "
-        f"{diff}; kernel {ms:.3f} ms (device {fmt_dev(dev)}), twin "
+        f"{diff}; one kernel a call; kernel {ms:.3f} ms (device "
+        f"{dev:.4f} ms), twin "
         f"{plain_ms:.3f} ms")
 
     # --- the spill color's Jacobi path: the same step colored with only
@@ -530,7 +680,7 @@ def phase_compare(card, dev):
                                      scon, sacc, scfg, bitwise=False)
     log(card, f"solve with {SPILL_COLORS} colors: {int(scol[3])} of "
         f"{n_live} manifolds spilled; {sdiff}; kernel {sms:.3f} ms (device "
-        f"{fmt_dev(sdev)})")
+        f"{sdev:.4f} ms)")
     records["solve"] = dict(
         max_abs_err=max(diff.err, sdiff.err), ms=ms, plain_ms=plain_ms,
         **bound(n_live * SOLVE_BYTES_PER_MANIFOLD
@@ -540,28 +690,14 @@ def phase_compare(card, dev):
     # --- the coloring rounds at the step's manifolds, bit for bit ---
     dyn = bodies.inv_mass > 0.0
     for mc in (cfg.max_colors, SPILL_COLORS):
-        args = (man.body_a, man.body_b, man.valid, dyn, dyn.shape[0], mc)
-        k = coloring_kernel.color_rounds_cuda(*args)
-        p = coloring_kernel.color_rounds_plain(*args)
-        torch.cuda.synchronize()
-        if not torch.equal(k, p):
-            raise AssertionError(
-                f"coloring ({mc} colors): {int((k != p).sum())} of "
-                f"{k.shape[0]} raw colors differ")
-        err = int((k - p).abs().max())
-        ms = timed(lambda: coloring_kernel.color_rounds_cuda(*args))
-        plain_ms = timed(lambda: coloring_kernel.color_rounds_plain(*args))
+        ms, plain_ms, _ = compare_coloring(card, man, dyn, mc)
         if mc == cfg.max_colors:
-            # body ids and the live flag in, the raw color out, per live
-            # manifold; the dynamic flag per body
+            # body ids in and the raw color out per live manifold; the live
+            # flag of every slot and the dynamic flag per body
             records["coloring"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                **bound(n_live * (4 + 4 + 1 + 4) + dyn.shape[0], 0))
-        log(card, f"coloring with {mc} colors: bitwise equal; "
-            f"{int(p.max()) + 1} rounds used, "
-            f"{int(((p < 0) & man.valid).sum())} of {int(man.valid.sum())} "
-            f"manifolds left uncolored; kernel {ms:.3f} ms, "
-            f"twin {plain_ms:.3f} ms")
+                max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                **bound(n_live * (4 + 4 + 4) + man.valid.shape[0]
+                        + dyn.shape[0], 0))
     return records, st
 
 
@@ -571,6 +707,7 @@ def phase_compare_1pt(card, dev):
     from nudge_tpu_torch import engine, scenes
     from nudge_tpu_torch.ops import broadphase, grid
     from nudge_tpu_torch.ops import narrowphase_1pt as p1pt
+    from nudge_tpu_torch.utils import timing
 
     b, cfg = mixed_scene()
     st, _ = engine.simulate(b.finalize(cfg, device=dev), cfg,
@@ -597,10 +734,15 @@ def phase_compare_1pt(card, dev):
     diff.check("pairs_1pt.friction", k["friction"][live], p["friction"][live])
     ms = timed(lambda: p1pt.pairs_1pt_slots_cuda(*args))
     plain_ms = timed(lambda: p1pt.pairs_1pt_slots_plain(*args))
+    dev_ms = timing.device_ms(lambda: p1pt.pairs_1pt_slots_cuda(*args),
+                              DEVICE_REPS)
+    ops = timing.device_ops(lambda: p1pt.pairs_1pt_slots_cuda(*args))
     log(card, f"pairs_1pt: config 3 after {MIXED_COMPARE_AFTER} steps, "
         f"{live.shape[0]} pair slots ({int(bs.valid.sum())} box-sphere, "
         f"{int(ss.valid.sum())} sphere-sphere live), {int(pv.sum())} "
-        f"contacts; {diff}; kernel {ms:.3f} ms, twin {plain_ms:.3f} ms")
+        f"contacts; {diff}; kernel {ms:.4f} ms (device {dev_ms:.4f} ms; a "
+        f"call enqueues {fmt_ops(ops)}: the kernel and the wrapper's joins "
+        f"of the two pair classes), twin {plain_ms:.3f} ms")
     per_pair = sum(v[0].numel() * v.element_size() for v in k.values())
     wc_bytes = sum(t.numel() * t.element_size() for t in wc)
     return dict(max_abs_err=diff.err, ms=ms, plain_ms=plain_ms,
@@ -1114,7 +1256,14 @@ def profile_steps(card, label, st, cfg):
     """torch.profiler over PROFILE_STEPS unsynchronised steps from a copy of
     `st` (after one step outside it): device events a step, the device's
     busy share of the host-clock window, and the device time a step of the
-    solve and of setup, with their launches."""
+    solve, of setup and of the box-box narrowphase, with their launches.
+
+    The profiler drops device events early in a window at times
+    (nudge_tpu_torch/utils/timing.py), so the window opens PROFILE_LEAD_S
+    before the steps, and the line says how many of the port's kernel
+    launches, counted by their wrappers, the profiler recorded: where it
+    recorded fewer, every number of the line is a lower bound. Nothing
+    here is gated."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1122,14 +1271,23 @@ def profile_steps(card, label, st, cfg):
 
     s, _ = engine.simulate(clone_state(st), cfg, 1)
     torch.cuda.synchronize()
+    ours = {"box_box": ("box_box_kernel",), "pairs_1pt": ("pairs_1pt_kernel",),
+            "coloring": ("color_kernel",), "solve": ("solve_kernel",),
+            "setup": ("setup_kernel", "warm_apply_kernel")}
+    before = {k: fn.launches for k, fn in counters().items()}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_LEAD_S)
         t0 = time.perf_counter()
         s, m = engine.simulate(s, cfg, PROFILE_STEPS)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    launched = sum((fn.launches - before[k]) * len(ours[k])
+                   for k, fn in counters().items())
     ev = [e for e in prof.events()
           if e.device_type == torch.autograd.DeviceType.CUDA]
+    recorded = sum(1 for e in ev
+                   if short_name(e.name) in sum(ours.values(), ()))
     busy_ms = sum(e.time_range.elapsed_us() for e in ev) / 1e3
     kernels = {}
     for e in ev:
@@ -1139,6 +1297,7 @@ def profile_steps(card, label, st, cfg):
     solve = kernels.get("solve_kernel", (0, 0.0))
     setup = [kernels.get(k, (0, 0.0)) for k in ("setup_kernel",
                                                 "warm_apply_kernel")]
+    box = kernels.get("box_box_kernel", (0, 0.0))
     per = PROFILE_STEPS
     log(card, f"profile {label}: {per} steps, {wall_ms / per:.2f} ms a step "
         f"under the profiler, {len(ev) / per:.1f} device events a step, "
@@ -1146,8 +1305,11 @@ def profile_steps(card, label, st, cfg):
         f"a step); solve {solve[1] / per:.4f} ms a step in {solve[0]} "
         f"launches; setup {setup[0][1] / per:.4f} + warm start "
         f"{setup[1][1] / per:.4f} ms a step in {setup[0][0]} + {setup[1][0]} "
+        f"launches; box-box {box[1] / per:.4f} ms a step in {box[0]} "
         f"launches; awake {int(m.awake_count[-1])}, manifolds "
-        f"{int(m.manifold_demand[-1])}, spill {int(m.spill_count.max())}")
+        f"{int(m.manifold_demand[-1])}, spill {int(m.spill_count.max())}; "
+        f"the profiler recorded {recorded} of the {launched} device kernels "
+        f"that the port's wrappers launched in the window")
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
     log(card, f"profile {label}: top device kernels (launches, ms over "
         f"{per} steps): " + "; ".join(f"{k} {n} {t:.3f}"
@@ -1155,9 +1317,9 @@ def profile_steps(card, label, st, cfg):
 
 
 def phase_profile(card, pile_state, settled, ref_cfg):
-    """Device events, busy share and the solve's and setup's device time
-    on the awake pile (phase 3's state) and on the fidelity scene settling
-    in the reference mode (step SETTLED_AT of phase 11)."""
+    """Device events, busy share and the solve's, setup's and box-box's
+    device time on the awake pile (phase 3's state) and on the fidelity
+    scene settling in the reference mode (step SETTLED_AT of phase 11)."""
     from nudge_tpu_torch import scenes
 
     b = scenes.scene_pile(N_PILE)
@@ -1185,6 +1347,11 @@ def main():
     phase_wake(card, dev)
     # the slice's main path
     launches, settled, ref_cfg = phase_reference_pile(card, dev)
+    # box-box where few slots are live: the fidelity scene settling
+    low = compare_box_box(card, f"reference pile, step {SETTLED_AT}",
+                          *box_box_inputs(settled, ref_cfg))
+    records["box_box"]["max_abs_err"] = max(records["box_box"]["max_abs_err"],
+                                            low["max_abs_err"])
     phase_bench_pile(card, dev)
     launches["pairs_1pt"] = phase_reference_mixed(card, dev)["pairs_1pt"]
     launches["coloring"] = coloring

@@ -97,8 +97,10 @@ def library() -> KernelLibrary:
     cu, _ = _sources()
     _BUILD.mkdir(parents=True, exist_ok=True)
     out = _BUILD / f"libnudge_kernels_{source_hash()}.so"
-    log = ""
-    if not out.exists():
+    log_path = out.with_suffix(".log")
+    if out.exists():
+        log = log_path.read_text() if log_path.exists() else ""
+    else:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in cu]
         nvcc = _nvcc()
@@ -120,6 +122,9 @@ def library() -> KernelLibrary:
             obj.unlink(missing_ok=True)
         if failed:
             raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
+        # the log (ptxas's registers and stack frames) stays beside the
+        # library for a later process that loads it without building
+        log_path.write_text(log)
         os.replace(tmp, out)
     _LOADED = KernelLibrary(out, log)
     return _LOADED

@@ -1,79 +1,184 @@
-// Greedy Luby manifold coloring: every claim round in one launch.
+// Greedy Luby manifold coloring: every claim round in one launch of one
+// thread-block cluster.
 //
 // Replaces nudge_tpu/ops/coloring_kernel.py: color_manifolds_pallas
 // (_color_kernel). The TPU kernel ran its rounds in one pallas_call with a
 // while loop, scattering claims and gathering them back through one-hot
-// matmuls over membership-bitmask tile windows; here one block of 1024
-// threads loops over the manifolds and runs each round in three steps:
-//   1. reset the per-body claim table to INT_MAX;
-//   2. every uncolored valid manifold i atomicMin's its token i ^ h[r] onto
-//      each of its dynamic bodies;
-//   3. a manifold whose token holds both claims takes color r.
-// __syncthreads separates the steps; the barrier after step 2 also counts
-// the uncolored manifolds (__syncthreads_or), and the loop stops when none
-// is left or after n_rounds rounds, as the reference's loop does. int32
-// atomicMin does not depend on the order of the claims, so the colors equal
-// the plain twin's (ops/coloring_kernel.py: color_rounds_plain) bit for bit.
-// The round constants h[r] are computed on the host: the hash needs int32
+// matmuls over membership-bitmask tile windows. Here one cluster of CTAs
+// (the solve's: 16 where the occupancy query places a non-portable
+// cluster, else 8; common.cuh choose_cluster) runs every round. In round r
+// every uncolored valid manifold i claims each of its dynamic bodies with
+// atomicMin of the key (~r) << 32 | (i ^ h[r]); after a cluster barrier a
+// manifold whose key holds both claims takes color r, and one that lost
+// claims round r + 1 at once. The high word makes a later round's key
+// smaller than any earlier one, and rounds alternate between two claim
+// tables, so round r + 1's claims overwrite round r - 1's without a reset
+// and never touch the table that round r is still read from: one barrier
+// a round. The loop stops when a round finds no manifold pending (each CTA
+// stamps the last round it had one in its shared memory; after the
+// barrier every warp reads all the stamps through distributed shared
+// memory) or after n_rounds rounds, as the reference's loop does. int
+// atomicMin does not depend on the order of the claims, and a round's keys
+// order as its tokens do, so the colors equal the plain twin's
+// (ops/coloring_kernel.py: color_rounds_plain) bit for bit. The round
+// constants h[r] are computed on the host: the hash needs int32
 // wraparound and an arithmetic shift.
 //
-// What bounds it on an H100: one SM. At 61,440 manifolds a round is ~60
-// strided passes of 1024 threads, each a few scattered loads and two
-// atomics into the L2-resident claim table, and rounds run in sequence.
-// The claim table stays in global memory (read back with __ldcg, past L1,
-// after the atomics) so that any body count fits; a shared-memory table
-// and a grid-wide cooperative version are the next steps if it matters.
+// Why one barrier a round is enough. Call B_r the barrier at the top of
+// round r. Round r's claims all go into table r & 1 before B_r (round 0's
+// before the loop, round r + 1's in round r's pass); between B_r and
+// B_r+1 that table is only read, and the claims of round r + 1 go into the
+// other one, which was last read before B_r. So no claim races a read of
+// its table. A table's stale keys are of rounds <= r - 1, whose high word
+// is larger, so each of round r + 1's claims replaces the stale key; the
+// key read back for a body is then the least of the round's claims on it.
+// A manifold reads back only bodies it claimed in the same round (an
+// uncolored one claims every round until the last). The stop is uniform:
+// the stamps one warp reads after B_r + 1 hold r + 2 from some CTA if and
+// only if some manifold was pending in round r, since a stamp of r + 3 is
+// written only by a CTA that did not stop.
+//
+// The manifolds are spread over every thread of the cluster, warps
+// interleaved over the CTAs. Before the first round one pass sets every
+// color to -1 and finds the end of the live manifolds (compact_manifolds
+// packs them to a prefix); the rounds walk only that range. The claim
+// tables (two of n_bodies 64-bit keys) live in global memory, so any body
+// count fits; they stay L2-resident and are read back with __ldcg, past L1.
+// Tables in the cluster's distributed shared memory do not work with these
+// keys on an H100: a 64-bit atomicMin into another CTA's shared memory,
+// through map_shared_rank or as atom.shared::cluster.min.u64, is not
+// atomic there (ptxas emits a generic ATOM.E.MIN.64 and a CAS loop only for
+// the CTA's own window), and about a fifth of the minima come out wrong
+// and differ from launch to launch, while 32-bit atomicMin and 64-bit
+// atomicCAS through map_shared_rank are right (scripts/dsm_atomic_probe.py,
+// PERF.md). Such tables, tried with the broken atomicMin, were also slower.
+//
+// What bounds it on an H100: the rounds are dependent, so the time is the
+// rounds used times a cluster barrier and one claim-and-check pass (an
+// atomic and a read a dynamic body, each an L2 round trip); the bytes
+// (~13 B a live manifold) are nothing.
 
-#include <climits>
+#include <cooperative_groups.h>
 
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kColorThreads = 1024;
+constexpr unsigned long long kNoClaim = ~0ull;
 
-__global__ void __launch_bounds__(kColorThreads)
-    color_kernel(const int* __restrict__ body_a, const int* __restrict__ body_b,
-                 const bool* __restrict__ valid, const bool* __restrict__ dyn,
-                 const int* __restrict__ hashes, int m, int n_bodies, int n_rounds,
-                 int* __restrict__ claim, int* __restrict__ color) {
-  const int tid = threadIdx.x;
-  const int stride = blockDim.x;
-  for (int i = tid; i < m; i += stride) color[i] = -1;
-  for (int r = 0; r < n_rounds; ++r) {
-    for (int j = tid; j < n_bodies; j += stride) claim[j] = INT_MAX;
-    __syncthreads();
-    const int h = hashes[r];
-    int pending = 0;
-    for (int i = tid; i < m; i += stride) {
-      if (!valid[i] || color[i] >= 0) continue;
-      pending = 1;
-      const int tok = i ^ h;
-      const int a = body_a[i], b = body_b[i];
-      if (dyn[a]) atomicMin(claim + a, tok);
-      if (dyn[b]) atomicMin(claim + b, tok);
-    }
-    if (!__syncthreads_or(pending)) break;
-    for (int i = tid; i < m; i += stride) {
-      if (!valid[i] || color[i] >= 0) continue;
-      const int tok = i ^ h;
-      const int a = body_a[i], b = body_b[i];
-      const bool ok_a = !dyn[a] || __ldcg(claim + a) == tok;
-      const bool ok_b = !dyn[b] || __ldcg(claim + b) == tok;
-      if (ok_a && ok_b) color[i] = r;
-    }
-    __syncthreads();
-  }
+struct ColorArgs {
+  const int* body_a;
+  const int* body_b;
+  const bool* valid;
+  const bool* dyn;
+  const int* hashes;
+  int m, n_bodies, n_rounds;
+  unsigned long long* claim;  // [2, n_bodies], the global tables
+  int* color;
+};
+
+__device__ __forceinline__ unsigned long long claim_key(int r, int tok) {
+  return ((unsigned long long)(~(unsigned)r) << 32) | (unsigned)tok;
 }
+
+// max over the cluster's CTAs of the int at `local` in each one's shared
+// memory, in every lane of the warp
+__device__ __forceinline__ int cluster_max(cg::cluster_group& cluster, int* local, int nb) {
+  const int lane = threadIdx.x & 31;
+  const int x = lane < nb ? *cluster.map_shared_rank(local, lane) : 0;
+  return __reduce_max_sync(0xffffffffu, x);
+}
+
+__global__ void __launch_bounds__(kColorThreads) color_kernel(ColorArgs A) {
+  __shared__ int s_end;    // this CTA's last live manifold + 1
+  __shared__ int s_stamp;  // r + 1 for the last round r in which this CTA had one pending
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nb = (int)cluster.num_blocks();
+  const int stride = nb * kColorThreads;
+  const int g = ((threadIdx.x >> 5) * nb + (int)cluster.block_rank()) * 32 + (threadIdx.x & 31);
+  const bool leader = (threadIdx.x & 31) == 0;
+  const long long nbody = A.n_bodies;
+
+  auto table = [&](int r, int body) { return A.claim + (r & 1) * nbody + body; };
+  auto claim = [&](int i, int r) {
+    const unsigned long long key = claim_key(r, i ^ A.hashes[r]);
+    const int a = A.body_a[i], b = A.body_b[i];
+    if (A.dyn[a]) atomicMin(table(r, a), key);
+    if (A.dyn[b]) atomicMin(table(r, b), key);
+  };
+  auto holds = [&](int r, int body, unsigned long long key) {
+    return __ldcg(table(r, body)) == key;
+  };
+
+  if (threadIdx.x == 0) {
+    s_end = 0;
+    s_stamp = 0;
+  }
+  for (long long j = g; j < 2 * nbody; j += stride) __stcg(A.claim + j, kNoClaim);
+  __syncthreads();
+  int end = 0;
+  for (int i = g; i < A.m; i += stride) {
+    A.color[i] = -1;
+    if (A.valid[i]) end = i + 1;
+  }
+  end = __reduce_max_sync(0xffffffffu, end);
+  if (leader && end) atomicMax(&s_end, end);
+  cluster.sync();  // tables, colors and every CTA's s_end ready; every CTA running
+  end = cluster_max(cluster, &s_end, nb);
+
+  bool pending = false;
+  if (A.n_rounds > 0)
+    for (int i = g; i < end; i += stride)
+      if (A.valid[i]) {
+        claim(i, 0);
+        pending = true;
+      }
+  if (__any_sync(0xffffffffu, pending) && leader) atomicMax(&s_stamp, 1);
+  for (int r = 0; r < A.n_rounds; ++r) {
+    cluster.sync();  // round r's claims are in
+    // stamps only grow, and one >= r + 1 was written before this barrier if
+    // any was, so every warp takes the same branch
+    if (cluster_max(cluster, &s_stamp, nb) < r + 1) break;  // nothing was pending
+    const int h = A.hashes[r];
+    const bool more = r + 1 < A.n_rounds;
+    pending = false;
+    for (int i = g; i < end; i += stride) {
+      if (!A.valid[i] || A.color[i] >= 0) continue;
+      const unsigned long long key = claim_key(r, i ^ h);
+      const int a = A.body_a[i], b = A.body_b[i];
+      const bool ok_a = !A.dyn[a] || holds(r, a, key);
+      const bool ok_b = !A.dyn[b] || holds(r, b, key);
+      if (ok_a && ok_b) {
+        A.color[i] = r;
+      } else if (more) {
+        claim(i, r + 1);
+        pending = true;
+      }
+    }
+    if (__any_sync(0xffffffffu, pending) && leader) atomicMax(&s_stamp, r + 2);
+  }
+  cluster.sync();  // no CTA leaves while another may read its shared memory
+}
+
+int g_cluster = 0;  // the cluster size, chosen at the first launch
 
 }  // namespace
 
 extern "C" int nudge_color_rounds(const int* body_a, const int* body_b, const bool* valid,
                                   const bool* dyn, const int* hashes, int m, int n_bodies,
-                                  int n_rounds, int* claim, int* color, void* stream) {
-  if (m > 0) {
-    color_kernel<<<1, kColorThreads, 0, (cudaStream_t)stream>>>(
-        body_a, body_b, valid, dyn, hashes, m, n_bodies, n_rounds, claim, color);
-  }
+                                  int n_rounds, unsigned long long* claim, int* color,
+                                  void* stream) {
+  if (m <= 0) return 0;
+  cudaError_t err = choose_cluster(color_kernel, kColorThreads, 0, &g_cluster);
+  if (err != cudaSuccess) return (int)err;
+  ColorArgs A{body_a, body_b, valid, dyn, hashes, m, n_bodies, n_rounds, claim, color};
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg =
+      cluster_config(g_cluster, kColorThreads, 0, (cudaStream_t)stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, color_kernel, A);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

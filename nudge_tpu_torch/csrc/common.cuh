@@ -171,3 +171,45 @@ constexpr int kWorkRows = 40;
 constexpr int kThreads = 128;
 
 __host__ __forceinline__ int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
+
+// One thread-block cluster for a whole kernel (the solve, the coloring):
+// kMaxCluster CTAs, the largest the hardware places, with the non-portable
+// size allowed; kPortableCluster where cudaOccupancyMaxActiveClusters says
+// the larger one cannot be placed.
+constexpr int kMaxCluster = 16;
+constexpr int kPortableCluster = 8;
+
+inline cudaLaunchConfig_t cluster_config(int cluster, int threads, size_t smem,
+                                         cudaStream_t stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// The cluster size `kernel` launches with at `threads` a CTA and `smem`
+// bytes of dynamic shared memory, chosen once into *size (0 = not yet).
+template <typename Kernel>
+cudaError_t choose_cluster(Kernel kernel, int threads, size_t smem, int* size) {
+  if (*size) return cudaSuccess;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess && smem > 48 * 1024)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(kMaxCluster, threads, smem, 0, &attr);
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  *size = clusters >= 1 ? kMaxCluster : kPortableCluster;
+  return cudaSuccess;
+}

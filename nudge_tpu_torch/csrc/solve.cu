@@ -63,8 +63,6 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kSolveThreads = 256;  // per CTA
-constexpr int kMaxCluster = 16;
-constexpr int kPortableCluster = 8;
 
 struct SolveArgs {
   const float* rows;    // [kRows, m], slot order
@@ -263,40 +261,15 @@ __global__ void __launch_bounds__(kSolveThreads) solve_kernel(SolveArgs A) {
 
 int g_cluster = 0;  // the cluster size, chosen at the first launch
 
-cudaLaunchConfig_t launch_config(int cluster, cudaStream_t stream, cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, 1, 1);
-  cfg.blockDim = dim3(kSolveThreads, 1, 1);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = cluster;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-cudaError_t choose_cluster() {
-  if (g_cluster) return cudaSuccess;
-  cudaError_t err =
-      cudaFuncSetAttribute(solve_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err != cudaSuccess) return err;
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = launch_config(kMaxCluster, 0, &attr);
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, solve_kernel, &cfg);
-  if (err != cudaSuccess) return err;
-  g_cluster = clusters >= 1 ? kMaxCluster : kPortableCluster;
-  return cudaSuccess;
+cudaError_t choose_solve_cluster() {
+  return choose_cluster(solve_kernel, kSolveThreads, 0, &g_cluster);
 }
 
 }  // namespace
 
 // The cluster size the solve launches with (0 before the first choice).
 extern "C" int nudge_solve_cluster() {
-  if (choose_cluster() != cudaSuccess) return 0;
+  if (choose_solve_cluster() != cudaSuccess) return 0;
   return g_cluster;
 }
 
@@ -312,13 +285,14 @@ extern "C" int nudge_solve(
     const long long* perm_b, int m, int max_colors, int iters, int split, int pfric,
     void* stream_) {
   if (m <= 0) return 0;
-  cudaError_t err = choose_cluster();
+  cudaError_t err = choose_solve_cluster();
   if (err != cudaSuccess) return (int)err;
   SolveArgs A{rows,   work,   velw,   out,  offsets, n_colors, spill_color,
               slot,   keys_a, keys_b, perm_a, perm_b, m,     max_colors,
               iters,  split,  pfric};
   cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = launch_config(g_cluster, (cudaStream_t)stream_, &attr);
+  cudaLaunchConfig_t cfg =
+      cluster_config(g_cluster, kSolveThreads, 0, (cudaStream_t)stream_, &attr);
   err = cudaLaunchKernelEx(&cfg, solve_kernel, A);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

@@ -11,9 +11,10 @@ max_colors - 1 rounds.
 
 The TPU kernel ran every round in one `pallas_call`, with one-hot matmuls
 over membership-bitmask tile windows in place of the scatter-min and the
-gather-back. The CUDA kernel (csrc/coloring.cu) is one block that runs
-every round in one launch: atomicMin claims into a per-body table, a block
-barrier, then the win check. The plain twin `color_rounds_plain` is the
+gather-back. The CUDA kernel (csrc/coloring.cu) runs every round in one
+launch of one thread-block cluster: atomicMin claims into a per-body table
+in global memory, a cluster barrier, then the win check fused with the
+next round's claims. The plain twin `color_rounds_plain` is the
 reference's XLA loop, which reads one flag back to the host per round.
 
 `color_rounds` dispatches by device: CPU tensors go to the twin; CUDA
@@ -99,7 +100,9 @@ def color_rounds_cuda(body_a, body_b, valid, dyn, n_bodies: int,
     dev = body_a.device
     n_rounds = max(max_colors - 1, 0)
     hashes = _round_hashes(max(n_rounds, 1), dev)
-    claim = torch.empty((max(n_bodies, 1),), dtype=i32, device=dev)
+    # the two alternating claim tables of 64-bit keys
+    claim = torch.empty((2 * max(n_bodies, 1),), dtype=torch.int64,
+                        device=dev)
     color = torch.empty((m,), dtype=i32, device=dev)
     if m:
         _build.library().call(

@@ -3,9 +3,14 @@
 Replaces `nudge_tpu/ops/narrowphase_kernel.py: box_box_pallas` (kernel body
 `_make_np_kernel`, math in `_box_box_rows`). The TPU kernel gathers collider
 rows with one-hot matmuls from a resident table and carries ids as f32; the
-CUDA kernel (csrc/narrowphase.cu) runs one thread per candidate pair, reads
-both boxes' half extents, world quat and position, friction and body by
-int32 index, and runs `narrowphase.box_box` in registers.
+CUDA kernel (csrc/narrowphase.cu) runs one thread per live candidate pair,
+reads both boxes' half extents, world quat and position, friction and body
+by int32 index, and runs `narrowphase.box_box` in registers.
+
+A dead pair slot (`bb.valid` false) gets `point_valid` false from the
+kernel and nothing else: its other fields are left as `torch.empty` made
+them, since `contacts.compact_manifolds` reads no other field of a slot
+without a valid point. The twin fills them; the two agree on live slots.
 
 `box_box_slots` dispatches by device: CPU tensors go to the plain twin
 `box_box_slots_plain` (which calls `narrowphase.box_box`); CUDA tensors
@@ -22,6 +27,7 @@ from . import narrowphase as nps
 from .broadphase import CandidatePairs, WorldColliders
 
 POINTS = nps.BOX_BOX_POINTS
+CANDIDATES = 24      # clip candidates of the face case
 
 
 def combine_friction(fa, fb):
@@ -80,6 +86,22 @@ def box_box_slots_cuda(bx: Boxes, wc: WorldColliders, bb: CandidatePairs):
     out["ga"] = bb.a
     out["gb"] = bb.b
     return out
+
+
+def first_max_model(x):
+    """The kernel's first-max over the CANDIDATES values of each row of x
+    [P, 24], in its order: a scan from candidate 0 that takes a later
+    candidate only if its value is strictly greater. Equal to torch.argmax
+    (the twin's rule) for ordered values; with a NaN the scan keeps
+    candidate 0 if it is NaN and never takes a later NaN, while
+    torch.argmax takes the first NaN. A model for the tests only."""
+    best = x[:, 0]
+    idx = torch.zeros(x.shape[0], dtype=torch.int64)
+    for k in range(1, x.shape[1]):
+        take = x[:, k] > best
+        best = torch.where(take, x[:, k], best)
+        idx = torch.where(take, k, idx)
+    return idx
 
 
 def box_box_slots(bx: Boxes, wc: WorldColliders, bb: CandidatePairs):

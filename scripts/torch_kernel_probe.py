@@ -1,0 +1,198 @@
+"""The box-box and coloring kernels against their twins, on the card.
+
+    python3 scripts/torch_kernel_probe.py [--parent DIR]
+
+Copies nudge_tpu_torch under build/kernel_probe/ (git-ignored):
+
+  committed  this checkout's package;
+  parent     with --parent, the nudge_tpu_torch of DIR (an earlier commit
+             unpacked with `git archive`).
+
+For each, in a process of its own:
+
+  - ptxas's registers, stack frame and spills of the box-box and coloring
+    kernels;
+  - the box-box kernel against its twin on the 20,480-box pile after 40
+    steps (the step's grid pairs: 163,840 slots, ~48,500 live) and on a
+    copy of those pairs with only the first LOW_LIVE live (the tail dead,
+    as the compaction leaves it): live pairs whose integer outputs differ,
+    the largest float difference on the others, the device time and the
+    wrapper's time (CUDA events);
+  - the coloring at 24 and at 4 colors on the same step's manifolds:
+    bitwise against the twin, ten launches from one input equal, device
+    time and device kernels a call.
+
+The pile's state is made once by the committed kernels and shared by both
+trees. Needs one NVIDIA GPU; prints the card's name and power limit, then
+one line per tree and case.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import os
+import shutil
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+OUT = os.path.join(REPO, "build", "kernel_probe")
+STATE = os.path.join(OUT, "state.pt")
+LOW_LIVE = 3000          # live pairs of the low-live copy (~the settled pile's)
+REPS = 20                # calls a profiled time averages
+
+
+def load(name, path):
+    """A module of this checkout by its file (its helpers, not the
+    parent's)."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def chip_smoke():
+    return load("probe_chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+
+
+def timing():
+    """nudge_tpu_torch/utils/timing.py (it imports only torch)."""
+    return load("probe_timing", os.path.join(REPO, "nudge_tpu_torch", "utils",
+                                             "timing.py"))
+
+
+def make_tree(name, src_root=REPO):
+    """A copy of src_root's package under OUT/name."""
+    root = os.path.join(OUT, name)
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(os.path.join(src_root, "nudge_tpu_torch"),
+                    os.path.join(root, "nudge_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    return root
+
+
+def make_state(cs):
+    import torch
+
+    from nudge_tpu_torch import engine, scenes
+    from nudge_tpu_torch.ops import contacts
+
+    b = scenes.scene_pile(cs.N_PILE)
+    cfg = cs.pile_config(b, cs.N_PILE)
+    st, _ = engine.simulate(b.finalize(cfg), cfg, cs.COMPARE_AFTER)
+    bx, wc, bb = cs.box_box_inputs(st, cfg)
+    man, _ = contacts.collide(st, cfg)
+    dyn = st.bodies.inv_mass > 0.0
+    torch.save((bx, wc, bb, man.body_a, man.body_b, man.valid, dyn), STATE)
+
+
+def box_box_case(cs, name, label, bx, wc, bb):
+    import torch
+
+    from nudge_tpu_torch.ops import narrowphase_kernel as npk
+
+    k = npk.box_box_slots_cuda(bx, wc, bb)
+    p = npk.box_box_slots_plain(bx, wc, bb)
+    torch.cuda.synchronize()
+    live = bb.valid
+    same = live.clone()
+    for key in ("point_valid", "feat"):
+        same &= (k[key] == p[key]).all(1)
+    for key in ("body_a", "body_b"):
+        same &= k[key] == p[key]
+    pv = p["point_valid"] & same[:, None]
+    err = 0.0
+    for key, mask in (("pos", pv), ("depth", pv), ("normal", same),
+                      ("friction", same)):
+        if bool(mask.any()):
+            err = max(err, float((k[key][mask] - p[key][mask]).abs().max()))
+    dead_valid = int(k["point_valid"][~live].any(1).sum())
+    ms = cs.timed(lambda: npk.box_box_slots_cuda(bx, wc, bb), reps=REPS)
+    call = lambda: npk.box_box_slots_cuda(bx, wc, bb)  # noqa: E731
+    dev = timing().device_ms(call, reps=REPS)
+    ops = cs.fmt_ops(timing().device_ops(call))
+    print(f"{name}: box_box {label}: {live.shape[0]} slots, "
+          f"{int(live.sum())} live, {int((live & ~same).sum())} live pairs "
+          f"differ in integers, max float diff {err:.3g}, {dead_valid} dead "
+          f"slots with a valid point; device {dev:.4f} ms (a call "
+          f"enqueues {ops}), wrapper {ms:.4f} ms", flush=True)
+
+
+def coloring_case(cs, name, body_a, body_b, valid, dyn, max_colors):
+    import torch
+
+    from nudge_tpu_torch.ops import coloring_kernel as ck
+
+    args = (body_a, body_b, valid, dyn, dyn.shape[0], max_colors)
+    p = ck.color_rounds_plain(*args)
+    k = ck.color_rounds_cuda(*args)
+    torch.cuda.synchronize()
+    repeats = all(torch.equal(ck.color_rounds_cuda(*args), k)
+                  for _ in range(9))
+    ms = cs.timed(lambda: ck.color_rounds_cuda(*args), reps=REPS)
+    call = lambda: ck.color_rounds_cuda(*args)  # noqa: E731
+    dev = timing().device_ms(call, reps=REPS)
+    ops = cs.fmt_ops(timing().device_ops(call))
+    print(f"{name}: coloring {max_colors} colors: bitwise "
+          f"{torch.equal(k, p)} ({int((k != p).sum())} of {k.shape[0]} "
+          f"differ), ten launches equal {repeats}, {int(p.max()) + 1} "
+          f"rounds; device {dev:.4f} ms (a call enqueues {ops}), "
+          f"wrapper {ms:.4f} ms", flush=True)
+
+
+def measure(root):
+    """Run in a process of its own, with `root`'s copy of the package."""
+    sys.path.insert(0, root)
+    import torch
+
+    from nudge_tpu_torch import _build
+
+    cs = chip_smoke()
+    name = os.path.basename(root)
+    report = cs.ptxas_report(_build.library().log)
+    print(f"{name}: ptxas " + "; ".join(
+        f"{k} {r} regs, {fr} B stack frame, {ss}/{sl} B spill stores/loads"
+        for k, (r, fr, ss, sl) in sorted(report.items())
+        if k.startswith(("box_box", "color"))), flush=True)
+    if not os.path.exists(STATE):
+        make_state(cs)
+    bx, wc, bb, body_a, body_b, valid, dyn = torch.load(STATE,
+                                                        weights_only=False)
+    box_box_case(cs, name, "awake pile", bx, wc, bb)
+    low = bb.valid & (torch.cumsum(bb.valid.int(), 0) <= LOW_LIVE)
+    zero = torch.zeros_like(bb.a)
+    box_box_case(cs, name, f"first {LOW_LIVE} live", bx, wc, bb.replace(
+        a=torch.where(low, bb.a, zero), b=torch.where(low, bb.b, zero),
+        valid=low))
+    for mc in (24, cs.SPILL_COLORS):
+        coloring_case(cs, name, body_a, body_b, valid, dyn, mc)
+
+
+def main():
+    if len(sys.argv) == 3 and sys.argv[1] == "--measure":
+        measure(sys.argv[2])
+        return
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: this script measures the GPU")
+    sys.path.insert(0, REPO)
+    os.makedirs(OUT, exist_ok=True)
+    if os.path.exists(STATE):
+        os.remove(STATE)
+    print(chip_smoke().phase_device(), flush=True)
+    trees = [make_tree("committed")]
+    if len(sys.argv) == 3 and sys.argv[1] == "--parent":
+        trees.append(make_tree("parent", src_root=sys.argv[2]))
+    failed = []
+    for root in trees:
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--measure", root], cwd=REPO)
+        if res.returncode:
+            failed.append(os.path.basename(root))
+    if failed:
+        raise SystemExit(f"trees that failed: {failed}")
+
+
+if __name__ == "__main__":
+    main()

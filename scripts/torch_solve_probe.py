@@ -3,10 +3,10 @@
     python3 scripts/torch_solve_probe.py
 
 Builds copies of nudge_tpu_torch (under build/solve_probe/, git-ignored)
-whose csrc/solve.cu differs from the committed one in one place each, and
-times the solve kernel of each with torch.profiler at 1, 5 and 20 sweeps on
-the 20,480-box pile after 40 steps (cached coloring, and 4 colors with a
-spill color). Per pass = (time at 20 sweeps - time at 5) / (15 x colors).
+whose csrc/solve.cu (or csrc/common.cuh) differs from the committed one in
+one place each, and times the solve kernel of each with CUDA events at
+1, 5 and 20 sweeps on the 20,480-box pile after 40 steps (cached
+coloring, and 4 colors with a spill color). Per pass = (time at 20 sweeps - time at 5) / (15 x colors).
 The variants:
 
   kernel       csrc/solve.cu as committed;
@@ -60,13 +60,16 @@ def make_tree(name, edits):
                     os.path.join(root, "nudge_tpu_torch"),
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy(os.path.join(REPO, "chip_smoke.py"), root)
-    path = os.path.join(root, "nudge_tpu_torch", "csrc", "solve.cu")
-    src = open(path).read()
+    csrc = os.path.join(root, "nudge_tpu_torch", "csrc")
     for old, new in edits:
-        if old not in src:
-            raise RuntimeError(f"{name}: csrc/solve.cu no longer holds {old!r}")
-        src = src.replace(old, new)
-    open(path, "w").write(src)
+        for f in ("solve.cu", "common.cuh"):
+            path = os.path.join(csrc, f)
+            src = open(path).read()
+            if old in src:
+                open(path, "w").write(src.replace(old, new))
+                break
+        else:
+            raise RuntimeError(f"{name}: no csrc file holds {old!r}")
     return root
 
 
@@ -79,6 +82,7 @@ def measure(root):
     from nudge_tpu_torch import engine, scenes
     from nudge_tpu_torch.ops import cache, contacts, integrate, setup_kernel
     from nudge_tpu_torch.ops import solver, solver_kernel
+    from nudge_tpu_torch.utils import timing
 
     b = scenes.scene_pile(cs.N_PILE)
     cfg = cs.pile_config(b, cs.N_PILE)
@@ -106,9 +110,8 @@ def measure(root):
         for iters in (1, 5, 20):
             c3 = c2.replace(solver_iters=iters)
             v, w = velw.clone(), work.clone()
-            dev, _ = cs.device_ms(
+            ms[iters] = timing.device_ms(
                 lambda: solver_kernel.solve_cuda(v, con, w, c3), reps=5)
-            ms[iters] = dev["solve_kernel"]
         n_col = int(col[1])
         per_pass = (ms[20] - ms[5]) / (15 * n_col) * 1e3
         print(f"{name}: {n_col} colors, {int(col[3])} spilled; solve "

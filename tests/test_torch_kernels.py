@@ -66,22 +66,44 @@ def _stage_inputs(cfg, st):
     return bodies, man, warm, pwarm, col
 
 
+def _box_box_both(st, wc, bb):
+    """Kernel and twin on the same pairs: the twin's fields on every live
+    slot bit for bit, point_valid false on every dead one (the kernel
+    writes nothing else there)."""
+    k = npk.box_box_slots_cuda(st.boxes, wc, bb)
+    p = npk.box_box_slots_plain(st.boxes, wc, bb)
+    torch.cuda.synchronize()
+    live = bb.valid
+    assert not bool(k["point_valid"][~live].any())
+    for key in ("point_valid", "feat", "body_a", "body_b", "pos", "depth",
+                "normal", "friction"):
+        assert torch.equal(k[key][live], p[key][live]), key
+    return p
+
+
 def test_box_box_kernel_matches_twin(dev):
     cfg, st = _pressed_pile(300, dev, broadphase="grid")
     st, _ = engine.simulate(st, cfg, 3)
     wc = broadphase.world_colliders(st)
     bb, _, _ = grid.grid_broadphase(st, wc, cfg)
-    k = npk.box_box_slots_cuda(st.boxes, wc, bb)
-    p = npk.box_box_slots_plain(st.boxes, wc, bb)
-    torch.cuda.synchronize()
-    for key in ("point_valid", "feat", "body_a", "body_b"):
-        assert torch.equal(k[key], p[key]), key
-    pv = p["point_valid"]
-    assert int(pv.sum()) > 100
-    _close(k["pos"][pv], p["pos"][pv], "pos")
-    _close(k["depth"][pv], p["depth"][pv], "depth")
-    _close(k["normal"][pv.any(1)], p["normal"][pv.any(1)], "normal")
-    _close(k["friction"], p["friction"], "friction")
+    p = _box_box_both(st, wc, bb)
+    assert int(p["point_valid"].sum()) > 100
+
+
+def test_box_box_kernel_with_few_live_pairs(dev):
+    """The same pairs with all but the first 20 live slots dead, as the
+    compaction leaves a mostly idle scene: the dead slots cost nothing and
+    read nothing, the live ones match the twin."""
+    cfg, st = _pressed_pile(300, dev, broadphase="grid")
+    st, _ = engine.simulate(st, cfg, 3)
+    wc = broadphase.world_colliders(st)
+    bb, _, _ = grid.grid_broadphase(st, wc, cfg)
+    keep = bb.valid & (torch.cumsum(bb.valid.int(), 0) <= 20)
+    zero = torch.zeros_like(bb.a)
+    few = bb.replace(a=torch.where(keep, bb.a, zero),
+                     b=torch.where(keep, bb.b, zero), valid=keep)
+    p = _box_box_both(st, wc, few)
+    assert int(keep.sum()) == 20 and int(p["point_valid"].sum()) > 0
 
 
 @pytest.mark.parametrize("max_colors", [24, 2])
@@ -160,20 +182,16 @@ def test_solve_kernel_repeats_bitwise(dev, max_colors):
 
 def test_solve_is_one_launch(dev):
     """The whole solve, every sweep and color, is one kernel on the
-    device."""
-    from torch.profiler import ProfilerActivity, profile
+    device: a CUDA graph capture of one call holds one kernel node and
+    nothing else."""
+    from nudge_tpu_torch.utils import timing
 
     cfg, col, con, velw, work = _solve_inputs(dev, 24)
     v, w = velw.clone(), work.clone()
-    torch.cuda.synchronize()
     n0 = solver_kernel.solve.launches
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        solver_kernel.solve_cuda(v, con, w, cfg)
-        torch.cuda.synchronize()
-    assert solver_kernel.solve.launches == n0 + 1
-    kernels = [e.name for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    assert len(kernels) == 1 and "solve_kernel" in kernels[0], kernels
+    ops = timing.device_ops(lambda: solver_kernel.solve_cuda(v, con, w, cfg))
+    assert solver_kernel.solve.launches == n0 + 2    # the warm call, the capture
+    assert ops == {"kernel": 1}, ops
     assert int(col[1]) * cfg.solver_iters > 20     # many passes, one launch
 
 
@@ -234,6 +252,75 @@ def test_coloring_kernel_matches_twin(dev, max_colors):
     assert torch.equal(k, p)
     spilled = int(((p < 0) & man.valid).sum())
     assert (spilled > 0) == (max_colors == 4)
+
+
+def test_box_box_and_coloring_are_one_launch(dev):
+    """A call of box-box, and of the coloring with every round, enqueues
+    one kernel and nothing else (a CUDA graph capture of the call)."""
+    from nudge_tpu_torch.utils import timing
+
+    cfg, st = _pressed_pile(300, dev, broadphase="grid")
+    wc = broadphase.world_colliders(st)
+    bb, _, _ = grid.grid_broadphase(st, wc, cfg)
+    bx = st.boxes
+    man, _ = contacts.collide(st, cfg)
+    dyn = st.bodies.inv_mass > 0.0
+    args = (man.body_a, man.body_b, man.valid, dyn, dyn.shape[0], 24)
+    assert timing.device_ops(
+        lambda: npk.box_box_slots_cuda(bx, wc, bb)) == {"kernel": 1}
+    assert timing.device_ops(
+        lambda: ck.color_rounds_cuda(*args)) == {"kernel": 1}
+
+
+def test_device_ms_times_the_device_and_refuses_a_host_wait(dev):
+    """device_ms times work queued behind its spin; a call that waits on
+    the device cannot be timed that way and raises."""
+    from nudge_tpu_torch.utils import timing
+
+    x = torch.ones(1 << 20, device=dev)
+    ms = timing.device_ms(lambda: torch.cuda._sleep(2_000_000), reps=4)
+    assert 0.5 < ms < 5.0          # 2e6 cycles at 1-2 GHz, 1-2 ms
+    assert timing.device_ms(lambda: x.mul_(1.0)) > 0.0
+    with pytest.raises(RuntimeError, match="waits on the device"):
+        timing.device_ms(lambda: float(x.sum()), reps=2)
+
+
+def _random_manifolds(dev, n_bodies, m, live, seed):
+    """`live` manifolds at the front of `m` slots between random bodies of
+    `n_bodies`, a tenth of them static; the dead tail as compaction leaves
+    it (body 0, not valid)."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, n_bodies, size=m)
+    b = (a + rng.integers(1, 40, size=m)) % n_bodies
+    valid = np.arange(m) < live
+    a[~valid] = 0
+    b[~valid] = 0
+    dyn = rng.random(n_bodies) > 0.1
+
+    def t(x, dt):
+        return torch.tensor(x, dtype=dt, device=dev)
+
+    return (t(a, torch.int32), t(b, torch.int32), t(valid, torch.bool),
+            t(dyn, torch.bool))
+
+
+@pytest.mark.parametrize("case", ["many_bodies", "dead_tail"])
+@pytest.mark.parametrize("max_colors", [24, 4])
+def test_coloring_kernel_matches_twin_at_scale(dev, case, max_colors):
+    """Many more bodies than one CTA has threads, and a long dead tail of
+    manifold slots behind a few live ones: the raw colors bit for bit, and
+    ten launches from one input equal."""
+    n_bodies, m, live = {"many_bodies": (200_000, 61_440, 40_000),
+                         "dead_tail": (20_480, 61_440, 300)}[case]
+    a, b, valid, dyn = _random_manifolds(dev, n_bodies, m, live, seed=3)
+    args = (a, b, valid, dyn, n_bodies, max_colors)
+    k = ck.color_rounds_cuda(*args)
+    p = ck.color_rounds_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(k, p)
+    assert bool((p[:live] >= 0).any()) and bool((p[live:] == -1).all())
+    for _ in range(9):
+        assert torch.equal(ck.color_rounds_cuda(*args), k)
 
 
 def test_mixed_pile_fresh_coloring_launches_every_kernel_and_repeats(dev):
