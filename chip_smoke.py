@@ -25,8 +25,14 @@ no result):
      launches from one input bitwise equal to each other, one device
      kernel a call; the coloring bitwise, ten launches equal, one device
      kernel a call; the solve and the coloring once more with only 4
-     colors, so that the spill paths run at full size; then the one-point
-     (box-sphere, sphere-sphere) kernel on config 3 after 120 steps;
+     colors, so that the spill paths run at full size; then
+     contacts.narrowphase_all on config 3 after 120 steps, as the step
+     calls it (the box-box and the one-point (box-sphere, sphere-sphere)
+     kernels writing one set of buffers), against the joined twins: the
+     box-box rows as above, the one-point rows bitwise on every live pair,
+     at most 3 device operations a call, with its device time; and the
+     one-point kernel's call into its rows of those buffers, one device
+     kernel a call, with its times;
   4. config 1: one box dropped on the ground, 500 steps, held to the rest
      gates of tests/test_engine.py;
   5. the awake pile: the 20,480-box pile (bench.tuned_config capacities,
@@ -65,9 +71,16 @@ no result):
      ~700 awake): device events a step, the device's busy share, and the
      solve's, setup's and box-box's device time and launches a step, with
      how many of the port's kernel launches the profiler recorded (it
-     drops some at times: then these are lower bounds; nothing is gated).
+     drops some at times: then these are lower bounds; nothing is gated);
+ 15. config 2: BASELINE.md's 10 x 10 x 10 box stack (1,000 boxes) and the
+     base-10 pyramid (55 boxes), auto_config() as the reference's tests
+     take it, 1,000 steps each in windows of 100 with the slice gates; at
+     the end every box of the stack within 0.15 of its start height and
+     0.35 in x and z, the pyramid's top box within 0.1 and 0.15; steps/s,
+     the broadphase auto_config chose, drift and launches; then each
+     scene's final state under the profiler as in phase 14.
 
-Phases 5-7 and 9-13 each zero the kernels' launch counts before they run
+Phases 5-7, 9-13 and 15 each zero the kernels' launch counts before they run
 and read them after, and run with the plain twins replaced by functions
 that raise: the main paths go through the kernels only.
 
@@ -128,6 +141,19 @@ PROFILE_STEPS = 10         # steps under torch.profiler per profiled state
 PROFILE_LEAD_S = 1.0       # idle seconds at the start of a profiler window
 DEVICE_REPS = 10           # calls a device time averages
 SETTLED_AT = 2150          # the fidelity scene settling (~700 awake)
+CONFIG2_STEPS = 1000       # BASELINE.md config 2: 1k steps
+CONFIG2_WINDOW = 100
+# config 2's end gates: every box of the stack near its start, the
+# pyramid's top box near its start (tests/test_engine.py's base-4 pyramid
+# gates). The JAX package's own 1,000-step CPU run of these scenes
+# (auto_config, allpairs): the stack's boxes within 0.0537 of their start
+# heights, but 35 of them, all in the top layers, slid more than 0.1 in x
+# or z, up to 0.172; so the x/z gate is twice that value, not 0.1. Its
+# pyramid's top box: dy -0.0561, dx -0.0028, dz 0.0061.
+STACK_DY = 0.15
+STACK_DXZ = 0.35
+PYRAMID_TOP_DY = 0.1
+PYRAMID_TOP_DXZ = 0.15
 
 # The least time the card could take for a kernel's work (bound_ms): bytes
 # each input read once and each output written once, over HBM's 3.35 TB/s,
@@ -152,6 +178,10 @@ BOXBOX_OPS_FACE = 1770
 BOXBOX_OPS_EDGE = 595
 # one-point: ~200 per live pair (csrc/narrowphase_1pt.cu)
 PAIRS_1PT_OPS_PER_PAIR = 200
+# device operations a call of contacts.narrowphase_all may enqueue on a
+# mixed scene: the box-box and the one-point kernels write one set of
+# buffers and nothing else joins the pair classes' slots
+NP_ALL_OPS = 3
 # setup, per live manifold: 156 B of geometry, warm starts and ids, relax
 # 4 B and 36 B of order, slot and body-sorted entries in; 556 B of rows, 64
 # B of accumulators and 24 B of frame out; ~2,200 operations (three
@@ -299,7 +329,7 @@ def counters():
     from nudge_tpu_torch.ops import setup_kernel, solver_kernel
 
     return {"box_box": npk.box_box_slots,
-            "pairs_1pt": narrowphase_1pt.pairs_1pt_slots,
+            "pairs_1pt": narrowphase_1pt.pairs_1pt_slots_cuda,
             "coloring": coloring_kernel.color_rounds,
             "setup": setup_kernel.setup, "solve": solver_kernel.solve}
 
@@ -310,13 +340,14 @@ class KernelsOnly:
     through the kernels or fails. `launches` holds the counts on exit."""
 
     def __init__(self):
-        from nudge_tpu_torch.ops import coloring_kernel, narrowphase
+        from nudge_tpu_torch.ops import coloring_kernel, contacts, narrowphase
         from nudge_tpu_torch.ops import narrowphase_1pt, setup_kernel
         from nudge_tpu_torch.ops import narrowphase_kernel as npk
         from nudge_tpu_torch.ops import solver_kernel
 
         self.twins = [(npk, "box_box_slots_plain"), (narrowphase, "box_box"),
                       (narrowphase_1pt, "pairs_1pt_slots_plain"),
+                      (contacts, "narrowphase_joined_plain"),
                       (narrowphase, "box_sphere"),
                       (narrowphase, "sphere_sphere"),
                       (coloring_kernel, "color_rounds_plain"),
@@ -483,26 +514,22 @@ def box_box_inputs(st, cfg):
     return seen[0]
 
 
-def compare_box_box(card, label, bx, wc, bb):
-    """The box-box kernel against its twin on every live pair: no more
-    than TIE_SHARE of them may differ in their integer outputs, the floats
-    of the rest bitwise equal; every dead slot without a valid point; one
-    kernel and nothing else enqueued a call; the kernel's device time.
-    Returns the record fields."""
+def check_box_box_rows(label, k, p, live):
+    """Box-box kernel slots `k` against twin slots `p` of the same pairs:
+    every dead slot without a valid point, every live slot's ids equal, no
+    more than TIE_SHARE of the live pairs differing in their other integer
+    outputs, the floats of the rest bitwise equal. Returns (Diff, live
+    pairs that differ)."""
     import torch
 
-    from nudge_tpu_torch.ops import narrowphase_kernel as npk
-    from nudge_tpu_torch.utils import timing
-
-    k = npk.box_box_slots_cuda(bx, wc, bb)
-    p = npk.box_box_slots_plain(bx, wc, bb)
-    torch.cuda.synchronize()
-    live = bb.valid
     n_live = int(live.sum())
-    n_slots = live.shape[0]
     if bool(k["point_valid"][~live].any()):
         raise AssertionError(f"box_box ({label}): a dead slot has a valid "
                              "point")
+    for key in ("ga", "gb"):
+        if not torch.equal(k[key][live], p[key][live]):
+            raise AssertionError(f"box_box ({label}): {key} differs on live "
+                                 "pairs")
     ints_same = live.clone()
     for key in ("point_valid", "feat"):
         ints_same &= (k[key] == p[key]).all(1)
@@ -522,6 +549,25 @@ def compare_box_box(card, label, bx, wc, bb):
     if diff.err != 0.0:
         raise AssertionError(f"box_box ({label}): floats not bitwise equal "
                              f"to the twin on live pairs ({diff})")
+    return diff, n_diff
+
+
+def compare_box_box(card, label, bx, wc, bb):
+    """The box-box kernel against its twin on every live pair
+    (check_box_box_rows); one kernel and nothing else enqueued a call; the
+    kernel's device time. Returns the record fields."""
+    import torch
+
+    from nudge_tpu_torch.ops import narrowphase_kernel as npk
+    from nudge_tpu_torch.utils import timing
+
+    k = npk.box_box_slots_cuda(bx, wc, bb)
+    p = npk.box_box_slots_plain(bx, wc, bb)
+    torch.cuda.synchronize()
+    live = bb.valid
+    n_live = int(live.sum())
+    n_slots = live.shape[0]
+    diff, n_diff = check_box_box_rows(label, k, p, live)
     n_edge = int((live & (p["feat"][:, 0] >= 1024)).sum())
     ms = timed(lambda: npk.box_box_slots_cuda(bx, wc, bb))
     plain_ms = timed(lambda: npk.box_box_slots_plain(bx, wc, bb))
@@ -530,13 +576,12 @@ def compare_box_box(card, label, bx, wc, bb):
     dev_ms = timing.device_ms(lambda: npk.box_box_slots_cuda(bx, wc, bb),
                               DEVICE_REPS)
     # pair_valid in and point_valid out for every slot; per live pair its
-    # two indices in and the slot's outputs (ga, gb are the inputs' own)
-    out_bytes = sum(v[0].numel() * v.element_size() for key, v in k.items()
-                    if key not in ("ga", "gb"))
+    # two indices in and the rest of the slot's row out
+    out_bytes = sum(v[0].numel() * v.element_size() for v in k.values())
     wc_bytes = sum(t.numel() * t.element_size() for t in wc)
     rec = dict(max_abs_err=diff.err, ms=ms, plain_ms=plain_ms,
                **bound(wc_bytes + n_slots * (1 + 4)
-                       + n_live * (8 + out_bytes),
+                       + n_live * (8 + out_bytes - 4),
                        (n_live - n_edge) * BOXBOX_OPS_FACE
                        + n_edge * BOXBOX_OPS_EDGE))
     log(card, f"box_box ({label}): {n_slots} pair slots, {n_live} live "
@@ -702,10 +747,18 @@ def phase_compare(card, dev):
 
 
 def phase_compare_1pt(card, dev):
+    """contacts.narrowphase_all on config 3 after MIXED_COMPARE_AFTER
+    steps, as the step calls it (the box-box and the one-point kernels
+    writing one set of buffers), against the joined twins: the box-box
+    rows by check_box_box_rows, every live one-point row bitwise, every
+    dead row without a valid point; at most NP_ALL_OPS device operations a
+    call. Then the one-point kernel's call as narrowphase_all makes it (its
+    rows of those buffers): one kernel and nothing else, its times.
+    Returns the one-point record fields."""
     import torch
 
-    from nudge_tpu_torch import engine, scenes
-    from nudge_tpu_torch.ops import broadphase, grid
+    from nudge_tpu_torch import engine
+    from nudge_tpu_torch.ops import broadphase, contacts, grid
     from nudge_tpu_torch.ops import narrowphase_1pt as p1pt
     from nudge_tpu_torch.utils import timing
 
@@ -713,40 +766,63 @@ def phase_compare_1pt(card, dev):
     st, _ = engine.simulate(b.finalize(cfg, device=dev), cfg,
                             MIXED_COMPARE_AFTER)
     wc = broadphase.world_colliders(st)
-    _, bs, ss = grid.grid_broadphase(st, wc, cfg)
-    args = (st.boxes, st.spheres, wc, bs, ss)
-    k = p1pt.pairs_1pt_slots_cuda(*args)
-    p = p1pt.pairs_1pt_slots_plain(*args)
+    bb, bs, ss = grid.grid_broadphase(st, wc, cfg)
+    n_bb = bb.a.shape[0]
+    k = contacts.narrowphase_all(st, wc, bb, bs, ss, cfg)
+    p = contacts.narrowphase_joined_plain(st, wc, bb, bs, ss)
     torch.cuda.synchronize()
+    _, n_tie = check_box_box_rows("narrowphase_all", {
+        key: v[:n_bb] for key, v in k.items()}, {
+        key: v[:n_bb] for key, v in p.items()}, bb.valid)
+    rows = {key: v[n_bb:] for key, v in k.items()}
+    twin = {key: v[n_bb:] for key, v in p.items()}
     live = torch.cat([bs.valid, ss.valid])
     n_live = int(live.sum())
+    n_slots = live.shape[0]
     if n_live == 0:
         raise AssertionError("pairs_1pt: no live box-sphere or sphere-sphere "
                              "pair to compare")
-    for key in ("body_a", "body_b", "ga", "gb", "point_valid", "feat"):
-        if not torch.equal(k[key][live], p[key][live]):
-            raise AssertionError(f"pairs_1pt: {key} differs on live pairs")
-    pv = p["point_valid"] & live[:, None]
-    diff = Diff()
-    diff.check("pairs_1pt.pos", k["pos"][pv], p["pos"][pv])
-    diff.check("pairs_1pt.depth", k["depth"][pv], p["depth"][pv])
-    diff.check("pairs_1pt.normal", k["normal"][live], p["normal"][live])
-    diff.check("pairs_1pt.friction", k["friction"][live], p["friction"][live])
-    ms = timed(lambda: p1pt.pairs_1pt_slots_cuda(*args))
+    if bool(rows["point_valid"][~live].any()):
+        raise AssertionError("pairs_1pt: a dead slot has a valid point")
+    for key in rows:
+        if not torch.equal(rows[key][live], twin[key][live]):
+            raise AssertionError(f"pairs_1pt: {key} not bitwise equal to the "
+                                 "twin on live pairs")
+    pv = twin["point_valid"] & live[:, None]
+
+    def np_all():
+        return contacts.narrowphase_all(st, wc, bb, bs, ss, cfg)
+
+    all_ops = timing.device_ops(np_all)
+    if sum(all_ops.values()) > NP_ALL_OPS:
+        raise AssertionError(f"narrowphase_all: a call enqueues "
+                             f"{fmt_ops(all_ops)}, more than {NP_ALL_OPS} "
+                             "device operations")
+    all_ms = timing.device_ms(np_all, DEVICE_REPS)
+    args = (st.boxes, st.spheres, wc, bs, ss)
+
+    def call():
+        return p1pt.pairs_1pt_slots_cuda(*args, out=rows)
+
+    ms = timed(call)
     plain_ms = timed(lambda: p1pt.pairs_1pt_slots_plain(*args))
-    dev_ms = timing.device_ms(lambda: p1pt.pairs_1pt_slots_cuda(*args),
-                              DEVICE_REPS)
-    ops = timing.device_ops(lambda: p1pt.pairs_1pt_slots_cuda(*args))
-    log(card, f"pairs_1pt: config 3 after {MIXED_COMPARE_AFTER} steps, "
-        f"{live.shape[0]} pair slots ({int(bs.valid.sum())} box-sphere, "
-        f"{int(ss.valid.sum())} sphere-sphere live), {int(pv.sum())} "
-        f"contacts; {diff}; kernel {ms:.4f} ms (device {dev_ms:.4f} ms; a "
-        f"call enqueues {fmt_ops(ops)}: the kernel and the wrapper's joins "
-        f"of the two pair classes), twin {plain_ms:.3f} ms")
-    per_pair = sum(v[0].numel() * v.element_size() for v in k.values())
+    dev_ms = timing.device_ms(call, DEVICE_REPS)
+    one_kernel("pairs_1pt", timing.device_ops(call))
+    log(card, f"narrowphase_all: config 3 after {MIXED_COMPARE_AFTER} "
+        f"steps, {n_bb} box-box slots ({int(bb.valid.sum())} live, {n_tie} "
+        f"differ from the twin in integers: near-ties) and {n_slots} "
+        f"one-point slots ({int(bs.valid.sum())} box-sphere, "
+        f"{int(ss.valid.sum())} sphere-sphere live, {int(pv.sum())} "
+        f"contacts), the one-point rows bitwise equal to the twin on every "
+        f"live pair, dead slots without a valid point; a call enqueues "
+        f"{fmt_ops(all_ops)}, device {all_ms:.4f} ms. pairs_1pt into its "
+        f"rows: one kernel a call; kernel {ms:.4f} ms (device "
+        f"{dev_ms:.4f} ms), twin {plain_ms:.3f} ms")
+    # per slot its valid flag (1 B) in and point_valid (4 B) out; per live
+    # pair its two indices (8 B) in and the rest of its row (112 B) out
     wc_bytes = sum(t.numel() * t.element_size() for t in wc)
-    return dict(max_abs_err=diff.err, ms=ms, plain_ms=plain_ms,
-                **bound(wc_bytes + n_live * (8 + per_pair),
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                **bound(wc_bytes + n_slots * (1 + 4) + n_live * (8 + 112),
                         n_live * PAIRS_1PT_OPS_PER_PAIR))
 
 
@@ -1329,6 +1405,61 @@ def phase_profile(card, pile_state, settled, ref_cfg):
                   settled, ref_cfg)
 
 
+def drift(st, p0):
+    """(largest |dy|, largest |dx| or |dz|) of the dynamic bodies from
+    their start positions `p0`."""
+    dyn = st.bodies.inv_mass > 0
+    d = (st.bodies.pos - p0)[dyn].abs()
+    return float(d[:, 1].max()), float(d[:, [0, 2]].max())
+
+
+def phase_config2(card, dev):
+    """BASELINE config 2 at full size: scene_stack() (1,000 boxes in 10 x
+    10 columns) and scene_pyramid() (base 10, 55 boxes), auto_config() as
+    the reference's tests take it, CONFIG2_STEPS steps each in windows with
+    the slice gates, the plain twins raising; at the end each box of the
+    stack within STACK_DY of its start height and STACK_DXZ in x and z, the
+    pyramid's top box within PYRAMID_TOP_DY and PYRAMID_TOP_DXZ."""
+    import torch
+
+    from nudge_tpu_torch import scenes
+    from nudge_tpu_torch.ops import contacts
+
+    launches = {}
+    for label, b in (("stack", scenes.scene_stack()),
+                     ("pyramid", scenes.scene_pyramid())):
+        cfg = b.auto_config()
+        st = b.finalize(cfg, device=dev)
+        p0 = st.bodies.pos.clone()
+        top = int(torch.nonzero(st.bodies.inv_mass > 0)[-1])
+        base = contacts._base_broadphase(cfg).__name__
+        with KernelsOnly() as run:
+            st, t_all = run_windows(card, f"config 2 {label}", st, cfg,
+                                    CONFIG2_STEPS, CONFIG2_WINDOW)
+        need_launches(f"config 2 {label}", run.launches,
+                      ("box_box", "setup", "solve"))
+        dy, dxz = drift(st, p0)
+        t = (st.bodies.pos[top] - p0[top]).tolist()
+        n_dyn = int((st.bodies.inv_mass > 0).sum())
+        log(card, f"config 2 {label}: {n_dyn} boxes, "
+            f"broadphase {cfg.broadphase} -> {base}, {CONFIG2_STEPS} steps "
+            f"in {t_all:.2f} s ({CONFIG2_STEPS / t_all:.3f} steps/s); drift "
+            f"of any box: |dy| {dy:.5f}, |dx|,|dz| {dxz:.5f}; top box (body "
+            f"{top}) dx {t[0]:.5f} dy {t[1]:.5f} dz {t[2]:.5f}; launches "
+            f"{run.launches}")
+        if label == "stack":
+            ok = dy <= STACK_DY and dxz <= STACK_DXZ
+        else:
+            ok = (abs(t[1]) <= PYRAMID_TOP_DY
+                  and max(abs(t[0]), abs(t[2])) <= PYRAMID_TOP_DXZ)
+        if not ok:
+            raise AssertionError(f"config 2 {label}: drift past its gates")
+        launches[label] = run.launches
+        profile_steps(card, f"config 2 {label} (step {CONFIG2_STEPS})", st,
+                      cfg)
+    return launches
+
+
 def main():
     sys.path.insert(0, REPO)
     import torch
@@ -1356,6 +1487,7 @@ def main():
     launches["pairs_1pt"] = phase_reference_mixed(card, dev)["pairs_1pt"]
     launches["coloring"] = coloring
     phase_profile(card, pile_state, settled, ref_cfg)
+    phase_config2(card, dev)
     kernels = [dict(name=k, route="cuda", source=SOURCE_OF[k],
                     replaces=TPU_KERNEL_OF[k], launches=launches[k],
                     **records[k]) for k in TPU_KERNEL_OF]

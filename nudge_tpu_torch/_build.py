@@ -35,12 +35,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # cudaError_t of its launches, except nudge_solve_cluster, which returns the
 # solve's cluster size (0 on error).
 _SIGNATURES = {
-    "nudge_box_box": [_P] * 8 + [_I] + [_P] * 8 + [_P],
+    "nudge_box_box": [_P] * 8 + [_I] + [_P] * 10 + [_P],
     "nudge_setup": [_P] * 23 + [_I] * 3 + [_F] * 9 + [_I] * 3 + [_P] * 4
                    + [_P],
     "nudge_solve": [_P] * 12 + [_I] * 5 + [_P],
     "nudge_solve_cluster": [],
-    "nudge_pairs_1pt": [_P] * 12 + [_I] * 2 + [_P] * 8 + [_P],
+    "nudge_pairs_1pt": [_P] * 15 + [_I] * 3 + [_P] * 10 + [_P],
     "nudge_color_rounds": [_P] * 5 + [_I] * 3 + [_P] * 2 + [_P],
 }
 

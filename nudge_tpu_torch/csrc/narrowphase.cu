@@ -13,14 +13,16 @@
 //
 // What bounds it on an H100: the dependent chain of a pair (~1,770 float
 // operations in the face case, most of them in the clip and its four
-// reduction passes), not bytes (two 44-byte collider records in, 108 bytes
+// reduction passes), not bytes (two 44-byte collider records in, 116 bytes
 // out per pair). An earlier version held the 24 candidates in arrays
 // indexed at run time, which ptxas put on an 832-byte local-memory stack,
 // and ran the whole chain for every pair slot, dead or not. The design here:
 //   - a dead slot (pair_valid false) writes point_valid = false for its
 //     four points and nothing else; contacts.compact_manifolds reads no
 //     other field of a dead slot (a CPU test holds it to that), so the work
-//     follows the live pairs and needs no count on the host;
+//     follows the live pairs and needs no count on the host; a live slot
+//     writes its whole row, the collider ids (ga, gb: the boxes' indices)
+//     too, so the kernel owns the rows it is given;
 //   - every run-time index (reference axis, incident axis, edge pair, the
 //     chosen candidate) is a select, never an address, and every loop over
 //     candidates is unrolled at compile-time register slots, so nothing
@@ -505,6 +507,8 @@ struct Outputs {
   float* depth;
   int* feat;
   bool* valid;
+  int* ga;
+  int* gb;
 };
 
 __global__ void __launch_bounds__(kThreads)
@@ -519,8 +523,9 @@ __global__ void __launch_bounds__(kThreads)
     reinterpret_cast<unsigned*>(out.valid)[p] = 0u;
     return;
   }
+  const int ia = pa_idx[p], ib = pb_idx[p];
   PairOut o;
-  collide_pair(pa_idx[p], pb_idx[p], half, quat, wpos, fric, body, o);
+  collide_pair(ia, ib, half, quat, wpos, fric, body, o);
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
     const int e = 4 * j;
@@ -537,6 +542,8 @@ __global__ void __launch_bounds__(kThreads)
   out.fric[p] = o.fric;
   out.ba[p] = o.ba;
   out.bb[p] = o.bb;
+  out.ga[p] = ia;
+  out.gb[p] = ib;
 }
 
 }  // namespace
@@ -545,9 +552,11 @@ extern "C" int nudge_box_box(const float* half, const float* quat, const float* 
                              const float* fric, const int* body, const int* pa, const int* pb,
                              const bool* pair_valid, int n_pairs, float* out_normal,
                              float* out_fric, int* out_ba, int* out_bb, float* out_pos,
-                             float* out_depth, int* out_feat, bool* out_valid, void* stream) {
+                             float* out_depth, int* out_feat, bool* out_valid, int* out_ga,
+                             int* out_gb, void* stream) {
   if (n_pairs > 0) {
-    const Outputs out{out_normal, out_fric, out_ba, out_bb, out_pos, out_depth, out_feat, out_valid};
+    const Outputs out{out_normal, out_fric, out_ba,    out_bb, out_pos,
+                      out_depth,  out_feat, out_valid, out_ga, out_gb};
     box_box_kernel<<<blocks_for(n_pairs), kThreads, 0, (cudaStream_t)stream>>>(
         half, quat, wpos, fric, body, pa, pb, pair_valid, n_pairs, out);
   }

@@ -18,8 +18,10 @@ from . import narrowphase as nps
 from .broadphase import (
     allpairs_broadphase, compact_mask, dead_mask, world_colliders,
 )
-from .narrowphase_1pt import pairs_1pt_slots
-from .narrowphase_kernel import box_box_slots
+from .narrowphase_1pt import pairs_1pt_slots_cuda, pairs_1pt_slots_plain
+from .narrowphase_kernel import (
+    box_box_slots, box_box_slots_cuda, box_box_slots_plain, empty_slots,
+)
 
 POINTS = nps.BOX_BOX_POINTS
 _I32_MAX = 2 ** 31 - 1
@@ -58,12 +60,34 @@ class Manifolds:
 
 def narrowphase_all(state: SimState, wc, bb, bs, ss, cfg: SimConfig):
     """Per-pair manifold slot arrays over all candidates, in the order
-    box-box, box-sphere, sphere-sphere."""
-    slots = box_box_slots(state.boxes, wc, bb)
+    box-box, box-sphere, sphere-sphere. This is the one place that knows
+    that layout: each narrowphase writes its own rows from row 0."""
     if bs.a.shape[0] + ss.a.shape[0] == 0:
-        return slots
-    one = pairs_1pt_slots(state.boxes, state.spheres, wc, bs, ss)
+        return box_box_slots(state.boxes, wc, bb)
+    if state.boxes.half.device.type == "cuda":
+        return narrowphase_joined_cuda(state, wc, bb, bs, ss)
+    return narrowphase_joined_plain(state, wc, bb, bs, ss)
+
+
+def narrowphase_joined_plain(state: SimState, wc, bb, bs, ss):
+    """The three pair classes' slots from the twins, joined."""
+    slots = box_box_slots_plain(state.boxes, wc, bb)
+    one = pairs_1pt_slots_plain(state.boxes, state.spheres, wc, bs, ss)
     return {k: torch.cat([slots[k], one[k]]) for k in slots}
+
+
+def narrowphase_joined_cuda(state: SimState, wc, bb, bs, ss):
+    """The three pair classes' slots written by the two kernels into one
+    set of buffers: box-box rows [0, P_bb), the one-point kernel's after
+    them. Two kernels and nothing else."""
+    n_bb = bb.a.shape[0]
+    out = empty_slots(n_bb + bs.a.shape[0] + ss.a.shape[0],
+                      state.boxes.half.device)
+    box_box_slots_cuda(state.boxes, wc, bb,
+                       out={k: v[:n_bb] for k, v in out.items()})
+    pairs_1pt_slots_cuda(state.boxes, state.spheres, wc, bs, ss,
+                         out={k: v[n_bb:] for k, v in out.items()})
+    return out
 
 
 def compact_manifolds(slots: dict, cfg: SimConfig, pair_overflow,

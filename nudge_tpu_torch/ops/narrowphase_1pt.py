@@ -5,17 +5,22 @@ Replaces `nudge_tpu/ops/narrowphase_kernel.py: pairs_1pt_pallas` (kernel
 body `_make_1pt_kernel`, math in `_box_sphere_rows` and
 `_sphere_sphere_rows`). The TPU kernel gathered collider rows with one-hot
 matmuls from a unified box+sphere table; the CUDA kernel
-(csrc/narrowphase_1pt.cu) runs one thread per pair of the concatenated
-box-sphere + sphere-sphere stream, reads both colliders by int32 index and
-runs `narrowphase.box_sphere` or `narrowphase.sphere_sphere` in registers.
+(csrc/narrowphase_1pt.cu) reads the box-sphere and the sphere-sphere
+candidate lists in place as two ranges of one launch, one thread a pair
+slot, reads both colliders of a live pair by int32 index and runs
+`narrowphase.box_sphere` or `narrowphase.sphere_sphere` in registers.
 
 Pairs carry global collider ids: a box keeps its index, sphere i is
 `max_boxes + i` (the box arrays are capacity-sized, so these are the ids of
 the contact cache). Each pair yields a one-point manifold: slot 0 holds the
-contact, feature id 0; slots 1-3 are empty.
+contact, feature id 0; slots 1-3 are empty. A dead pair slot (its
+candidate's `valid` false) gets `point_valid` false from the kernel and
+nothing else, as box-box's (`narrowphase_kernel`); the twin fills every
+field, and the two agree on live slots.
 
-`pairs_1pt_slots` dispatches by device: CPU tensors go to the plain twin
-`pairs_1pt_slots_plain`; CUDA tensors launch the kernel or raise.
+The engine reaches both through `contacts.narrowphase_all`: on the CPU it
+joins the twin's slots after box-box's, on the card it hands the kernel the
+rows after box-box's of one set of buffers (`out`).
 """
 
 from __future__ import annotations
@@ -26,7 +31,9 @@ from .. import _build
 from ..state import Boxes, Spheres
 from . import narrowphase as nps
 from .broadphase import CandidatePairs, WorldColliders
-from .narrowphase_kernel import combine_friction
+from .narrowphase_kernel import (
+    SLOTS, check_slots, combine_friction, empty_slots,
+)
 
 POINTS = nps.BOX_BOX_POINTS
 
@@ -77,12 +84,15 @@ def pairs_1pt_slots_plain(bx: Boxes, sp: Spheres, wc: WorldColliders,
 
 
 def pairs_1pt_slots_cuda(bx: Boxes, sp: Spheres, wc: WorldColliders,
-                         bs: CandidatePairs, ss: CandidatePairs):
-    """Per-pair one-point manifold slots from the CUDA kernel."""
+                         bs: CandidatePairs, ss: CandidatePairs,
+                         out: dict = None):
+    """Per-pair one-point manifold slots from the CUDA kernel, the
+    box-sphere rows then the sphere-sphere rows, into `out` where given
+    (row views of `contacts.narrowphase_all`'s joined buffers), else into
+    new buffers."""
     nb, ns = bx.half.shape[0], sp.radius.shape[0]
-    ga, gb, live = _stream(bs, ss, nb)
-    p = ga.shape[0]
-    f32, i32 = torch.float32, torch.int32
+    n_bs, n_ss = bs.a.shape[0], ss.a.shape[0]
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
     ins = dict(half=(bx.half, f32, (nb, 3)),
                box_quat=(wc.box_quat, f32, (nb, 4)),
                box_pos=(wc.box_pos, f32, (nb, 3)),
@@ -92,42 +102,24 @@ def pairs_1pt_slots_cuda(bx: Boxes, sp: Spheres, wc: WorldColliders,
                sph_pos=(wc.sph_pos, f32, (ns, 3)),
                sph_friction=(sp.friction, f32, (ns,)),
                sph_body=(sp.body, i32, (ns,)),
-               ga=(ga, i32, (p,)), gb=(gb, i32, (p,)),
-               live=(live, torch.bool, (p,)))
+               bs_a=(bs.a, i32, (n_bs,)), bs_b=(bs.b, i32, (n_bs,)),
+               bs_valid=(bs.valid, b8, (n_bs,)),
+               ss_a=(ss.a, i32, (n_ss,)), ss_b=(ss.b, i32, (n_ss,)),
+               ss_valid=(ss.valid, b8, (n_ss,)))
     for name, (t, dt, shape) in ins.items():
         _build.check_cuda("pairs_1pt", name, t, dt, shape)
-    dev = bx.half.device
-    out = dict(
-        normal=torch.empty((p, 3), dtype=f32, device=dev),
-        friction=torch.empty((p,), dtype=f32, device=dev),
-        body_a=torch.empty((p,), dtype=i32, device=dev),
-        body_b=torch.empty((p,), dtype=i32, device=dev),
-        pos=torch.empty((p, POINTS, 3), dtype=f32, device=dev),
-        depth=torch.empty((p, POINTS), dtype=f32, device=dev),
-        feat=torch.empty((p, POINTS), dtype=i32, device=dev),
-        point_valid=torch.empty((p, POINTS), dtype=torch.bool, device=dev),
-    )
-    if p:
+    rows = n_bs + n_ss
+    if out is None:
+        out = empty_slots(rows, bx.half.device)
+    else:
+        check_slots("pairs_1pt", out, rows)
+    if rows:
         _build.library().call(
             "nudge_pairs_1pt", *[_build.ptr(t) for t, _, _ in ins.values()],
-            nb, p, *[_build.ptr(t) for t in out.values()],
+            nb, n_bs, n_ss, *[_build.ptr(out[k]) for k in SLOTS],
             _build.stream_of(bx.half))
-        pairs_1pt_slots.launches += 1
-    out["ga"] = ga
-    out["gb"] = gb
+        pairs_1pt_slots_cuda.launches += 1
     return out
 
 
-def pairs_1pt_slots(bx: Boxes, sp: Spheres, wc: WorldColliders,
-                    bs: CandidatePairs, ss: CandidatePairs):
-    """Manifold slot dict for every box-sphere pair, then every
-    sphere-sphere pair (the fields of `box_box_slots`)."""
-    dev = bx.half.device
-    if dev.type == "cpu":
-        return pairs_1pt_slots_plain(bx, sp, wc, bs, ss)
-    if dev.type == "cuda":
-        return pairs_1pt_slots_cuda(bx, sp, wc, bs, ss)
-    raise NotImplementedError(f"pairs_1pt: no kernel for device {dev}")
-
-
-pairs_1pt_slots.launches = 0
+pairs_1pt_slots_cuda.launches = 0

@@ -10,7 +10,8 @@ by int32 index, and runs `narrowphase.box_box` in registers.
 A dead pair slot (`bb.valid` false) gets `point_valid` false from the
 kernel and nothing else: its other fields are left as `torch.empty` made
 them, since `contacts.compact_manifolds` reads no other field of a slot
-without a valid point. The twin fills them; the two agree on live slots.
+without a valid point. A live slot gets its whole row, its collider ids
+(`ga`, `gb`) too. The twin fills every field; the two agree on live slots.
 
 `box_box_slots` dispatches by device: CPU tensors go to the plain twin
 `box_box_slots_plain` (which calls `narrowphase.box_box`); CUDA tensors
@@ -51,8 +52,48 @@ def box_box_slots_plain(bx: Boxes, wc: WorldColliders, bb: CandidatePairs):
     )
 
 
-def box_box_slots_cuda(bx: Boxes, wc: WorldColliders, bb: CandidatePairs):
-    """Per-pair manifold slots from the CUDA kernel."""
+# the manifold slot fields, in the kernels' order of output arguments: the
+# shape of one pair slot's row, and the type
+_F32, _I32 = torch.float32, torch.int32
+SLOTS = dict(normal=((3,), _F32), friction=((), _F32), body_a=((), _I32),
+             body_b=((), _I32), pos=((POINTS, 3), _F32),
+             depth=((POINTS,), _F32), feat=((POINTS,), _I32),
+             point_valid=((POINTS,), torch.bool), ga=((), _I32),
+             gb=((), _I32))
+
+
+def empty_slots(p: int, device) -> dict:
+    """Uninitialised manifold slot buffers for `p` pair slots."""
+    return {k: torch.empty((p,) + row, dtype=dt, device=device)
+            for k, (row, dt) in SLOTS.items()}
+
+
+def _align(row, dt) -> int:
+    """The store width a kernel may use for a slot row of this shape and
+    type: 16 bytes where the row is whole 16-byte words, else 4."""
+    nbytes = dt.itemsize
+    for n in row:
+        nbytes *= n
+    return 16 if nbytes % 16 == 0 else 4
+
+
+def check_slots(kernel: str, out: dict, p: int):
+    """Raise unless `out` holds slot buffers of `empty_slots`' fields for
+    `p` pair slots, or views of such rows, each base aligned to the stores
+    of its row (pos, depth and feat as 16-byte words)."""
+    for k, (row, dt) in SLOTS.items():
+        t = out[k]
+        _build.check_cuda(kernel, k, t, dt, (p,) + row)
+        if t.data_ptr() % _align(row, dt):
+            raise ValueError(f"{kernel} kernel: out[{k!r}] needs a "
+                             f"{_align(row, dt)}-byte aligned base")
+
+
+def box_box_slots_cuda(bx: Boxes, wc: WorldColliders, bb: CandidatePairs,
+                       out: dict = None):
+    """Per-pair manifold slots from the CUDA kernel, into `out` where given
+    (row views of the buffers `contacts.narrowphase_all` joins the pair
+    classes in), else into new buffers."""
     nb = bx.half.shape[0]
     p = bb.a.shape[0]
     ins = dict(half=(bx.half, torch.float32, (nb, 3)),
@@ -64,27 +105,14 @@ def box_box_slots_cuda(bx: Boxes, wc: WorldColliders, bb: CandidatePairs):
                valid=(bb.valid, torch.bool, (p,)))
     for name, (t, dt, shape) in ins.items():
         _build.check_cuda("box_box", name, t, dt, shape)
-    lib = _build.library()
-    dev = bx.half.device
-    out = dict(
-        normal=torch.empty((p, 3), dtype=torch.float32, device=dev),
-        friction=torch.empty((p,), dtype=torch.float32, device=dev),
-        body_a=torch.empty((p,), dtype=torch.int32, device=dev),
-        body_b=torch.empty((p,), dtype=torch.int32, device=dev),
-        pos=torch.empty((p, POINTS, 3), dtype=torch.float32, device=dev),
-        depth=torch.empty((p, POINTS), dtype=torch.float32, device=dev),
-        feat=torch.empty((p, POINTS), dtype=torch.int32, device=dev),
-        point_valid=torch.empty((p, POINTS), dtype=torch.bool, device=dev),
-    )
-    lib.call("nudge_box_box",
-             *[_build.ptr(t) for t, _, _ in ins.values()], p,
-             *[_build.ptr(out[k]) for k in ("normal", "friction", "body_a",
-                                             "body_b", "pos", "depth", "feat",
-                                             "point_valid")],
-             _build.stream_of(bx.half))
+    if out is None:
+        out = empty_slots(p, bx.half.device)
+    else:
+        check_slots("box_box", out, p)
+    _build.library().call(
+        "nudge_box_box", *[_build.ptr(t) for t, _, _ in ins.values()], p,
+        *[_build.ptr(out[k]) for k in SLOTS], _build.stream_of(bx.half))
     box_box_slots.launches += 1
-    out["ga"] = bb.a
-    out["gb"] = bb.b
     return out
 
 

@@ -348,7 +348,7 @@ class SceneBuilder:
 
 
 # ---------------------------------------------------------------------------
-# Canonical benchmark scenes (BASELINE.md configs 1 and 4)
+# Canonical benchmark scenes (BASELINE.md configs 1-4)
 # ---------------------------------------------------------------------------
 
 # Thick slab, top face at y=0. The thickness is tunneling armor: a
@@ -370,6 +370,38 @@ def scene_single_box(drop_height: float = 2.0):
     b = SceneBuilder()
     _ground(b)
     b.add_box((0.5, 0.5, 0.5), (0.0, drop_height, 0.0))
+    return b
+
+
+def scene_stack(nx: int = 10, ny: int = 10, nz: int = 10, half: float = 0.5,
+                gap: float = 1e-3):
+    """BASELINE config 2 (stack part): nx×nz columns of ny boxes."""
+    b = SceneBuilder()
+    _ground(b)
+    d = 2 * half + gap
+    for iy in range(ny):
+        for ix in range(nx):
+            for iz in range(nz):
+                b.add_box((half, half, half),
+                          ((ix - (nx - 1) / 2) * d * 1.05,
+                           half + iy * d,
+                           (iz - (nz - 1) / 2) * d * 1.05))
+    return b
+
+
+def scene_pyramid(base: int = 10, half: float = 0.5, gap: float = 1e-3):
+    """BASELINE config 2 (pyramid part): `base` boxes in a row, one fewer on
+    each layer above."""
+    b = SceneBuilder()
+    _ground(b)
+    d = 2 * half + gap
+    for layer in range(base):
+        n = base - layer
+        for i in range(n):
+            b.add_box((half, half, half),
+                      ((i - (n - 1) / 2) * d * 1.02,
+                       half + layer * d,
+                       0.0))
     return b
 
 

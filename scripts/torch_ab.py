@@ -10,7 +10,9 @@ process of its own and in the order parent, change, change, parent:
     25 steps;
   - the fidelity scene (scene_pile(20480, seed=3)) in the reference mode
     (sleeping and the persistent broadphase) for 300 steps from spawn, in
-    windows of 100 steps.
+    windows of 100 steps;
+  - config 3 (chip_smoke.py's phase 6: scene_pile(2048, sphere_frac=0.25),
+    all three pair classes) for 300 steps from spawn, in windows of 50.
 
 Each run prints its steps/s by window (host clock around windows that end
 in torch.cuda.synchronize()) and its trajectory: the contact count and the
@@ -31,6 +33,8 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PILE_STEPS, PILE_WINDOW = 150, 25
 REF_STEPS, REF_WINDOW = 300, 100
+MIXED_STEPS, MIXED_WINDOW = 300, 50
+CASES = {"pile": PILE_WINDOW, "ref": REF_WINDOW, "mixed": MIXED_WINDOW}
 
 
 def chip_smoke():
@@ -76,7 +80,11 @@ def measure(root, label):
     cfg = cs.reference_config(b, cs.N_PILE)
     ref = run(cs, b.finalize(cfg, device=dev), cfg, REF_STEPS, REF_WINDOW,
               True)
-    print(json.dumps(dict(label=label, pile=pile, ref=ref)), flush=True)
+    b, cfg = cs.mixed_scene()
+    mixed = run(cs, b.finalize(cfg, device=dev), cfg, MIXED_STEPS,
+                MIXED_WINDOW, False)
+    print(json.dumps(dict(label=label, pile=pile, ref=ref, mixed=mixed)),
+          flush=True)
 
 
 def main():
@@ -103,15 +111,16 @@ def main():
         print(f"{label}: awake pile steps/s by window "
               f"{[round(x, 3) for x in res['pile']['sps']]}; reference "
               f"pile steps/s by window "
-              f"{[round(x, 3) for x in res['ref']['sps']]}", flush=True)
-    for case in ("pile", "ref"):
+              f"{[round(x, 3) for x in res['ref']['sps']]}; config 3 "
+              f"steps/s by window "
+              f"{[round(x, 3) for x in res['mixed']['sps']]}", flush=True)
+    for case, window in CASES.items():
         trajs = [r[case]["traj"] for r in runs]
         if any(t != trajs[0] for t in trajs[1:]):
             raise SystemExit(f"{case}: the trajectories differ: {trajs}")
         print(f"{case}: the four trajectories are identical: (contacts, KE"
-              + (", E" if case == "ref" else "") + ") every "
-              f"{PILE_WINDOW if case == 'pile' else REF_WINDOW} steps "
-              f"{trajs[0]}", flush=True)
+              + (", E" if case == "ref" else "") + f") every {window} "
+              f"steps {trajs[0]}", flush=True)
 
 
 if __name__ == "__main__":

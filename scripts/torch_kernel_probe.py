@@ -1,4 +1,5 @@
-"""The box-box and coloring kernels against their twins, on the card.
+"""The box-box, coloring and one-point kernels against their twins, on the
+card.
 
     python3 scripts/torch_kernel_probe.py [--parent DIR]
 
@@ -20,10 +21,15 @@ For each, in a process of its own:
     wrapper's time (CUDA events);
   - the coloring at 24 and at 4 colors on the same step's manifolds:
     bitwise against the twin, ten launches from one input equal, device
-    time and device kernels a call.
+    time and device kernels a call;
+  - the one-point kernel against its twin on config 3 (chip_smoke.py's
+    mixed scene) after 120 steps, on every live pair, with its device
+    time, the device operations a call enqueues and the wrapper's time;
+    and the same three of contacts.narrowphase_all on the same step's
+    pairs of all three classes.
 
-The pile's state is made once by the committed kernels and shared by both
-trees. Needs one NVIDIA GPU; prints the card's name and power limit, then
+The pile's and config 3's states are made once by the committed kernels
+and shared by both trees. Needs one NVIDIA GPU; prints the card's name and power limit, then
 one line per tree and case.
 """
 
@@ -38,6 +44,7 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(REPO, "build", "kernel_probe")
 STATE = os.path.join(OUT, "state.pt")
+MIXED_STATE = os.path.join(OUT, "mixed_state.pt")
 LOW_LIVE = 3000          # live pairs of the low-live copy (~the settled pile's)
 REPS = 20                # calls a profiled time averages
 
@@ -84,6 +91,52 @@ def make_state(cs):
     man, _ = contacts.collide(st, cfg)
     dyn = st.bodies.inv_mass > 0.0
     torch.save((bx, wc, bb, man.body_a, man.body_b, man.valid, dyn), STATE)
+
+
+def make_mixed_state(cs):
+    import torch
+
+    from nudge_tpu_torch import engine
+    from nudge_tpu_torch.ops import broadphase, grid
+
+    b, cfg = cs.mixed_scene()
+    st, _ = engine.simulate(b.finalize(cfg), cfg, cs.MIXED_COMPARE_AFTER)
+    wc = broadphase.world_colliders(st)
+    torch.save((st, cfg, wc, *grid.grid_broadphase(st, wc, cfg)),
+               MIXED_STATE)
+
+
+def one_point_case(cs, name, st, cfg, wc, bb, bs, ss):
+    import torch
+
+    from nudge_tpu_torch.ops import contacts
+    from nudge_tpu_torch.ops import narrowphase_1pt as p1pt
+
+    args = (st.boxes, st.spheres, wc, bs, ss)
+    k = p1pt.pairs_1pt_slots_cuda(*args)
+    p = p1pt.pairs_1pt_slots_plain(*args)
+    torch.cuda.synchronize()
+    live = torch.cat([bs.valid, ss.valid])
+    differ = [key for key in ("body_a", "body_b", "point_valid", "feat",
+                              "pos", "depth", "normal", "friction")
+              if not torch.equal(k[key][live], p[key][live])]
+    call = lambda: p1pt.pairs_1pt_slots_cuda(*args)  # noqa: E731
+    dev = timing().device_ms(call, reps=REPS)
+    ops = cs.fmt_ops(timing().device_ops(call))
+    ms = cs.timed(call, reps=REPS)
+
+    def np_all():
+        return contacts.narrowphase_all(st, wc, bb, bs, ss, cfg)
+
+    all_dev = timing().device_ms(np_all, reps=REPS)
+    all_ops = cs.fmt_ops(timing().device_ops(np_all))
+    all_ms = cs.timed(np_all, reps=REPS)
+    print(f"{name}: pairs_1pt config 3: {live.shape[0]} slots, "
+          f"{int(live.sum())} live, live fields not bitwise equal to the "
+          f"twin: {differ or 'none'}; device {dev:.4f} ms (a call enqueues "
+          f"{ops}), wrapper {ms:.4f} ms; narrowphase_all ({bb.a.shape[0]} "
+          f"box-box slots): device {all_dev:.4f} ms, a call enqueues "
+          f"{all_ops}, wrapper {all_ms:.4f} ms", flush=True)
 
 
 def box_box_case(cs, name, label, bx, wc, bb):
@@ -153,7 +206,7 @@ def measure(root):
     print(f"{name}: ptxas " + "; ".join(
         f"{k} {r} regs, {fr} B stack frame, {ss}/{sl} B spill stores/loads"
         for k, (r, fr, ss, sl) in sorted(report.items())
-        if k.startswith(("box_box", "color"))), flush=True)
+        if k.startswith(("box_box", "color", "pairs_1pt"))), flush=True)
     if not os.path.exists(STATE):
         make_state(cs)
     bx, wc, bb, body_a, body_b, valid, dyn = torch.load(STATE,
@@ -166,6 +219,9 @@ def measure(root):
         valid=low))
     for mc in (24, cs.SPILL_COLORS):
         coloring_case(cs, name, body_a, body_b, valid, dyn, mc)
+    if not os.path.exists(MIXED_STATE):
+        make_mixed_state(cs)
+    one_point_case(cs, name, *torch.load(MIXED_STATE, weights_only=False))
 
 
 def main():
@@ -178,8 +234,9 @@ def main():
         raise SystemExit("no CUDA device: this script measures the GPU")
     sys.path.insert(0, REPO)
     os.makedirs(OUT, exist_ok=True)
-    if os.path.exists(STATE):
-        os.remove(STATE)
+    for path in (STATE, MIXED_STATE):
+        if os.path.exists(path):
+            os.remove(path)
     print(chip_smoke().phase_device(), flush=True)
     trees = [make_tree("committed")]
     if len(sys.argv) == 3 and sys.argv[1] == "--parent":

@@ -125,6 +125,77 @@ def assert_close(a, b, atol, name=""):
                                err_msg=name)
 
 
+# positions after a few steps: every stage agrees to float32 rounding (the
+# reference contracts multiply-adds into FMAs), the solve's 20 sweeps grow
+# that to ~1e-6, and a step integrates it once
+POS_ATOL = 1e-4
+
+
+def _by_feature(man):
+    """Each manifold's points in feature-id order (invalid points last)."""
+    pv = np_(man.point_valid)
+    key = np.where(pv, np_(man.feat), np.iinfo(np.int32).max)
+    order = np.argsort(key, axis=1, kind="stable")
+
+    def take(x):
+        x = np_(x)
+        idx = order.reshape(order.shape + (1,) * (x.ndim - 2))
+        return np.take_along_axis(x, idx, axis=1)
+
+    return {f: take(getattr(man, f))
+            for f in ("point_valid", "feat", "depth", "pos")}
+
+
+def assert_manifolds_match(pman, jman, where, atol=1e-5):
+    """Manifold slots equal slot for slot. Inside a manifold the points are
+    matched by feature id: the reference's XLA program contracts
+    multiply-adds into FMAs, so where the 4-point box-box reduction meets
+    an exact tie the two may store the tied points in swapped slots
+    (ROADMAP Queue 3); floats within `atol`."""
+    for f in ("body_a", "body_b", "ga", "gb", "valid", "count", "overflow",
+              "overflow_bits", "pair_demand"):
+        assert_equal(getattr(pman, f), getattr(jman, f), f"{where} man.{f}")
+    p, j = _by_feature(pman), _by_feature(jman)
+    pv = j["point_valid"]
+    assert_equal(p["point_valid"], pv, f"{where} man.point_valid")
+    assert_equal(p["feat"][pv], j["feat"][pv], f"{where} man.feat")
+    for f in ("depth", "pos"):
+        assert_close(p[f][pv], j[f][pv], atol, f"{where} man.{f}")
+
+
+def metrics_np(m):
+    """{field: numpy array} of stacked StepMetrics of either package."""
+    return {f.name: np_(getattr(m, f.name)) for f in dataclasses.fields(m)}
+
+
+def rollout_both(scene, steps, **over):
+    """`scene(scenes_module)` built by both packages and stepped `steps`
+    times from the port's auto_config(**over) (the JAX package on the
+    same config, XLA path). Returns (port cfg, port state, port metrics,
+    JAX state, JAX metrics), the metrics as numpy."""
+    from nudge_tpu import engine as jengine
+    from nudge_tpu_torch import engine as pengine
+
+    pb = scene(pscenes)
+    pcfg = pb.auto_config(**over)
+    pst, pm = pengine.simulate(pb.finalize(pcfg, device="cpu"), pcfg, steps)
+    jcfg = jax_cfg(pcfg)
+    jst, jm = jengine.simulate(scene(jscenes).finalize(jcfg), jcfg, steps)
+    return pcfg, pst, metrics_np(pm), jst, metrics_np(jm)
+
+
+def assert_same_trajectory(pst, pm, jst, jm):
+    """A few-body rollout of the port held to the JAX package's: the
+    integer metrics of every step exactly, the final bodies within
+    POS_ATOL."""
+    for f in ("contact_count", "overflow", "manifold_demand", "pair_demand"):
+        assert_equal(pm[f], jm[f], f)
+    for f in ("pos", "quat", "vel", "angvel"):
+        assert_close(getattr(pst.bodies, f), getattr(jst.bodies, f),
+                     POS_ATOL, f)
+
+
 __all__ = ["tree", "to_port_state", "to_jax_state", "jax_cfg", "port_manifolds",
            "jax_manifolds", "pressed_mixed_pile", "assert_equal",
-           "assert_close", "np_"]
+           "assert_close", "np_", "POS_ATOL", "metrics_np", "rollout_both",
+           "assert_same_trajectory", "assert_manifolds_match"]

@@ -1,5 +1,6 @@
 """The port's scenes and broadphases against the JAX package's: the same
-pile must finalize to the same arrays and yield the same candidate pairs."""
+pile must finalize to the same arrays and yield the same candidate pairs;
+and tests/test_grid.py's big ground and connection filter on the port."""
 
 import dataclasses
 
@@ -11,12 +12,15 @@ import torch
 from nudge_tpu import scenes as jscenes
 from nudge_tpu.ops import broadphase as jbp
 from nudge_tpu.ops import grid as jgrid
+from nudge_tpu_torch import engine as pengine
 from nudge_tpu_torch import scenes as pscenes
 from nudge_tpu_torch.ops import broadphase as pbp
 from nudge_tpu_torch.ops import grid as pgrid
 from nudge_tpu_torch.state import state_to_numpy
 
-from _torch_bridge import DROPPED, assert_equal, jax_cfg, to_port_state, tree
+from _torch_bridge import (
+    DROPPED, assert_equal, jax_cfg, np_, to_port_state, tree,
+)
 
 torch.set_num_threads(2)
 
@@ -29,9 +33,28 @@ def _pile(n, spacing, **over):
     return jb, pb, pcfg
 
 
-@pytest.mark.parametrize("n", [64, 300])
+def _scene(name):
+    """The JAX and the port SceneBuilder of one scene: a pile of n bodies
+    (walls, spacing 1.15) or config 2's stack and pyramid, at full size and
+    at the sizes of the reference's tests."""
+    if isinstance(name, int):
+        return (jscenes.scene_pile(name, seed=1, spacing=1.15, walls=True),
+                pscenes.scene_pile(name, seed=1, spacing=1.15, walls=True))
+    fn, kw = {"stack": ("scene_stack", {}),
+              "stack_1x3x1": ("scene_stack", dict(nx=1, ny=3, nz=1)),
+              "stack_2x2x1": ("scene_stack", dict(nx=2, ny=2, nz=1)),
+              "stack_2x2x2": ("scene_stack", dict(nx=2, ny=2, nz=2)),
+              "pyramid": ("scene_pyramid", {}),
+              "pyramid_4": ("scene_pyramid", dict(base=4))}[name]
+    return getattr(jscenes, fn)(**kw), getattr(pscenes, fn)(**kw)
+
+
+@pytest.mark.parametrize("n", [64, 300, "stack", "stack_1x3x1",
+                               "stack_2x2x1", "stack_2x2x2", "pyramid",
+                               "pyramid_4"])
 def test_scene_finalizes_like_reference(n):
-    jb, pb, pcfg = _pile(n, 1.15)
+    jb, pb = _scene(n)
+    pcfg = pb.auto_config()
     jcfg = jb.auto_config()
     for f in dataclasses.fields(jcfg):
         if f.name not in DROPPED:
@@ -108,3 +131,42 @@ def test_compact_mask_matches_reference():
         assert_equal(pi, ji)
         assert_equal(pv, jv)
         assert_equal(pc, jc)
+
+
+def _pair_set(cp):
+    v = np_(cp.valid)
+    return set(zip(np_(cp.a)[v].tolist(), np_(cp.b)[v].tolist()))
+
+
+def test_grid_handles_big_ground():
+    """The ground slab goes through the grid's big-collider channel and
+    still pairs with every box on it, as all-pairs finds (40 steps of the
+    drop; 120 in the reference test: the bottom layer lands by step ~15)."""
+    b = pscenes.scene_pile(64)
+    cfg = b.auto_config(pairs_per_box=16.0)
+    st, _ = pengine.simulate(b.finalize(cfg, device="cpu"), cfg, 40)
+    wc = pbp.world_colliders(st)
+    ap = _pair_set(pbp.allpairs_broadphase(st, wc, cfg)[0])
+    gp = _pair_set(pgrid.grid_broadphase(st, wc, cfg)[0])
+    ground_a = {p for p in ap if 0 in p}
+    ground_g = {p for p in gp if 0 in p}
+    assert ground_a == ground_g
+    assert len(ground_g) >= 16
+
+
+def test_grid_connection_filter():
+    b = pscenes.SceneBuilder()
+    g = b.add_static_box((50, 0.5, 50), (0, -0.5, 0))
+    x = b.add_box((0.5, 0.5, 0.5), (0, 0.3, 0))
+    b.connect(g, x)
+    cfg = b.auto_config(broadphase="grid")
+    st = b.finalize(cfg, device="cpu")
+    bb, _, _ = pgrid.grid_broadphase(st, pbp.world_colliders(st), cfg)
+    assert _pair_set(bb) == set()
+    # and without the connection the pair is there
+    b2 = pscenes.SceneBuilder()
+    b2.add_static_box((50, 0.5, 50), (0, -0.5, 0))
+    b2.add_box((0.5, 0.5, 0.5), (0, 0.3, 0))
+    st2 = b2.finalize(cfg, device="cpu")
+    bb2, _, _ = pgrid.grid_broadphase(st2, pbp.world_colliders(st2), cfg)
+    assert _pair_set(bb2) == {(0, 1)}

@@ -36,16 +36,11 @@ from nudge_tpu_torch.ops import persistent_bp as ppbp
 from nudge_tpu_torch.ops import solver as psolver
 
 from _torch_bridge import (
-    DROPPED, assert_close, assert_equal, jax_cfg, np_, pressed_mixed_pile,
-    to_port_state,
+    DROPPED, POS_ATOL, assert_close, assert_equal, jax_cfg, np_,
+    pressed_mixed_pile, to_port_state,
 )
 
 torch.set_num_threads(2)
-
-# positions after a few steps: every stage agrees to float32 rounding (the
-# reference contracts multiply-adds into FMAs), the solve's 20 sweeps grow
-# that to ~1e-6, and a step integrates it once
-POS_ATOL = 1e-4
 
 
 def test_config_fields_match_reference():

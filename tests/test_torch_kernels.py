@@ -66,18 +66,20 @@ def _stage_inputs(cfg, st):
     return bodies, man, warm, pwarm, col
 
 
-def _box_box_both(st, wc, bb):
-    """Kernel and twin on the same pairs: the twin's fields on every live
-    slot bit for bit, point_valid false on every dead one (the kernel
-    writes nothing else there)."""
-    k = npk.box_box_slots_cuda(st.boxes, wc, bb)
-    p = npk.box_box_slots_plain(st.boxes, wc, bb)
+def _assert_live_equal(k, p, live):
+    """Kernel slots `k` against twin slots `p` of the same pairs: every
+    field of every live slot bit for bit, point_valid false on every dead
+    one (the kernels write nothing else there)."""
     torch.cuda.synchronize()
-    live = bb.valid
     assert not bool(k["point_valid"][~live].any())
-    for key in ("point_valid", "feat", "body_a", "body_b", "pos", "depth",
-                "normal", "friction"):
+    for key in ("ga", "gb", "point_valid", "feat", "body_a", "body_b", "pos",
+                "depth", "normal", "friction"):
         assert torch.equal(k[key][live], p[key][live]), key
+
+
+def _box_box_both(st, wc, bb):
+    p = npk.box_box_slots_plain(st.boxes, wc, bb)
+    _assert_live_equal(npk.box_box_slots_cuda(st.boxes, wc, bb), p, bb.valid)
     return p
 
 
@@ -220,19 +222,61 @@ def test_engine_on_cuda_launches_every_kernel_and_repeats(dev):
                                c.bodies.pos.numpy(), rtol=0, atol=1e-4)
 
 
+def _one_point_both(st, wc, bb, bs, ss, cfg):
+    """The one-point kernel as the step launches it: contacts.narrowphase_all
+    writing its rows after box-box's, against the joined twins. Returns the
+    twins' one-point rows."""
+    p = contacts.narrowphase_joined_plain(st, wc, bb, bs, ss)
+    _assert_live_equal(contacts.narrowphase_all(st, wc, bb, bs, ss, cfg), p,
+                       torch.cat([bb.valid, bs.valid, ss.valid]))
+    return {key: v[bb.a.shape[0]:] for key, v in p.items()}
+
+
+def _few(pairs, n):
+    """The pairs with only the first `n` live ones kept, the tail dead."""
+    keep = pairs.valid & (torch.cumsum(pairs.valid.int(), 0) <= n)
+    zero = torch.zeros_like(pairs.a)
+    return pairs.replace(a=torch.where(keep, pairs.a, zero),
+                         b=torch.where(keep, pairs.b, zero), valid=keep)
+
+
 def test_pairs_1pt_kernel_matches_twin(dev):
     cfg, st = _falling_mixed_pile(400, dev, 40)
     wc = broadphase.world_colliders(st)
-    _, bs, ss = grid.grid_broadphase(st, wc, cfg)
-    k = p1pt.pairs_1pt_slots_cuda(st.boxes, st.spheres, wc, bs, ss)
-    p = p1pt.pairs_1pt_slots_plain(st.boxes, st.spheres, wc, bs, ss)
-    torch.cuda.synchronize()
-    for key in ("point_valid", "feat", "body_a", "body_b", "ga", "gb"):
-        assert torch.equal(k[key], p[key]), key
+    bb, bs, ss = grid.grid_broadphase(st, wc, cfg)
+    p = _one_point_both(st, wc, bb, bs, ss, cfg)
     assert int(bs.valid.sum()) > 20 and int(ss.valid.sum()) > 5
     assert int(p["point_valid"].sum()) > 20
-    for key in ("pos", "depth", "normal", "friction"):
-        _close(k[key], p[key], key)
+
+
+def test_pairs_1pt_kernel_with_few_live_pairs(dev):
+    """A few live pairs of each class in front of a long dead tail: the
+    dead slots read nothing, the live ones match the twin."""
+    cfg, st = _falling_mixed_pile(400, dev, 40)
+    wc = broadphase.world_colliders(st)
+    bb, bs, ss = grid.grid_broadphase(st, wc, cfg)
+    bb, bs, ss = _few(bb, 10), _few(bs, 6), _few(ss, 3)
+    p = _one_point_both(st, wc, bb, bs, ss, cfg)
+    assert int(bs.valid.sum()) == 6 and int(ss.valid.sum()) == 3
+    assert bs.a.shape[0] + ss.a.shape[0] > 1000
+    assert int(p["point_valid"].sum()) > 0
+
+
+def test_narrowphase_all_joins_in_place(dev):
+    """On a mixed pile, narrowphase_all is the box-box and the one-point
+    kernels writing one set of buffers: two kernels and nothing else a
+    call, every live slot's fields equal to the joined twins' (the CPU
+    path's join)."""
+    from nudge_tpu_torch.utils import timing
+
+    cfg, st = _falling_mixed_pile(400, dev, 40)
+    wc = broadphase.world_colliders(st)
+    bb, bs, ss = grid.grid_broadphase(st, wc, cfg)
+    _one_point_both(st, wc, bb, bs, ss, cfg)
+    assert int(bb.valid.sum()) > 100 and int(bs.valid.sum()) > 20
+    ops = timing.device_ops(
+        lambda: contacts.narrowphase_all(st, wc, bb, bs, ss, cfg))
+    assert ops == {"kernel": 2}, ops
 
 
 @pytest.mark.parametrize("max_colors", [24, 4])
@@ -270,6 +314,26 @@ def test_box_box_and_coloring_are_one_launch(dev):
         lambda: npk.box_box_slots_cuda(bx, wc, bb)) == {"kernel": 1}
     assert timing.device_ops(
         lambda: ck.color_rounds_cuda(*args)) == {"kernel": 1}
+
+
+def test_pairs_1pt_is_one_launch(dev):
+    """A call of the one-point narrowphase, both pair classes, into the
+    rows after box-box's of joined buffers as narrowphase_all makes it,
+    enqueues one kernel and nothing else."""
+    from nudge_tpu_torch.utils import timing
+
+    cfg, st = _falling_mixed_pile(400, dev, 10)
+    wc = broadphase.world_colliders(st)
+    bb, bs, ss = grid.grid_broadphase(st, wc, cfg)
+    n_bb = bb.a.shape[0]
+    out = npk.empty_slots(n_bb + bs.a.shape[0] + ss.a.shape[0], dev)
+    rows = {k: v[n_bb:] for k, v in out.items()}
+    n0 = p1pt.pairs_1pt_slots_cuda.launches
+    ops = timing.device_ops(lambda: p1pt.pairs_1pt_slots_cuda(
+        st.boxes, st.spheres, wc, bs, ss, out=rows))
+    assert ops == {"kernel": 1}, ops
+    # the warm call and the capture
+    assert p1pt.pairs_1pt_slots_cuda.launches == n0 + 2
 
 
 def test_device_ms_times_the_device_and_refuses_a_host_wait(dev):
@@ -325,7 +389,7 @@ def test_coloring_kernel_matches_twin_at_scale(dev, case, max_colors):
 
 def test_mixed_pile_fresh_coloring_launches_every_kernel_and_repeats(dev):
     cfg, st0 = _falling_mixed_pile(400, dev, 30, persistent_coloring=False)
-    counters = (npk.box_box_slots, p1pt.pairs_1pt_slots, ck.color_rounds,
+    counters = (npk.box_box_slots, p1pt.pairs_1pt_slots_cuda, ck.color_rounds,
                 setup_kernel.setup, solver_kernel.solve)
     before = [c.launches for c in counters]
     a, ma = engine.simulate(st0, cfg, 5)
@@ -341,7 +405,8 @@ def test_mixed_pile_fresh_coloring_launches_every_kernel_and_repeats(dev):
 
 def _through_twins(monkeypatch):
     """Route every kernel wrapper's CUDA branch to its plain twin."""
-    for mod, name in ((npk, "box_box_slots"), (p1pt, "pairs_1pt_slots"),
+    for mod, name in ((npk, "box_box_slots"),
+                      (contacts, "narrowphase_joined"),
                       (ck, "color_rounds"), (solver_kernel, "solve")):
         monkeypatch.setattr(mod, f"{name}_cuda", getattr(mod, f"{name}_plain"))
     # the twin keeps manifold order: it takes no slot order

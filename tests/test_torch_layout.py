@@ -1,7 +1,7 @@
 """The solve's color-sorted layout: the order against the JAX package's
 color slots, the packed rows' round trip, the per-body sums over the
-shared body-sorted entry lists, the row layout against the CUDA header,
-and the entry points' default device."""
+shared body-sorted entry lists, the row layout and the C entry points
+against the CUDA sources, and the entry points' default device."""
 
 import re
 from pathlib import Path
@@ -216,6 +216,28 @@ def test_row_layout_matches_cuda_header():
     assert consts["kRows"] == off == solver_kernel.ROWS
     assert consts["kWorkRows"] == solver_kernel.WORK_ROWS
     assert consts["kWorkScratch"] == 16 and consts["kWorkAccP"] == 12
+
+
+def test_c_entry_points_match_their_ctypes_signatures():
+    """Every `extern "C"` function of csrc/ takes the arguments that
+    _build's ctypes signature passes: pointers (and the stream) as void*,
+    counts as int, constants as float, in the same order and number. A
+    mismatch would only show on the card."""
+    import ctypes
+
+    from nudge_tpu_torch import _build
+
+    kinds = {ctypes.c_void_p: "p", ctypes.c_int: "i", ctypes.c_float: "f"}
+    found = {}
+    for src in sorted(HEADER.parent.glob("*.cu")):
+        text = re.sub(r"//[^\n]*", "", src.read_text())
+        for name, args in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
+                                     text):
+            found[name] = "".join(
+                "p" if "*" in a else a.split()[-2][0]
+                for a in args.split(",") if a.strip())
+    assert found == {k: "".join(kinds[t] for t in v)
+                     for k, v in _build._SIGNATURES.items()}
 
 
 def _single_box():

@@ -1,7 +1,10 @@
-"""What the box-box kernel's live-pairs-only design rests on, on the CPU.
+"""What the narrowphase kernels' live-pairs-only design rests on, on the
+CPU.
 
-The kernel (csrc/narrowphase.cu) writes only `point_valid` for a dead pair
-slot and leaves its other fields as `torch.empty` made them, so:
+The box-box kernel (csrc/narrowphase.cu) and the one-point kernel
+(csrc/narrowphase_1pt.cu) write only `point_valid` for a dead pair slot;
+the other fields, the collider ids too, stay as `torch.empty` made them,
+so:
   - `contacts.compact_manifolds` must read nothing of a slot without a
     valid point but `point_valid`, in both of its branches, and give what
     the JAX package's compaction gives on the clean slots;
@@ -46,7 +49,7 @@ def _garbage(slots, seed):
         x = slots[k].clone()
         x[dead] = float("nan")
         out[k] = x
-    for k in ("feat", "body_a", "body_b"):
+    for k in ("feat", "body_a", "body_b", "ga", "gb"):
         x = slots[k].clone()
         x[dead] = torch.from_numpy(rng.integers(
             -2 ** 31, 2 ** 31 - 1, size=tuple(x[dead].shape), dtype=np.int32))
@@ -79,6 +82,28 @@ def test_compact_manifolds_reads_only_point_valid_of_dead_slots(cap):
         assert_equal(a, getattr(ref, f.name), f.name)
     assert bool(clean.overflow) == (cap == "drops")
     assert int(clean.valid.sum()) == min(live, m)
+
+
+def test_one_point_rows_keep_their_ids_and_dead_slots():
+    """The joined slots of a mixed pile on the CPU, the one-point rows
+    after box-box's: every row's ids by the kernels' rule (box i is i,
+    sphere j is nb + j, read from the pair lists; the kernels write them
+    on live rows), and the dead one-point slots without a valid point;
+    `_garbage` then garbles all a dead slot holds besides, its ids too
+    (the test above)."""
+    pcfg, _, _, pst = pressed_mixed_pile(120)
+    wc = pbp.world_colliders(pst)
+    bb, bs, ss = pgrid.grid_broadphase(pst, wc, pcfg)
+    slots = pcontacts.narrowphase_all(pst, wc, bb, bs, ss, pcfg)
+    nb = pst.boxes.half.shape[0]
+    ga = torch.cat([bb.a, bs.a, nb + ss.a])
+    gb = torch.cat([bb.b, nb + bs.b, nb + ss.b])
+    assert torch.equal(slots["ga"], ga) and torch.equal(slots["gb"], gb)
+    live = torch.cat([bs.valid, ss.valid])
+    one = slots["point_valid"][bb.a.shape[0]:]
+    assert not bool(one[~live].any())
+    assert not bool(one[:, 1:].any())
+    assert int((~live).sum()) > 50 and bool(one[live, 0].any())
 
 
 def _assert_prefix(pairs, what):

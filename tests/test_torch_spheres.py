@@ -25,8 +25,8 @@ from nudge_tpu_torch.ops import narrowphase as pnps
 from nudge_tpu_torch.ops import narrowphase_1pt as p1pt
 
 from _torch_bridge import (
-    assert_close, assert_equal, jax_cfg, np_, pressed_mixed_pile,
-    to_port_state,
+    POS_ATOL, assert_close, assert_equal, assert_manifolds_match, jax_cfg,
+    np_, pressed_mixed_pile, to_port_state,
 )
 
 torch.set_num_threads(2)
@@ -35,9 +35,6 @@ torch.set_num_threads(2)
 # program contracts multiply-adds into FMAs and sums its dot products in
 # its own order, so the two agree to a few ulps.
 TWIN_ATOL = 1e-5
-# positions after a few steps (as in test_torch_engine.py): the solve's 20
-# sweeps grow ulp-level differences to ~1e-6, a step integrates them once
-POS_ATOL = 1e-4
 IDQ = [0.0, 0.0, 0.0, 1.0]
 
 
@@ -168,9 +165,10 @@ def test_grid_matches_allpairs_and_reference_with_spheres(which, request):
 
 @pytest.mark.parametrize("solver", ["xla", "pallas_interpret"])
 def test_pairs_1pt_matches_reference(mixed20, solver):
-    """The plain one-point wrapper against the JAX narrowphase on the same
-    candidates: its vmapped twins, and its Pallas kernel in interpret
-    mode (after tests/test_sphere_kernel.py)."""
+    """The port's narrowphase on the CPU (the one-point twin's rows after
+    box-box's) against the JAX narrowphase on the same candidates: its
+    vmapped twins, and its Pallas kernel in interpret mode (after
+    tests/test_sphere_kernel.py)."""
     pcfg, jcfg, jst, pst = mixed20
     jwc = jax.jit(jbp.world_colliders)(jst)
     bb, bs, ss = jax.jit(lambda s, w: jbp.allpairs_broadphase(s, w, jcfg))(
@@ -179,11 +177,13 @@ def test_pairs_1pt_matches_reference(mixed20, solver):
     jslots = jax.jit(lambda: jcontacts.narrowphase_all(
         jst, jwc, bb, bs, ss, jcfg.replace(solver=solver)))()
     pwc = pbp.world_colliders(pst)
-    _, pbs, pss = pbp.allpairs_broadphase(pst, pwc, pcfg)
-    n0 = p1pt.pairs_1pt_slots.launches
-    pslots = p1pt.pairs_1pt_slots(pst.boxes, pst.spheres, pwc, pbs, pss)
-    assert p1pt.pairs_1pt_slots.launches == n0      # the twin ran on CPU
+    pbb, pbs, pss = pbp.allpairs_broadphase(pst, pwc, pcfg)
+    n0 = p1pt.pairs_1pt_slots_cuda.launches
+    pslots = pcontacts.narrowphase_all(pst, pwc, pbb, pbs, pss, pcfg)
+    assert p1pt.pairs_1pt_slots_cuda.launches == n0    # the twin ran on CPU
     nbb = bb.a.shape[0]
+    assert pbb.a.shape[0] == nbb
+    pslots = {k: v[nbb:] for k, v in pslots.items()}
     live = np.asarray(jslots["point_valid"])[nbb:].any(-1)
     assert_equal(np_(pslots["point_valid"]).any(-1), live, "live")
     assert live.sum() > 5
@@ -198,38 +198,6 @@ def test_pairs_1pt_matches_reference(mixed20, solver):
             assert_equal(p, j, k)
 
 
-def _by_feature(man):
-    """Each manifold's points in feature-id order (invalid points last)."""
-    pv = np_(man.point_valid)
-    key = np.where(pv, np_(man.feat), np.iinfo(np.int32).max)
-    order = np.argsort(key, axis=1, kind="stable")
-
-    def take(x):
-        x = np_(x)
-        idx = order.reshape(order.shape + (1,) * (x.ndim - 2))
-        return np.take_along_axis(x, idx, axis=1)
-
-    return {f: take(getattr(man, f))
-            for f in ("point_valid", "feat", "depth", "pos")}
-
-
-def _assert_manifolds(pman, jman, where):
-    """Manifold slots equal slot for slot. Inside a manifold the points are
-    matched by feature id: the reference's XLA program contracts
-    multiply-adds into FMAs, so where the 4-point box-box reduction meets
-    an exact tie the two may store the tied points in swapped slots
-    (ROADMAP Queue 3); floats within TWIN_ATOL."""
-    for f in ("body_a", "body_b", "ga", "gb", "valid", "count", "overflow",
-              "overflow_bits", "pair_demand"):
-        assert_equal(getattr(pman, f), getattr(jman, f), f"{where} man.{f}")
-    p, j = _by_feature(pman), _by_feature(jman)
-    pv = j["point_valid"]
-    assert_equal(p["point_valid"], pv, f"{where} man.point_valid")
-    assert_equal(p["feat"][pv], j["feat"][pv], f"{where} man.feat")
-    for f in ("depth", "pos"):
-        assert_close(p[f][pv], j[f][pv], TWIN_ATOL, f"{where} man.{f}")
-
-
 @pytest.mark.parametrize("persistent_coloring", [True, False])
 def test_mixed_pile_steps_match_reference(persistent_coloring):
     """The slice: a pressed mixed pile stepped in both packages, the
@@ -242,7 +210,7 @@ def test_mixed_pile_steps_match_reference(persistent_coloring):
     for k in range(4):
         jman = jcollide(jst)
         pman, _ = pcontacts.collide(pst, pcfg)
-        _assert_manifolds(pman, jman, f"step {k}")
+        assert_manifolds_match(pman, jman, f"step {k}")
         nb = pcfg.max_boxes
         ga, gb = np.asarray(jman.ga), np.asarray(jman.gb)
         v = np.asarray(jman.valid)
