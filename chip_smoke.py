@@ -78,11 +78,38 @@ no result):
      the end every box of the stack within 0.15 of its start height and
      0.35 in x and z, the pyramid's top box within 0.1 and 0.15; steps/s,
      the broadphase auto_config chose, drift and launches; then each
-     scene's final state under the profiler as in phase 14.
+     scene's final state under the profiler as in phase 14;
+ 16. config 5 at full width: 4,096 scenes x 512 bodies as 128 flattened
+     mega-scene chunks of 32 scenes (scenes.scene_pile_megachunks,
+     pile_config's capacities) for 30 steps through
+     parallel.mesh.megabatch_simulate in windows of 5, each window held to
+     no overflow, a finite state, max depth < 0.5, no cross-scene
+     manifold, box-box, setup and the solve launched once a chunk-step and
+     the one-point and coloring kernels not at all, chunks 0 and 127
+     bitwise equal to themselves stepped alone, chunks 0 and 1 apart;
+     build seconds, steps/s, body-steps/s and peak memory; at chunk 0 of
+     the last step box-box, setup and the solve against their twins as in
+     phase 3, the cached coloring's time and the joins it ran, and one
+     chunk-step under the profiler. Then the same 4,096 scenes as 16
+     chunks of 256 (131,073 bodies a chunk, the grid table sized at the
+     grid's cell: config5_config) for 30 steps with the same gates, the
+     kernels' device times instead of the twins;
+ 17. the stacked batch, the API and the environments: scene_pile_stacked(
+     8, 512) for 10 steps through batched_simulate (batched_step_chunked
+     bitwise equal to batched_step, scene 3 to itself alone); the
+     nudge-parity API's step on config 3 after 30 steps against
+     engine.step (persistent_coloring=False, as the API colors; positions
+     and velocities within 1e-6, cache ids exact, one launch of each
+     kernel); 16 BoxPushEnvs for 20 vec_steps of a damped push toward
+     their goals, every reward up by more than 0.5.
 
-Phases 5-7, 9-13 and 15 each zero the kernels' launch counts before they run
-and read them after, and run with the plain twins replaced by functions
-that raise: the main paths go through the kernels only.
+Phases 5-7, 9-13, 15, 16 and 17 each zero the kernels' launch counts before
+they run and read them after, and run with the plain twins replaced by
+functions that raise: the main paths go through the kernels only. The
+record line gives each kernel's launches on the earlier slices' paths
+(`launches`), on each path of phases 16-17 (`launches_by_path`) and its
+comparison at config 5's chunk (`config5_chunk`). Nothing is cut: every
+phase runs at the size its docstring gives (8-10 minutes on an H100).
 
 The last line of standard output is one JSON object
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
@@ -154,6 +181,24 @@ STACK_DY = 0.15
 STACK_DXZ = 0.35
 PYRAMID_TOP_DY = 0.1
 PYRAMID_TOP_DXZ = 0.15
+
+# BASELINE config 5 (BASELINE.md:28): 4,096 scenes x 512 bodies in
+# flattened mega-scene chunks (scene_pile_megachunks) at pile_config's
+# capacities, sleeping and the persistent broadphase off, as the reference
+# measured it (r5_config5_megachunk, bench.py bench_megachunks): 128 chunks
+# of 32 scenes (16,385 bodies, 131,080 pair slots, 49,155 manifold slots a
+# chunk) for 30 impact steps, then the same 4,096 scenes as 16 chunks of
+# 256 (131,073 bodies a chunk) for 30. Not cut.
+C5_SCENES = 4096
+C5_BODIES = 512
+C5_LAYOUTS = ((32, 30), (256, 30))   # (scenes a chunk, steps)
+C5_WINDOW = 5              # steps a window; chunks re-run alone per window
+C5_SEED = 0
+# phase 17: the stacked batch, the API pipeline, the environments
+STACKED_SCENES, STACKED_STEPS, STACKED_PROBE = 8, 10, 3
+API_SETTLE = 30
+N_ENVS, ENV_STEPS = 16, 20
+ENV_GAIN = 0.5             # tests/test_envs.py's reward improvement
 
 # The least time the card could take for a kernel's work (bound_ms): bytes
 # each input read once and each output written once, over HBM's 3.35 TB/s,
@@ -311,6 +356,37 @@ def pile_config(builder, n):
         max_box_box_pairs=max(1024, int(n * 8.0)),
         max_manifolds=max(512, int(n * 3.0)), grid_density=16,
         fat_pair_factor=2, sleeping=False, persistent_broadphase=False)
+
+
+def config5_config(proto):
+    """pile_config's capacities for one config-5 chunk, the grid table sized
+    to the chunk's footprint at the grid's own cell: twice the largest AABB
+    half-extent of a dynamic box at spawn, margin included (ops/grid.py).
+    auto_config sizes the table from a half-diagonal estimate of the cell
+    (1.73 m for these boxes; the grid's is 1.23 m; ROADMAP Queue 3,
+    ADVICE r5), kept bit for bit with the JAX package's: at 256 scenes a
+    chunk its 216 x 216 cells cover 266 m of the 310 m footprint, and the
+    40,960 colliders clamped into the border cells overflow the grid's
+    density from the first step. The larger of the two tables is taken."""
+    import numpy as np
+
+    cfg = pile_config(proto, proto.num_bodies)
+    q = np.asarray(proto.quat, np.float64)[np.asarray(proto.box_body)]
+    x, y, z, w = q.T
+    rot = np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w),
+                    2 * (x * z + y * w), 2 * (x * y + z * w),
+                    1 - 2 * (x * x + z * z), 2 * (y * z - x * w),
+                    2 * (x * z - y * w), 2 * (y * z + x * w),
+                    1 - 2 * (x * x + y * y)], -1).reshape(-1, 3, 3)
+    half = np.asarray(proto.box_half, np.float64)
+    ext = np.max(np.einsum("bij,bj->bi", np.abs(rot), half), -1) \
+        + cfg.aabb_margin
+    cell = 2 * np.max(ext[ext <= 2 * np.median(ext)])
+    pos = np.asarray(proto.pos, np.float64)
+    need = np.ceil((pos.max(0) - pos.min(0)) / cell * 1.15) + 4
+    dims = tuple(min(1024, max(d, -(-int(n) // 8) * 8))
+                 for d, n in zip(cfg.grid_table_dims, need))
+    return cfg.replace(grid_table_dims=dims)
 
 
 def reference_config(builder, n):
@@ -580,6 +656,7 @@ def compare_box_box(card, label, bx, wc, bb):
     out_bytes = sum(v[0].numel() * v.element_size() for v in k.values())
     wc_bytes = sum(t.numel() * t.element_size() for t in wc)
     rec = dict(max_abs_err=diff.err, ms=ms, plain_ms=plain_ms,
+               device_ms=dev_ms,
                **bound(wc_bytes + n_slots * (1 + 4)
                        + n_live * (8 + out_bytes - 4),
                        (n_live - n_edge) * BOXBOX_OPS_FACE
@@ -629,32 +706,32 @@ def compare_coloring(card, man, dyn, max_colors):
     return ms, plain_ms, dev_ms
 
 
-def phase_compare(card, dev):
-    import torch
+def step_inputs(st, cfg):
+    """What a step from `st` hands setup and the solve (every body awake):
+    (bodies after gravity, manifolds, warm starts, pseudo warm starts, the
+    cached coloring, the solve's order)."""
+    from nudge_tpu_torch.ops import cache, contacts, integrate, solver
+    from nudge_tpu_torch.ops import solver_kernel
 
-    from nudge_tpu_torch import engine, scenes
-    from nudge_tpu_torch.ops import cache, contacts, integrate, setup_kernel
-    from nudge_tpu_torch.ops import solver, solver_kernel
-    from nudge_tpu_torch.utils import timing
-
-    b = scenes.scene_pile(N_PILE)
-    cfg = pile_config(b, N_PILE)
-    st, _ = engine.simulate(b.finalize(cfg, device=dev), cfg, COMPARE_AFTER)
-    torch.cuda.synchronize()
-    records = {}
-
-    # --- narrowphase at the step's candidate pairs (the grid's) ---
-    records["box_box"] = compare_box_box(card, f"awake pile, step "
-                                         f"{COMPARE_AFTER}",
-                                         *box_box_inputs(st, cfg))
-
-    # --- setup at the step's manifolds, over the live slots of the solve's
-    # order, compared in manifold order after unpacking ---
     bodies = integrate.apply_gravity(st.bodies, st.sleep, cfg)
     man, _ = contacts.collide(st, cfg)
     warm, pwarm = cache.read_cached_impulses(st.cache, man, cfg)
     col, _ = solver.color_manifolds_cached(man, bodies, cfg, st.colors)
     order = solver_kernel.color_order(man, bodies, col, cfg)
+    return bodies, man, warm, pwarm, col, order
+
+
+def compare_setup_solve(card, label, inputs, cfg):
+    """Setup over the live slots of the solve's order against its twin,
+    compared in manifold order after unpacking; then the solve from the
+    twin's setup packed into the kernel's layout, so both sides start from
+    the same bits (compare_solve). Returns the setup and solve records."""
+    import torch
+
+    from nudge_tpu_torch.ops import setup_kernel, solver_kernel
+    from nudge_tpu_torch.utils import timing
+
+    bodies, man, warm, pwarm, col, order = inputs
     live = man.valid
     n_live = int(live.sum())
     kcon, kvelw, kwork = setup_kernel.setup_cuda(bodies, man, warm, cfg, col,
@@ -682,6 +759,7 @@ def phase_compare(card, dev):
     order_ms = timed(lambda: solver_kernel.color_order(man, bodies, col, cfg))
     plain_ms = timed(lambda: setup_kernel.setup_plain(bodies, man, warm, cfg,
                                                       col, pwarm))
+
     def setup_call():
         return setup_kernel.setup_cuda(bodies, man, warm, cfg, col, pwarm,
                                        order)
@@ -689,29 +767,54 @@ def phase_compare(card, dev):
     dev_ms = timing.device_ms(setup_call, DEVICE_REPS)
     setup_ops = timing.device_ops(setup_call)
     n_bodies = bodies.pos.shape[0]
-    records["setup"] = dict(
-        max_abs_err=diff.err, ms=ms, plain_ms=plain_ms,
+    records = {"setup": dict(
+        max_abs_err=diff.err, ms=ms, plain_ms=plain_ms, device_ms=dev_ms,
         **bound(n_live * SETUP_BYTES_PER_MANIFOLD
                 + n_bodies * SETUP_BYTES_PER_BODY,
-                n_live * SETUP_OPS_PER_MANIFOLD))
-    log(card, f"setup: {man.valid.shape[0]} manifold slots, {n_live} live, "
-        f"{int(col[1])} colors, {int(col[3])} spilled; {diff}; "
+                n_live * SETUP_OPS_PER_MANIFOLD))}
+    log(card, f"setup ({label}): {man.valid.shape[0]} manifold slots, "
+        f"{n_live} live, {int(col[1])} colors, {int(col[3])} spilled; {diff}; "
         f"kernel {ms:.3f} ms (device {dev_ms:.4f} ms, a call enqueues "
         f"{fmt_ops(setup_ops)}), color order "
         f"{order_ms:.3f} ms, twin {plain_ms:.3f} ms")
 
-    # --- the solve, from the twin's setup packed into the kernel's layout,
-    # so both sides start from the same bits ---
     packed, work = setup_kernel.pack_constraints(tcon, tacc, order)
     diff, ms, dev = compare_solve("solve", packed, work, tvelw, tcon, tacc,
                                   cfg, bitwise=int(col[3]) == 0)
     plain_ms = timed(lambda: solver_kernel.solve_plain(tvelw, tcon, tacc, cfg),
                      2, 1)
-    log(card, f"solve: {cfg.solver_iters} sweeps x {int(col[1])} colors in "
-        f"one launch of a {solver_kernel.solve_cluster_size()}-CTA cluster; "
-        f"{diff}; one kernel a call; kernel {ms:.3f} ms (device "
-        f"{dev:.4f} ms), twin "
-        f"{plain_ms:.3f} ms")
+    log(card, f"solve ({label}): {cfg.solver_iters} sweeps x {int(col[1])} "
+        f"colors in one launch of a {solver_kernel.solve_cluster_size()}-CTA "
+        f"cluster; {diff}; one kernel a call; kernel {ms:.3f} ms (device "
+        f"{dev:.4f} ms), twin {plain_ms:.3f} ms")
+    records["solve"] = dict(
+        max_abs_err=diff.err, ms=ms, plain_ms=plain_ms, device_ms=dev,
+        **bound(n_live * SOLVE_BYTES_PER_MANIFOLD
+                + n_bodies * 2 * 48 + man.valid.shape[0] * 64,
+                n_live * cfg.solver_iters * SOLVE_OPS_PER_MANIFOLD))
+    return records
+
+
+def phase_compare(card, dev):
+    import torch
+
+    from nudge_tpu_torch import engine, scenes
+    from nudge_tpu_torch.ops import setup_kernel, solver, solver_kernel
+
+    b = scenes.scene_pile(N_PILE)
+    cfg = pile_config(b, N_PILE)
+    st, _ = engine.simulate(b.finalize(cfg, device=dev), cfg, COMPARE_AFTER)
+    torch.cuda.synchronize()
+    label = f"awake pile, step {COMPARE_AFTER}"
+
+    # --- narrowphase at the step's candidate pairs (the grid's) ---
+    records = {"box_box": compare_box_box(card, label,
+                                          *box_box_inputs(st, cfg))}
+    # --- setup and the solve at the step's manifolds ---
+    inputs = step_inputs(st, cfg)
+    records.update(compare_setup_solve(card, label, inputs, cfg))
+    bodies, man, warm, pwarm, _, _ = inputs
+    n_live = int(man.valid.sum())
 
     # --- the spill color's Jacobi path: the same step colored with only
     # SPILL_COLORS colors, so most manifolds spill ---
@@ -726,11 +829,8 @@ def phase_compare(card, dev):
     log(card, f"solve with {SPILL_COLORS} colors: {int(scol[3])} of "
         f"{n_live} manifolds spilled; {sdiff}; kernel {sms:.3f} ms (device "
         f"{sdev:.4f} ms)")
-    records["solve"] = dict(
-        max_abs_err=max(diff.err, sdiff.err), ms=ms, plain_ms=plain_ms,
-        **bound(n_live * SOLVE_BYTES_PER_MANIFOLD
-                + n_bodies * 2 * 48 + man.valid.shape[0] * 64,
-                n_live * cfg.solver_iters * SOLVE_OPS_PER_MANIFOLD))
+    records["solve"]["max_abs_err"] = max(records["solve"]["max_abs_err"],
+                                          sdiff.err)
 
     # --- the coloring rounds at the step's manifolds, bit for bit ---
     dyn = bodies.inv_mass > 0.0
@@ -1189,14 +1289,11 @@ def next_step_conflicts(st, cfg):
 
 
 def clone_state(st):
-    import dataclasses
+    import torch
 
-    groups = ("bodies", "boxes", "spheres", "cache", "sleep", "bp", "colors")
-    return st.replace(
-        connections=st.connections.clone(), step_count=st.step_count.clone(),
-        **{g: dataclasses.replace(getattr(st, g), **{
-            f.name: getattr(getattr(st, g), f.name).clone()
-            for f in dataclasses.fields(getattr(st, g))}) for g in groups})
+    from nudge_tpu_torch.state import tree_map
+
+    return tree_map(torch.clone, st)
 
 
 def repeat_from(card, label, st, cfg):
@@ -1328,8 +1425,8 @@ def phase_reference_mixed(card, dev):
     return run.launches
 
 
-def profile_steps(card, label, st, cfg):
-    """torch.profiler over PROFILE_STEPS unsynchronised steps from a copy of
+def profile_steps(card, label, st, cfg, steps=PROFILE_STEPS):
+    """torch.profiler over `steps` unsynchronised steps from a copy of
     `st` (after one step outside it): device events a step, the device's
     busy share of the host-clock window, and the device time a step of the
     solve, of setup and of the box-box narrowphase, with their launches.
@@ -1355,7 +1452,7 @@ def profile_steps(card, label, st, cfg):
                              ProfilerActivity.CUDA]) as prof:
         time.sleep(PROFILE_LEAD_S)
         t0 = time.perf_counter()
-        s, m = engine.simulate(s, cfg, PROFILE_STEPS)
+        s, m = engine.simulate(s, cfg, steps)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     launched = sum((fn.launches - before[k]) * len(ours[k])
@@ -1374,7 +1471,7 @@ def profile_steps(card, label, st, cfg):
     setup = [kernels.get(k, (0, 0.0)) for k in ("setup_kernel",
                                                 "warm_apply_kernel")]
     box = kernels.get("box_box_kernel", (0, 0.0))
-    per = PROFILE_STEPS
+    per = steps
     log(card, f"profile {label}: {per} steps, {wall_ms / per:.2f} ms a step "
         f"under the profiler, {len(ev) / per:.1f} device events a step, "
         f"device busy {100 * busy_ms / wall_ms:.1f}% ({busy_ms / per:.3f} ms "
@@ -1460,6 +1557,367 @@ def phase_config2(card, dev):
     return launches
 
 
+def leaves(tree):
+    from nudge_tpu_torch.state import tree_map
+
+    flat = []
+    tree_map(flat.append, tree)
+    return flat
+
+
+def same_state(a, b):
+    """True iff every leaf of two states is bitwise equal."""
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
+
+
+class Config5Watch:
+    """While active, each step that parallel.mesh runs adds to device
+    totals, read once on exit: its overflow bits, its max depth, and the
+    cross-scene manifolds of its contacts (both bodies dynamic and in
+    different scenes; scene i holds bodies [1 + i*k, 1 + (i+1)*k))."""
+
+    def __init__(self, k):
+        self.k = k
+        self.cross = self.over = self.depth = None
+        self.saved = []
+
+    def __enter__(self):
+        import torch
+
+        from nudge_tpu_torch import engine
+        from nudge_tpu_torch.parallel import mesh
+
+        real_collide, real_step = engine.collide, mesh.step
+
+        def collide(state, cfg, rebuild=None):
+            man, bp = real_collide(state, cfg, rebuild=rebuild)
+            a, b = man.body_a.long(), man.body_b.long()
+            scene_a = torch.div(a - 1, self.k, rounding_mode="floor")
+            scene_b = torch.div(b - 1, self.k, rounding_mode="floor")
+            n = torch.sum(man.valid & (a > 0) & (b > 0) & (scene_a != scene_b))
+            self.cross = n if self.cross is None else self.cross + n
+            return man, bp
+
+        def step(state, cfg):
+            state, m = real_step(state, cfg)
+            if self.over is None:
+                self.over, self.depth = m.overflow_bits, m.max_depth
+            else:
+                self.over = self.over | m.overflow_bits
+                self.depth = torch.maximum(self.depth, m.max_depth)
+            return state, m
+
+        self.saved = [(engine, "collide", real_collide),
+                      (mesh, "step", real_step)]
+        engine.collide, mesh.step = collide, step
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        if self.cross is not None:
+            self.cross, self.over, self.depth = (
+                int(self.cross), int(self.over), float(self.depth))
+        return False
+
+
+def cached_coloring(st, cfg, inputs):
+    """(ms a call, the joins it ran) of the cached coloring at a step from
+    `st`: CUDA events around the call, its per-round host reads
+    included."""
+    from nudge_tpu_torch.ops import cache, solver
+
+    bodies, man = inputs[0], inputs[1]
+    ran = []
+    real = {"_join": cache._join, "join_i32": cache.join_i32}
+
+    def counted(name, what):
+        def fn(*a, **k):
+            ran.append(what)
+            return real[name](*a, **k)
+        return fn
+
+    cache._join = counted("_join", "4-key")
+    cache.join_i32 = counted("join_i32", "packed")
+    try:
+        solver.color_manifolds_cached(man, bodies, cfg, st.colors)
+    finally:
+        cache._join, cache.join_i32 = real["_join"], real["join_i32"]
+    ms = timed(lambda: solver.color_manifolds_cached(man, bodies, cfg,
+                                                     st.colors), 3, 1)
+    return ms, ran
+
+
+def device_times(card, label, st, cfg, inputs):
+    """The device time of one call of box-box, setup and the solve at a
+    step from `st`, as the step calls them."""
+    from nudge_tpu_torch.ops import narrowphase_kernel as npk
+    from nudge_tpu_torch.ops import setup_kernel, solver_kernel
+    from nudge_tpu_torch.utils import timing
+
+    bx, wc, bb = box_box_inputs(st, cfg)
+    bodies, man, warm, pwarm, col, order = inputs
+    out = {"box_box": timing.device_ms(
+        lambda: npk.box_box_slots_cuda(bx, wc, bb), DEVICE_REPS)}
+    out["setup"] = timing.device_ms(lambda: setup_kernel.setup_cuda(
+        bodies, man, warm, cfg, col, pwarm, order), DEVICE_REPS)
+    con, velw, work = setup_kernel.setup_cuda(bodies, man, warm, cfg, col,
+                                              pwarm, order)
+    out["solve"] = timing.device_ms(
+        lambda: solver_kernel.solve_cuda(velw, con, work, cfg), DEVICE_REPS)
+    log(card, f"device time ({label}): {int(bb.valid.sum())} of "
+        f"{bb.valid.shape[0]} pair slots live, {int(man.valid.sum())} of "
+        f"{man.valid.shape[0]} manifolds live, {int(col[1])} colors, "
+        f"{int(col[3])} spilled; box-box {out['box_box']:.4f} ms, setup "
+        f"{out['setup']:.4f} ms, solve {out['solve']:.4f} ms")
+    return out
+
+
+def config5_layout(card, dev, spc, steps, twins):
+    """4,096 scenes as chunks of `spc` scenes, `steps` steps through
+    parallel.mesh.megabatch_simulate in windows of C5_WINDOW, each window
+    held to no overflow, a finite state, max depth < 0.5, no cross-scene
+    manifold, box-box, setup and the solve launched once a chunk-step and
+    the one-point and coloring kernels not at all, the first and last
+    chunks bitwise equal to the same chunks stepped alone, chunks 0 and 1
+    apart. Then at chunk 0 of the last step: the kernels against their
+    twins (`twins`) or their device times, the cached coloring's time and
+    joins, and one chunk-step under the profiler. Returns (launches, kernel
+    records or device times)."""
+    import torch
+
+    from nudge_tpu_torch import engine, scenes
+    from nudge_tpu_torch.parallel import mesh
+    from nudge_tpu_torch.utils.debug import finite_state
+
+    n_chunks = C5_SCENES // spc
+    label = f"config 5 ({n_chunks} x {spc} x {C5_BODIES})"
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    proto = scenes.scene_pile_batch(spc, C5_BODIES, seed=C5_SEED)
+    cfg = config5_config(proto)
+    batch, _ = scenes.scene_pile_megachunks(n_chunks, spc, C5_BODIES, cfg=cfg,
+                                            seed=C5_SEED, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    stack_gb = sum(x.numel() * x.element_size() for x in leaves(batch)) / 1e9
+    log(card, f"{label}: built in {build_s:.2f} s (two numpy scene "
+        f"loops, one template upload, the stack on the card): "
+        f"{proto.num_bodies} bodies, {cfg.max_box_box_pairs} pair slots, "
+        f"{cfg.max_manifolds} manifold slots, grid {cfg.grid_table_dims} a "
+        f"chunk; stack {stack_gb:.3f} GB")
+    last = n_chunks - 1
+    t_all, launches = 0.0, {}
+    for w0 in range(0, steps, C5_WINDOW):
+        w1 = w0 + C5_WINDOW
+        alone = {c: clone_state(mesh.take(batch, c)) for c in (0, last)}
+        with KernelsOnly() as run, Config5Watch(C5_BODIES) as watch:
+            t0 = time.perf_counter()
+            batch, m = mesh.megabatch_simulate(cfg, C5_WINDOW)(batch)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        t_all += dt
+        for k, v in run.launches.items():
+            launches[k] = launches.get(k, 0) + v
+        want = n_chunks * C5_WINDOW
+        if any(run.launches[k] != want for k in ("box_box", "setup", "solve")) \
+                or run.launches["pairs_1pt"] or run.launches["coloring"]:
+            raise AssertionError(f"{label}: launches {run.launches} in steps "
+                                 f"{w0}..{w1}, not {want} of box-box, setup "
+                                 "and the solve and none of the others")
+        if watch.over:
+            raise AssertionError(f"{label}: overflow in steps {w0}..{w1}: "
+                                 f"bits {watch.over}")
+        if not finite_state(batch):
+            raise AssertionError(f"{label}: non-finite state after step {w1}")
+        if watch.depth >= 0.5:
+            raise AssertionError(f"{label}: max depth {watch.depth} >= 0.5 in "
+                                 f"steps {w0}..{w1}")
+        if watch.cross:
+            raise AssertionError(f"{label}: {watch.cross} cross-scene "
+                                 f"manifolds in steps {w0}..{w1}")
+        for c, st in alone.items():
+            st, _ = engine.simulate(st, cfg, C5_WINDOW)
+            if not same_state(mesh.take(batch, c), st):
+                raise AssertionError(f"{label}: chunk {c} in the stack differs "
+                                     f"from chunk {c} stepped alone in steps "
+                                     f"{w0}..{w1}")
+        if torch.equal(batch.bodies.pos[0], batch.bodies.pos[1]):
+            raise AssertionError(f"{label}: chunks 0 and 1 are equal")
+        log(card, f"{label} steps {w0}-{w1}: {C5_WINDOW / dt:.3f} steps/s "
+            f"({dt * 1e3 / (C5_WINDOW * n_chunks):.2f} ms a chunk-step), "
+            f"contacts {int(m.contact_count.sum())}, manifolds "
+            f"{int(m.manifold_demand.sum())} (largest chunk "
+            f"{int(m.manifold_demand.max())}), pairs "
+            f"{int(m.pair_demand.sum())}, max depth {watch.depth:.4f}, KE "
+            f"{float(m.kinetic_energy.sum()):.6g}, spill "
+            f"{int(m.spill_count.max())}; 0 cross-scene manifolds; chunks 0 "
+            f"and {last} bitwise equal to themselves stepped alone")
+    rate = steps / t_all
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(card, f"{label}: {steps} steps in {t_all:.2f} s: {rate:.4f} steps/s, "
+        f"{rate * C5_SCENES * C5_BODIES:.1f} body-steps/s; peak memory "
+        f"{peak_gb:.3f} GB; launches {launches}")
+    st0 = mesh.take(batch, 0)
+    where = f"{label} chunk 0, step {steps}"
+    inputs = step_inputs(st0, cfg)
+    if twins:
+        records = {"box_box": compare_box_box(card, where,
+                                              *box_box_inputs(st0, cfg))}
+        records.update(compare_setup_solve(card, where, inputs, cfg))
+        times = {k: r["device_ms"] for k, r in records.items()}
+    else:
+        records = times = device_times(card, where, st0, cfg, inputs)
+    col_ms, joins = cached_coloring(st0, cfg, inputs)
+    log(card, f"{where}: cached coloring {col_ms:.3f} ms a call (host reads "
+        f"included), joins {joins}; solve device "
+        f"{times['solve']:.4f} ms")
+    profile_steps(card, where, st0, cfg, steps=1)
+    return launches, records
+
+
+def phase_config5(card, dev):
+    """Config 5 at full width in both layouts (config5_layout); the
+    kernels against their twins at the main layout's chunk 0. Returns
+    (launches by layout, the main layout's kernel records)."""
+    launches, records = {}, None
+    for i, (spc, steps) in enumerate(C5_LAYOUTS):
+        n_chunks = C5_SCENES // spc
+        got, rec = config5_layout(card, dev, spc, steps, twins=i == 0)
+        launches[f"config 5 ({n_chunks} x {spc} x {C5_BODIES})"] = got
+        records = records or rec
+    return launches, records
+
+
+def api_step(st, cfg):
+    """One step composed from the seven nudge-parity calls
+    (tests/test_checkpoint_api.py's pipeline): (bodies, cache)."""
+    from nudge_tpu_torch import api
+    from nudge_tpu_torch.ops.integrate import apply_position_correction
+
+    bodies = api.apply_gravity(st.bodies, st.sleep, cfg)
+    contacts, _ = api.collide(st, cfg)
+    warm, pwarm = api.read_cached_impulses(st.cache, contacts)
+    con, bodies, acc = api.setup_contact_constraints(bodies, contacts, warm,
+                                                     cfg, pwarm=pwarm)
+    bodies, acc, pseudo, pseudo_acc = api.apply_impulses(con, bodies, acc, cfg)
+    cache = api.write_cached_impulses(
+        contacts, api.update_cached_impulses(con, acc), pseudo_acc)
+    bodies = api.advance(bodies, st.sleep, cfg)
+    if cfg.split_impulse:
+        bodies = apply_position_correction(bodies, pseudo, st.sleep, cfg)
+    return bodies, cache
+
+
+def phase_batch_api_envs(card, dev):
+    """The stacked batch, the API and the environments on the card, the
+    plain twins raising: scene_pile_stacked(8, 512) for STACKED_STEPS
+    steps through batched_simulate (batched_step_chunked equal to
+    batched_step, scene STACKED_PROBE equal to itself alone, bitwise); the
+    API pipeline against engine.step on config 3 after API_SETTLE steps
+    (fresh coloring, as the API colors: positions and velocities within
+    1e-6, cache ids exact); N_ENVS BoxPushEnvs pushed toward their goals
+    for ENV_STEPS vec_steps by a damped push, every reward up by ENV_GAIN.
+    Returns launches by path."""
+    import torch
+
+    from nudge_tpu_torch import engine, envs, scenes
+    from nudge_tpu_torch.parallel import mesh
+    from nudge_tpu_torch.utils.debug import finite_state
+
+    launches = {}
+    batch, cfg = scenes.scene_pile_stacked(STACKED_SCENES, C5_BODIES,
+                                           device=dev)
+    label = f"stacked batch ({STACKED_SCENES} x {C5_BODIES})"
+    with KernelsOnly() as run:
+        t0 = time.perf_counter()
+        rolled, m = mesh.batched_simulate(cfg, STACKED_STEPS)(batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        one, m1 = mesh.batched_step(cfg)(batch)
+        chunked, m2 = mesh.batched_step_chunked(cfg, n_chunks=2)(batch)
+    want = STACKED_SCENES * (STACKED_STEPS + 2)
+    if any(run.launches[k] != want for k in ("box_box", "setup", "solve")):
+        raise AssertionError(f"{label}: launches {run.launches}, not {want}")
+    if bool(m.overflow.any()) or not finite_state(rolled) \
+            or float(m.max_depth.max()) >= 0.5:
+        raise AssertionError(f"{label}: overflow, non-finite or too deep")
+    if not (same_state(one, chunked)
+            and torch.equal(m1.contact_count, m2.contact_count)):
+        raise AssertionError(f"{label}: batched_step_chunked differs from "
+                             "batched_step")
+    alone, _ = engine.simulate(clone_state(mesh.take(batch, STACKED_PROBE)),
+                               cfg, STACKED_STEPS)
+    if not same_state(mesh.take(rolled, STACKED_PROBE), alone):
+        raise AssertionError(f"{label}: scene {STACKED_PROBE} differs from "
+                             "itself stepped alone")
+    launches[label] = run.launches
+    log(card, f"{label}: {STACKED_STEPS} steps in {dt:.2f} s "
+        f"({STACKED_STEPS / dt:.3f} steps/s), contacts "
+        f"{m.contact_count[-1].tolist()}; batched_step_chunked(2) bitwise "
+        f"equal to batched_step; scene {STACKED_PROBE} bitwise equal to "
+        f"itself alone; launches {run.launches}")
+
+    b, cfg = mixed_scene()
+    cfg = cfg.replace(persistent_coloring=False)
+    with KernelsOnly() as run:
+        st, _ = engine.simulate(b.finalize(cfg, device=dev), cfg, API_SETTLE)
+        ref, _ = engine.step(st, cfg)
+    with KernelsOnly() as run:
+        bodies, cache = api_step(st, cfg)
+    if run.launches != {"box_box": 1, "pairs_1pt": 1, "coloring": 1,
+                        "setup": 1, "solve": 1}:
+        raise AssertionError(f"API step: launches {run.launches}, not one of "
+                             "each kernel")
+    err = max(float((bodies.pos - ref.bodies.pos).abs().max()),
+              float((bodies.vel - ref.bodies.vel).abs().max()))
+    if err > 1e-6 or not all(torch.equal(getattr(cache, f),
+                                          getattr(ref.cache, f))
+                             for f in ("ga", "gb", "feat", "valid")):
+        raise AssertionError(f"API step: differs from engine.step (pos/vel "
+                             f"{err:.3g})")
+    launches["API step (config 3)"] = run.launches
+    log(card, f"API step (config 3 after {API_SETTLE} steps, "
+        f"{int(cache.valid.sum())} contacts): equal to engine.step within "
+        f"{err:.3g} (positions, velocities), cache ids exact; one launch of "
+        "each kernel")
+
+    env = envs.BoxPushEnv(device=dev)
+    gens = [torch.Generator(device=dev).manual_seed(i) for i in range(N_ENVS)]
+    with KernelsOnly() as run:
+        t0 = time.perf_counter()
+        states, obs = envs.vec_reset(env, gens)
+        first = None
+        for _ in range(ENV_STEPS):
+            # tests/test_envs.py's push along the bearing, damped by the
+            # velocity so that no agent overshoots its goal
+            d, v = obs[:, 6:9], obs[:, 3:6]
+            a = 1.5 * torch.stack([d[:, 0], d[:, 2]], -1) \
+                - torch.stack([v[:, 0], v[:, 2]], -1)
+            states, obs, rew, done, _ = envs.vec_step(env, states, a)
+            first = rew if first is None else first
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    need_launches("environments", run.launches, ("box_box", "setup", "solve"))
+    gain = rew - first
+    if float(gain.min()) <= ENV_GAIN or bool(done.any()) \
+            or not bool(torch.isfinite(obs).all()):
+        raise AssertionError(f"environments: reward gains {gain.tolist()} "
+                             f"(each must pass {ENV_GAIN}), done "
+                             f"{done.tolist()}")
+    launches[f"environments ({N_ENVS})"] = run.launches
+    log(card, f"environments: {N_ENVS} BoxPushEnvs x {ENV_STEPS} vec_steps "
+        f"(frame_skip {env.frame_skip}) in {dt:.2f} s; reward from "
+        f"{float(first.min()):.3f}..{float(first.max()):.3f} to "
+        f"{float(rew.min()):.3f}..{float(rew.max()):.3f}, smallest gain "
+        f"{float(gain.min()):.3f}; launches {run.launches}")
+    return launches
+
+
 def main():
     sys.path.insert(0, REPO)
     import torch
@@ -1488,9 +1946,19 @@ def main():
     launches["coloring"] = coloring
     phase_profile(card, pile_state, settled, ref_cfg)
     phase_config2(card, dev)
-    kernels = [dict(name=k, route="cuda", source=SOURCE_OF[k],
-                    replaces=TPU_KERNEL_OF[k], launches=launches[k],
-                    **records[k]) for k in TPU_KERNEL_OF]
+    # this slice's paths: config 5, then the stacked batch, the API and the
+    # environments
+    by_path, c5_records = phase_config5(card, dev)
+    by_path.update(phase_batch_api_envs(card, dev))
+    kernels = []
+    for k in TPU_KERNEL_OF:
+        rec = dict(name=k, route="cuda", source=SOURCE_OF[k],
+                   replaces=TPU_KERNEL_OF[k], launches=launches[k],
+                   **records[k])
+        rec["launches_by_path"] = {p: n[k] for p, n in by_path.items()}
+        if k in c5_records:
+            rec["config5_chunk"] = c5_records[k]
+        kernels.append(rec)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

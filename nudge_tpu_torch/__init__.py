@@ -6,7 +6,9 @@ broadphase), in PyTorch: plain tensor code everywhere, and hand-written
 CUDA kernels (csrc/) for both narrowphases, the fresh coloring's claim
 rounds, the constraint setup and the iterated solve whenever the state
 lives on a CUDA device. On CPU tensors each kernel's plain PyTorch twin
-runs instead.
+runs instead. `parallel.mesh` steps batches of scenes (BASELINE config
+5), `api` is the nudge-parity function set and `envs` the RL
+environments.
 """
 
 from .config import SimConfig

@@ -37,7 +37,7 @@ from .ops.solver import (
 from .state import SimState
 
 _NOT_YET = {
-    "differentiable": "ROADMAP Queue 1 item 13",
+    "differentiable": "ROADMAP Queue 1 item 5",
 }
 
 

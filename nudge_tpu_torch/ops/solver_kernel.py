@@ -128,7 +128,7 @@ def solve_cuda(velw, con, acc, cfg: SimConfig):
     if cfg.differentiable:
         raise NotImplementedError(
             "differentiable mode has no kernel path yet (ROADMAP Queue 1 "
-            "item 13)")
+            "item 5)")
     n = velw.shape[0]
     m = con.rows.shape[1]
     K = cfg.max_colors
@@ -145,6 +145,10 @@ def solve_cuda(velw, con, acc, cfg: SimConfig):
             ("perm_a", o.perm_a, i64, (m,)), ("keys_b", o.keys_b, i32, (m,)),
             ("perm_b", o.perm_b, i64, (m,))):
         _build.check_cuda("solve", name, t, dt, shape)
+    if velw.data_ptr() % 16:
+        raise ValueError("solve kernel: velw needs a 16-byte aligned base "
+                         "(it reads and writes each body's row as 16-byte "
+                         "words)")
     out = torch.empty((4, m, CONTACT_POINTS), dtype=f32, device=velw.device)
     _build.library().call(
         "nudge_solve", _build.ptr(con.rows), _build.ptr(acc), _build.ptr(velw),

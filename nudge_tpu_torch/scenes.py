@@ -2,8 +2,15 @@
 
 A numpy builder assembles bodies and colliders exactly as the JAX package's
 does (same RNG draws, same sizing heuristics, bit for bit) and `finalize`
-ships the padded arrays to one torch device. No random numbers are drawn
-after construction.
+ships the padded arrays to one torch device.
+
+The batch constructors of BASELINE config 5 (`scene_pile_megachunks`,
+`scene_pile_stacked`) finalize one template, broadcast it on the device
+and decorrelate the copies with a jitter drawn there from a
+`torch.Generator`; the reference draws it with `jax.random`, which torch
+cannot reproduce, so the draw (`stack_jitter`) and its application
+(`apply_stack_jitter`, the reference's operations one for one) are
+separate.
 """
 
 from __future__ import annotations
@@ -15,7 +22,7 @@ from .config import SimConfig
 from .ops.persistent_bp import empty_bp_cache
 from .state import (
     Bodies, Boxes, SimState, SleepState, Spheres, empty_cache,
-    empty_color_cache,
+    empty_color_cache, tree_map,
 )
 
 
@@ -405,6 +412,33 @@ def scene_pyramid(base: int = 10, half: float = 0.5, gap: float = 1e-3):
     return b
 
 
+def _add_pile(b: SceneBuilder, rng, n_bodies: int, side: int, d: float,
+              half: float, sphere_frac: float, ox: float = 0.0,
+              oz: float = 0.0):
+    """A jittered grid of `n_bodies` falling boxes (and spheres, drawn with
+    probability `sphere_frac`), `side` x `side` columns `d` apart centred
+    on (ox, oz), layer by layer: the draws of the reference's scene_pile
+    and scene_pile_batch, in their order."""
+    count = 0
+    for iy in range(side * 2):
+        for ix in range(side):
+            for iz in range(side):
+                if count >= n_bodies:
+                    return
+                p = (ox + (ix - (side - 1) / 2) * d
+                     + rng.uniform(-0.1, 0.1) * half,
+                     half * 1.5 + iy * d,
+                     oz + (iz - (side - 1) / 2) * d
+                     + rng.uniform(-0.1, 0.1) * half)
+                if rng.uniform() < sphere_frac:
+                    b.add_sphere(half * 0.9, p)
+                else:
+                    q = np.concatenate([rng.uniform(-0.05, 0.05, 3), [1.0]])
+                    q /= np.linalg.norm(q)
+                    b.add_box((half, half, half), p, quat=q)
+                count += 1
+
+
 def scene_pile(n_bodies: int, sphere_frac: float = 0.0, half: float = 0.5,
                seed: int = 0, spacing: float = 1.15, walls: bool = None):
     """BASELINE configs 3 & 4: jittered grid of falling bodies above ground.
@@ -424,24 +458,7 @@ def scene_pile(n_bodies: int, sphere_frac: float = 0.0, half: float = 0.5,
     d = 2 * half * spacing
     if walls is None:
         walls = sphere_frac > 0 or n_bodies >= 4096
-    count = 0
-    for iy in range(side * 2):
-        for ix in range(side):
-            for iz in range(side):
-                if count >= n_bodies:
-                    break
-                p = (
-                    (ix - (side - 1) / 2) * d + rng.uniform(-0.1, 0.1) * half,
-                    half * 1.5 + iy * d,
-                    (iz - (side - 1) / 2) * d + rng.uniform(-0.1, 0.1) * half,
-                )
-                if rng.uniform() < sphere_frac:
-                    b.add_sphere(half * 0.9, p)
-                else:
-                    q = np.concatenate([rng.uniform(-0.05, 0.05, 3), [1.0]])
-                    q /= np.linalg.norm(q)
-                    b.add_box((half, half, half), p, quat=q)
-                count += 1
+    _add_pile(b, rng, n_bodies, side, d, half, sphere_frac)
     if walls:
         # appended AFTER the pile so dynamic-body indices are unchanged
         ext = max(side * d * 1.5, 12 * half)   # footprint + scatter margin
@@ -458,3 +475,105 @@ def scene_pile(n_bodies: int, sphere_frac: float = 0.0, half: float = 0.5,
                 (wt if sx else ext + 2 * wt, wh, wt if sz else ext + 2 * wt),
                 (sx * (ext + wt), wh, sz * (ext + wt)))
     return b
+
+
+# ---------------------------------------------------------------------------
+# BASELINE config 5: batches of independent piles
+# ---------------------------------------------------------------------------
+
+def scene_pile_batch(n_scenes: int, bodies_per_scene: int,
+                     sphere_frac: float = 0.0, half: float = 0.5,
+                     seed: int = 0, scene_spacing: float = 20.0):
+    """BASELINE config 5 as ONE flattened mega-scene: `n_scenes` independent
+    piles tiled `scene_spacing` apart on a 2D grid over one thick ground
+    sized to the tiling (a block-diagonal contact graph). Scene i holds
+    bodies [1 + i*k, 1 + (i+1)*k), k = bodies_per_scene, so per-scene
+    readback is a slice. Same RNG draws as the reference, bit for bit."""
+    rng = np.random.default_rng(seed)
+    b = SceneBuilder()
+    side_sc = int(np.ceil(np.sqrt(n_scenes)))
+    ground_half = (side_sc * scene_spacing / 2 + 50, 10.0,
+                   side_sc * scene_spacing / 2 + 50)  # thick: see GROUND_HALF
+    b.add_static_box(ground_half, (0.0, -ground_half[1], 0.0), friction=0.8)
+    side = int(np.ceil(bodies_per_scene ** (1 / 3)))
+    d = 2 * half * 1.15
+    for s in range(n_scenes):
+        _add_pile(b, rng, bodies_per_scene, side, d, half, sphere_frac,
+                  ox=(s % side_sc - (side_sc - 1) / 2) * scene_spacing,
+                  oz=(s // side_sc - (side_sc - 1) / 2) * scene_spacing)
+    return b
+
+
+def scene_pile_megachunks(n_chunks: int, scenes_per_chunk: int,
+                          bodies_per_scene: int, cfg: SimConfig = None,
+                          seed: int = 0, device="cuda"):
+    """BASELINE config 5 as `n_chunks` flattened mega-scenes
+    (`scene_pile_batch` of `scenes_per_chunk` piles each) stacked on a
+    leading chunk axis, for `parallel.mesh.megabatch_simulate`, which runs
+    the unbatched step, and so the kernels, on one chunk at a time. One
+    template chunk is finalized and uploaded; the stack is built from it on
+    `device` (`_stack_on_device`). Returns (stacked SimState, cfg)."""
+    b = scene_pile_batch(scenes_per_chunk, bodies_per_scene, seed=seed)
+    if cfg is None:
+        cfg = b.auto_config()
+    st0 = b.finalize(cfg, device=device)
+    return _stack_on_device(st0, n_chunks, b.num_bodies - 1, seed), cfg
+
+
+def scene_pile_stacked(n_scenes: int, bodies_per_scene: int,
+                       cfg: SimConfig = None, sphere_frac: float = 0.0,
+                       seed: int = 0, device="cuda"):
+    """BASELINE config 5 as a stacked scene batch (leading scene axis on
+    every leaf) of one `scene_pile` template, broadcast and jittered on
+    `device` (`_stack_on_device`). Returns (batched SimState, cfg)."""
+    b = scene_pile(bodies_per_scene, sphere_frac=sphere_frac, seed=seed)
+    if cfg is None:
+        cfg = b.auto_config()
+    st0 = b.finalize(cfg, device=device)
+    return _stack_on_device(st0, n_scenes, b.num_bodies - 1, seed), cfg
+
+
+def stack_jitter(n: int, n_dyn: int, seed: int, device):
+    """The decorrelating jitter of `n` copies: (dx f32[n, n_dyn], dz
+    f32[n, n_dyn], dq f32[n, n_dyn, 3]), uniform in the reference's ranges
+    (±0.05, ±0.05, ±0.02), drawn in that order on `device` from a
+    torch.Generator seeded with `seed + 1` (the reference's key)."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + 1)
+
+    def uniform(shape, lim):
+        u = torch.rand(shape, generator=g, dtype=torch.float32, device=device)
+        return u * (2 * lim) - lim
+
+    dx = uniform((n, n_dyn), 0.05)
+    dz = uniform((n, n_dyn), 0.05)
+    dq = uniform((n, n_dyn, 3), 0.02)
+    return dx, dz, dq
+
+
+def apply_stack_jitter(st0: SimState, dx, dz, dq) -> SimState:
+    """The template broadcast to `dx.shape[0]` copies on its device, then
+    the reference's jitter, operation for operation: x and z of bodies
+    1..n_dyn moved by dx and dz, their quaternion's xyz moved by dq, then
+    renormalised. Body 0 (the ground) is left as it is; bodies after it
+    are jittered whether static or not, as the reference does (it jitters
+    scene_pile's walls too)."""
+    n, n_dyn = dx.shape
+    bat = tree_map(lambda x: x.unsqueeze(0).expand((n,) + tuple(x.shape))
+                   .clone(memory_format=torch.contiguous_format), st0)
+    dyn = slice(1, 1 + n_dyn)
+    pos, quat = bat.bodies.pos, bat.bodies.quat
+    pos[:, dyn, 0] += dx
+    pos[:, dyn, 2] += dz
+    quat[:, dyn, 0:3] += dq
+    qn = quat[:, dyn]
+    norm = torch.sqrt(qn[..., 0] * qn[..., 0] + qn[..., 1] * qn[..., 1]
+                      + qn[..., 2] * qn[..., 2] + qn[..., 3] * qn[..., 3])
+    quat[:, dyn] = qn / norm[..., None]
+    return bat
+
+
+def _stack_on_device(st0: SimState, n: int, n_dyn: int, seed: int):
+    """`n` decorrelated copies of the template `st0` stacked on a leading
+    axis, built on st0's device: the host uploads only the template."""
+    return apply_stack_jitter(st0, *stack_jitter(n, n_dyn, seed, st0.device))

@@ -9,10 +9,15 @@ of `state.bodies.pos`. Padding conventions are the reference's:
   - padded colliders have body == -1;
   - padded cache rows / connections have valid == False / body == -1.
 
+A batch of states (`parallel.mesh`, `scenes.scene_pile_stacked`) is the
+same dataclass with a leading scene or chunk axis on every leaf;
+`tree_map` maps over the leaves of one or more such trees.
+
 `state_from_numpy` / `state_to_numpy` carry a state across as a nested dict
-of numpy arrays, so the JAX package and this one can step the same state.
-The persistent-broadphase cache (`bp`) is carried without the reference's
-tight-list memo fields, which the port does not model (ops/persistent_bp).
+of numpy arrays, so the JAX package and this one can step the same state:
+one state, a batch, or an `envs.EnvState`. The persistent-broadphase cache
+(`bp`) is carried without the reference's tight-list memo fields, which the
+port does not model (ops/persistent_bp).
 """
 
 from __future__ import annotations
@@ -129,6 +134,20 @@ class SimState(_Replace):
 _F32, _I32 = torch.float32, torch.int32
 
 
+def tree_map(fn, *trees):
+    """`fn` applied leaf by leaf over trees of one structure (nested
+    dataclasses of tensors; None leaves stay None), in the first tree's
+    structure."""
+    t0 = trees[0]
+    if dataclasses.is_dataclass(t0):
+        return dataclasses.replace(t0, **{
+            f.name: tree_map(fn, *(getattr(t, f.name) for t in trees))
+            for f in dataclasses.fields(t0)})
+    if t0 is None:
+        return None
+    return fn(*trees)
+
+
 def empty_color_cache(cfg: SimConfig, device="cuda") -> ColorCache:
     m = cfg.max_manifolds
     z = torch.zeros((m,), dtype=_I32, device=device)
@@ -210,11 +229,19 @@ def _to_tensor(x, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True, order="C")).to(device)
 
 
-def state_from_numpy(tree: dict, device) -> SimState:
+def state_from_numpy(tree: dict, device):
     """SimState from a nested dict of numpy arrays laid out like the JAX
-    package's SimState (`{"bodies": {"pos": ...}, ..., "step_count": ...}`).
-    Keys the port does not model (the tight-list memo of the JAX `bp`) are
-    ignored."""
+    package's SimState (`{"bodies": {"pos": ...}, ..., "step_count": ...}`),
+    with or without a leading batch axis on every array; an `envs.EnvState`
+    from one laid out like the JAX package's EnvState (`{"sim": ...,
+    "goal": ..., "t": ...}`). Keys the port does not model (the tight-list
+    memo of the JAX `bp`) are ignored."""
+    if "sim" in tree:
+        from .envs import EnvState
+
+        return EnvState(sim=state_from_numpy(tree["sim"], device),
+                        goal=_to_tensor(tree["goal"], device),
+                        t=_to_tensor(tree["t"], device))
     kw = {}
     for name, cls in _groups().items():
         sub = tree[name]
@@ -225,8 +252,12 @@ def state_from_numpy(tree: dict, device) -> SimState:
     return SimState(**kw)
 
 
-def state_to_numpy(state: SimState) -> dict:
+def state_to_numpy(state) -> dict:
     """Nested dict of numpy arrays, the inverse of `state_from_numpy`."""
+    if hasattr(state, "sim"):
+        return {"sim": state_to_numpy(state.sim),
+                "goal": state.goal.detach().cpu().numpy(),
+                "t": state.t.detach().cpu().numpy()}
     out = {}
     for name in _groups():
         sub = getattr(state, name)

@@ -29,6 +29,8 @@ def tree(obj):
 
 
 def to_port_state(jstate, device="cpu"):
+    """The port state holding a JAX SimState, a batch of them (a leading
+    scene or chunk axis on every leaf) or a JAX EnvState."""
     return state_from_numpy(tree(jstate), device)
 
 

@@ -55,7 +55,9 @@ def test_config_fields_match_reference():
 
 
 def test_package_imports_no_jax():
-    code = ("import sys, nudge_tpu_torch, nudge_tpu_torch.engine; "
+    code = ("import sys, nudge_tpu_torch, nudge_tpu_torch.engine, "
+            "nudge_tpu_torch.api, nudge_tpu_torch.envs, "
+            "nudge_tpu_torch.parallel.mesh; "
             "assert 'jax' not in sys.modules and 'flax' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True)
 

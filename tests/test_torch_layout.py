@@ -19,6 +19,7 @@ from nudge_tpu.ops import setup_kernel as jsetup_kernel
 from nudge_tpu.ops import solver as jsolver
 from nudge_tpu_torch import scenes as pscenes
 from nudge_tpu_torch import state as pstate
+from nudge_tpu_torch.envs import BoxPushEnv
 from nudge_tpu_torch.ops import integrate as pint
 from nudge_tpu_torch.ops import persistent_bp as ppbp
 from nudge_tpu_torch.ops import setup_kernel, solver_kernel
@@ -251,8 +252,12 @@ def _single_box():
     lambda b, cfg: pstate.empty_cache(cfg),
     lambda b, cfg: pstate.empty_color_cache(cfg),
     lambda b, cfg: ppbp.empty_bp_cache(cfg, cfg.max_bodies),
+    lambda b, cfg: pscenes.scene_pile_megachunks(2, 2, 8)[0],
+    lambda b, cfg: pscenes.scene_pile_stacked(2, 8)[0],
+    lambda b, cfg: BoxPushEnv()._proto,
 ], ids=["finalize", "empty_state", "empty_cache", "empty_color_cache",
-        "empty_bp_cache"])
+        "empty_bp_cache", "scene_pile_megachunks", "scene_pile_stacked",
+        "BoxPushEnv"])
 def test_entry_points_default_to_the_card(make):
     """With no device the state is built on the card; where torch has no
     CUDA device that raises instead of falling back to the CPU."""
