@@ -81,34 +81,38 @@ no result):
      scene's final state under the profiler as in phase 14;
  16. config 5 at full width: 4,096 scenes x 512 bodies as 128 flattened
      mega-scene chunks of 32 scenes (scenes.scene_pile_megachunks,
-     pile_config's capacities) for 30 steps through
+     pile_config's capacities, the grid table grown to the chunk's
+     footprint by scenes.cover_footprint) for 30 steps through
      parallel.mesh.megabatch_simulate in windows of 5, each window held to
      no overflow, a finite state, max depth < 0.5, no cross-scene
      manifold, box-box, setup and the solve launched once a chunk-step and
      the one-point and coloring kernels not at all, chunks 0 and 127
      bitwise equal to themselves stepped alone, chunks 0 and 1 apart;
-     build seconds, steps/s, body-steps/s and peak memory; at chunk 0 of
-     the last step box-box, setup and the solve against their twins as in
-     phase 3, the cached coloring's time and the joins it ran, and one
-     chunk-step under the profiler. Then the same 4,096 scenes as 16
-     chunks of 256 (131,073 bodies a chunk, the grid table sized at the
-     grid's cell: config5_config) for 30 steps with the same gates, the
-     kernels' device times instead of the twins;
+     build seconds, steps/s, body-steps/s and peak memory (the rates
+     include the gates' per-step device reductions: Config5Watch); at
+     chunk 0 of the last step box-box, setup and the solve against their
+     twins as in phase 3, the cached coloring's time and the joins it ran,
+     and one chunk-step under the profiler. Then the same 4,096 scenes as
+     16 chunks of 256 (131,073 bodies a chunk) for 30 steps, with the same
+     gates and the same comparisons at its chunk 0;
  17. the stacked batch, the API and the environments: scene_pile_stacked(
      8, 512) for 10 steps through batched_simulate (batched_step_chunked
-     bitwise equal to batched_step, scene 3 to itself alone); the
-     nudge-parity API's step on config 3 after 30 steps against
+     bitwise equal to batched_step, scene 3 to itself alone), then
+     box-box, setup and the solve against their twins at scene 3's next
+     step; the nudge-parity API's step on config 3 after 30 steps against
      engine.step (persistent_coloring=False, as the API colors; positions
      and velocities within 1e-6, cache ids exact, one launch of each
      kernel); 16 BoxPushEnvs for 20 vec_steps of a damped push toward
-     their goals, every reward up by more than 0.5.
+     their goals, every reward up by more than 0.5, then the three kernels
+     against their twins at env 0's next step (2 bodies, sleeping on).
 
 Phases 5-7, 9-13, 15, 16 and 17 each zero the kernels' launch counts before
 they run and read them after, and run with the plain twins replaced by
 functions that raise: the main paths go through the kernels only. The
 record line gives each kernel's launches on the earlier slices' paths
 (`launches`), on each path of phases 16-17 (`launches_by_path`) and its
-comparison at config 5's chunk (`config5_chunk`). Nothing is cut: every
+comparison with its twin on each of those paths (`compare_by_path`; its
+`max_abs_err` is the largest of every comparison). Nothing is cut: every
 phase runs at the size its docstring gives (8-10 minutes on an H100).
 
 The last line of standard output is one JSON object
@@ -356,37 +360,6 @@ def pile_config(builder, n):
         max_box_box_pairs=max(1024, int(n * 8.0)),
         max_manifolds=max(512, int(n * 3.0)), grid_density=16,
         fat_pair_factor=2, sleeping=False, persistent_broadphase=False)
-
-
-def config5_config(proto):
-    """pile_config's capacities for one config-5 chunk, the grid table sized
-    to the chunk's footprint at the grid's own cell: twice the largest AABB
-    half-extent of a dynamic box at spawn, margin included (ops/grid.py).
-    auto_config sizes the table from a half-diagonal estimate of the cell
-    (1.73 m for these boxes; the grid's is 1.23 m; ROADMAP Queue 3,
-    ADVICE r5), kept bit for bit with the JAX package's: at 256 scenes a
-    chunk its 216 x 216 cells cover 266 m of the 310 m footprint, and the
-    40,960 colliders clamped into the border cells overflow the grid's
-    density from the first step. The larger of the two tables is taken."""
-    import numpy as np
-
-    cfg = pile_config(proto, proto.num_bodies)
-    q = np.asarray(proto.quat, np.float64)[np.asarray(proto.box_body)]
-    x, y, z, w = q.T
-    rot = np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w),
-                    2 * (x * z + y * w), 2 * (x * y + z * w),
-                    1 - 2 * (x * x + z * z), 2 * (y * z - x * w),
-                    2 * (x * z - y * w), 2 * (y * z + x * w),
-                    1 - 2 * (x * x + y * y)], -1).reshape(-1, 3, 3)
-    half = np.asarray(proto.box_half, np.float64)
-    ext = np.max(np.einsum("bij,bj->bi", np.abs(rot), half), -1) \
-        + cfg.aabb_margin
-    cell = 2 * np.max(ext[ext <= 2 * np.median(ext)])
-    pos = np.asarray(proto.pos, np.float64)
-    need = np.ceil((pos.max(0) - pos.min(0)) / cell * 1.15) + 4
-    dims = tuple(min(1024, max(d, -(-int(n) // 8) * 8))
-                 for d, n in zip(cfg.grid_table_dims, need))
-    return cfg.replace(grid_table_dims=dims)
 
 
 def reference_config(builder, n):
@@ -781,8 +754,9 @@ def compare_setup_solve(card, label, inputs, cfg):
     packed, work = setup_kernel.pack_constraints(tcon, tacc, order)
     diff, ms, dev = compare_solve("solve", packed, work, tvelw, tcon, tacc,
                                   cfg, bitwise=int(col[3]) == 0)
+    # the twin has just run on these inputs (compare_solve): one timed call
     plain_ms = timed(lambda: solver_kernel.solve_plain(tvelw, tcon, tacc, cfg),
-                     2, 1)
+                     1, 0)
     log(card, f"solve ({label}): {cfg.solver_iters} sweeps x {int(col[1])} "
         f"colors in one launch of a {solver_kernel.solve_cluster_size()}-CTA "
         f"cluster; {diff}; one kernel a call; kernel {ms:.3f} ms (device "
@@ -793,6 +767,17 @@ def compare_setup_solve(card, label, inputs, cfg):
                 + n_bodies * 2 * 48 + man.valid.shape[0] * 64,
                 n_live * cfg.solver_iters * SOLVE_OPS_PER_MANIFOLD))
     return records
+
+
+def compare_step(card, label, st, cfg):
+    """Box-box, setup and the solve against their twins at a step from
+    `st`, on the inputs the step hands them (compare_box_box,
+    compare_setup_solve). Returns (kernel records, step_inputs)."""
+    records = {"box_box": compare_box_box(card, label,
+                                          *box_box_inputs(st, cfg))}
+    inputs = step_inputs(st, cfg)
+    records.update(compare_setup_solve(card, label, inputs, cfg))
+    return records, inputs
 
 
 def phase_compare(card, dev):
@@ -807,12 +792,9 @@ def phase_compare(card, dev):
     torch.cuda.synchronize()
     label = f"awake pile, step {COMPARE_AFTER}"
 
-    # --- narrowphase at the step's candidate pairs (the grid's) ---
-    records = {"box_box": compare_box_box(card, label,
-                                          *box_box_inputs(st, cfg))}
-    # --- setup and the solve at the step's manifolds ---
-    inputs = step_inputs(st, cfg)
-    records.update(compare_setup_solve(card, label, inputs, cfg))
+    # --- narrowphase at the step's candidate pairs (the grid's), setup
+    # and the solve at the step's manifolds ---
+    records, inputs = compare_step(card, label, st, cfg)
     bodies, man, warm, pwarm, _, _ = inputs
     n_live = int(man.valid.sum())
 
@@ -1650,42 +1632,17 @@ def cached_coloring(st, cfg, inputs):
     return ms, ran
 
 
-def device_times(card, label, st, cfg, inputs):
-    """The device time of one call of box-box, setup and the solve at a
-    step from `st`, as the step calls them."""
-    from nudge_tpu_torch.ops import narrowphase_kernel as npk
-    from nudge_tpu_torch.ops import setup_kernel, solver_kernel
-    from nudge_tpu_torch.utils import timing
-
-    bx, wc, bb = box_box_inputs(st, cfg)
-    bodies, man, warm, pwarm, col, order = inputs
-    out = {"box_box": timing.device_ms(
-        lambda: npk.box_box_slots_cuda(bx, wc, bb), DEVICE_REPS)}
-    out["setup"] = timing.device_ms(lambda: setup_kernel.setup_cuda(
-        bodies, man, warm, cfg, col, pwarm, order), DEVICE_REPS)
-    con, velw, work = setup_kernel.setup_cuda(bodies, man, warm, cfg, col,
-                                              pwarm, order)
-    out["solve"] = timing.device_ms(
-        lambda: solver_kernel.solve_cuda(velw, con, work, cfg), DEVICE_REPS)
-    log(card, f"device time ({label}): {int(bb.valid.sum())} of "
-        f"{bb.valid.shape[0]} pair slots live, {int(man.valid.sum())} of "
-        f"{man.valid.shape[0]} manifolds live, {int(col[1])} colors, "
-        f"{int(col[3])} spilled; box-box {out['box_box']:.4f} ms, setup "
-        f"{out['setup']:.4f} ms, solve {out['solve']:.4f} ms")
-    return out
-
-
-def config5_layout(card, dev, spc, steps, twins):
+def config5_layout(card, dev, spc, steps):
     """4,096 scenes as chunks of `spc` scenes, `steps` steps through
     parallel.mesh.megabatch_simulate in windows of C5_WINDOW, each window
     held to no overflow, a finite state, max depth < 0.5, no cross-scene
     manifold, box-box, setup and the solve launched once a chunk-step and
     the one-point and coloring kernels not at all, the first and last
     chunks bitwise equal to the same chunks stepped alone, chunks 0 and 1
-    apart. Then at chunk 0 of the last step: the kernels against their
-    twins (`twins`) or their device times, the cached coloring's time and
+    apart. Then at chunk 0 of the last step: box-box, setup and the solve
+    against their twins (compare_step), the cached coloring's time and
     joins, and one chunk-step under the profiler. Returns (launches, kernel
-    records or device times)."""
+    records)."""
     import torch
 
     from nudge_tpu_torch import engine, scenes
@@ -1699,7 +1656,7 @@ def config5_layout(card, dev, spc, steps, twins):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     proto = scenes.scene_pile_batch(spc, C5_BODIES, seed=C5_SEED)
-    cfg = config5_config(proto)
+    cfg = scenes.cover_footprint(proto, pile_config(proto, proto.num_bodies))
     batch, _ = scenes.scene_pile_megachunks(n_chunks, spc, C5_BODIES, cfg=cfg,
                                             seed=C5_SEED, device=dev)
     torch.cuda.synchronize()
@@ -1764,32 +1721,23 @@ def config5_layout(card, dev, spc, steps, twins):
         f"{peak_gb:.3f} GB; launches {launches}")
     st0 = mesh.take(batch, 0)
     where = f"{label} chunk 0, step {steps}"
-    inputs = step_inputs(st0, cfg)
-    if twins:
-        records = {"box_box": compare_box_box(card, where,
-                                              *box_box_inputs(st0, cfg))}
-        records.update(compare_setup_solve(card, where, inputs, cfg))
-        times = {k: r["device_ms"] for k, r in records.items()}
-    else:
-        records = times = device_times(card, where, st0, cfg, inputs)
+    records, inputs = compare_step(card, where, st0, cfg)
     col_ms, joins = cached_coloring(st0, cfg, inputs)
     log(card, f"{where}: cached coloring {col_ms:.3f} ms a call (host reads "
         f"included), joins {joins}; solve device "
-        f"{times['solve']:.4f} ms")
+        f"{records['solve']['device_ms']:.4f} ms")
     profile_steps(card, where, st0, cfg, steps=1)
     return launches, records
 
 
 def phase_config5(card, dev):
-    """Config 5 at full width in both layouts (config5_layout); the
-    kernels against their twins at the main layout's chunk 0. Returns
-    (launches by layout, the main layout's kernel records)."""
-    launches, records = {}, None
-    for i, (spc, steps) in enumerate(C5_LAYOUTS):
-        n_chunks = C5_SCENES // spc
-        got, rec = config5_layout(card, dev, spc, steps, twins=i == 0)
-        launches[f"config 5 ({n_chunks} x {spc} x {C5_BODIES})"] = got
-        records = records or rec
+    """Config 5 at full width in both layouts (config5_layout), the
+    kernels against their twins at each layout's chunk 0. Returns
+    (launches by layout, kernel records by layout)."""
+    launches, records = {}, {}
+    for spc, steps in C5_LAYOUTS:
+        path = f"config 5 ({C5_SCENES // spc} x {spc} x {C5_BODIES})"
+        launches[path], records[path] = config5_layout(card, dev, spc, steps)
     return launches, records
 
 
@@ -1822,14 +1770,19 @@ def phase_batch_api_envs(card, dev):
     (fresh coloring, as the API colors: positions and velocities within
     1e-6, cache ids exact); N_ENVS BoxPushEnvs pushed toward their goals
     for ENV_STEPS vec_steps by a damped push, every reward up by ENV_GAIN.
-    Returns launches by path."""
+    Box-box, setup and the solve against their twins (compare_step) at
+    the stacked batch's scene STACKED_PROBE after its rollout and at env
+    0's scene after the pushes, woken as its next step would be. Returns
+    (launches by path, kernel records by path)."""
     import torch
 
     from nudge_tpu_torch import engine, envs, scenes
     from nudge_tpu_torch.parallel import mesh
     from nudge_tpu_torch.utils.debug import finite_state
 
-    launches = {}
+    from nudge_tpu_torch import api
+
+    launches, records = {}, {}
     batch, cfg = scenes.scene_pile_stacked(STACKED_SCENES, C5_BODIES,
                                            device=dev)
     label = f"stacked batch ({STACKED_SCENES} x {C5_BODIES})"
@@ -1861,6 +1814,9 @@ def phase_batch_api_envs(card, dev):
         f"{m.contact_count[-1].tolist()}; batched_step_chunked(2) bitwise "
         f"equal to batched_step; scene {STACKED_PROBE} bitwise equal to "
         f"itself alone; launches {run.launches}")
+    records[label], _ = compare_step(
+        card, f"{label} scene {STACKED_PROBE}, step {STACKED_STEPS}",
+        clone_state(mesh.take(rolled, STACKED_PROBE)), cfg)
 
     b, cfg = mixed_scene()
     cfg = cfg.replace(persistent_coloring=False)
@@ -1915,7 +1871,10 @@ def phase_batch_api_envs(card, dev):
         f"{float(first.min()):.3f}..{float(first.max()):.3f} to "
         f"{float(rew.min()):.3f}..{float(rew.max()):.3f}, smallest gain "
         f"{float(gain.min()):.3f}; launches {run.launches}")
-    return launches
+    env0 = api.wake(clone_state(mesh.take(states.sim, 0)), env._agent)
+    records[f"environments ({N_ENVS})"], _ = compare_step(
+        card, f"environment 0, step {ENV_STEPS}", env0, env.cfg)
+    return launches, records
 
 
 def main():
@@ -1948,16 +1907,21 @@ def main():
     phase_config2(card, dev)
     # this slice's paths: config 5, then the stacked batch, the API and the
     # environments
-    by_path, c5_records = phase_config5(card, dev)
-    by_path.update(phase_batch_api_envs(card, dev))
+    by_path, compared = phase_config5(card, dev)
+    got, more = phase_batch_api_envs(card, dev)
+    by_path.update(got)
+    compared.update(more)
     kernels = []
     for k in TPU_KERNEL_OF:
         rec = dict(name=k, route="cuda", source=SOURCE_OF[k],
                    replaces=TPU_KERNEL_OF[k], launches=launches[k],
                    **records[k])
         rec["launches_by_path"] = {p: n[k] for p, n in by_path.items()}
-        if k in c5_records:
-            rec["config5_chunk"] = c5_records[k]
+        at = {p: r[k] for p, r in compared.items() if k in r}
+        if at:
+            rec["compare_by_path"] = at
+            rec["max_abs_err"] = max(rec["max_abs_err"],
+                                     *(r["max_abs_err"] for r in at.values()))
         kernels.append(rec)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -512,12 +512,38 @@ def scene_pile_megachunks(n_chunks: int, scenes_per_chunk: int,
     leading chunk axis, for `parallel.mesh.megabatch_simulate`, which runs
     the unbatched step, and so the kernels, on one chunk at a time. One
     template chunk is finalized and uploaded; the stack is built from it on
-    `device` (`_stack_on_device`). Returns (stacked SimState, cfg)."""
+    `device` (`_stack_on_device`). Returns (stacked SimState, cfg).
+
+    Without a `cfg` it is `auto_config()` with its grid table grown to the
+    chunk's footprint (`cover_footprint`); at up to 32 scenes a chunk that
+    is auto_config's own, as in the reference. A given `cfg` is used as it
+    is: pass it through `cover_footprint` for a wider chunk."""
     b = scene_pile_batch(scenes_per_chunk, bodies_per_scene, seed=seed)
     if cfg is None:
-        cfg = b.auto_config()
+        cfg = cover_footprint(b, b.auto_config())
     st0 = b.finalize(cfg, device=device)
     return _stack_on_device(st0, n_chunks, b.num_bodies - 1, seed), cfg
+
+
+def cover_footprint(b: SceneBuilder, cfg: SimConfig) -> SimConfig:
+    """`cfg` with its grid table grown, where it falls short, to cover the
+    builder's spawn footprint (+4 cells) at a cell no larger than the
+    grid's. ops/grid.py takes twice the largest AABB half-extent of its
+    colliders, margin included; a box's is at least its smallest half
+    extent, however it turns, a sphere's its radius, and the median
+    collider's bound stands for the grid's colliders as the grid's own
+    median filter does (an upright 0.5 box: 1.04 m). auto_config estimates
+    the cell from the half-diagonal, as the JAX package does (ROADMAP
+    Queue 3), and on a wide tiling its table falls short: at 256 piles a
+    chunk its 216 x 216 cells cover 266 m of the 310 m footprint, and the
+    border cells overflow the grid's density from the first step."""
+    low = [min(h) for h in b.box_half] + list(b.sph_radius)
+    cell = 2 * (float(np.median(low)) + cfg.aabb_margin)
+    pos = np.asarray(b.pos, np.float64)
+    need = np.ceil((pos.max(0) - pos.min(0)) / cell) + 4
+    return cfg.replace(grid_table_dims=tuple(
+        min(1024, max(d, -(-int(n) // 8) * 8))
+        for d, n in zip(cfg.grid_table_dims, need)))
 
 
 def scene_pile_stacked(n_scenes: int, bodies_per_scene: int,

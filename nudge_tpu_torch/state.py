@@ -14,10 +14,10 @@ same dataclass with a leading scene or chunk axis on every leaf;
 `tree_map` maps over the leaves of one or more such trees.
 
 `state_from_numpy` / `state_to_numpy` carry a state across as a nested dict
-of numpy arrays, so the JAX package and this one can step the same state:
-one state, a batch, or an `envs.EnvState`. The persistent-broadphase cache
-(`bp`) is carried without the reference's tight-list memo fields, which the
-port does not model (ops/persistent_bp).
+of numpy arrays, so the JAX package and this one can step the same state,
+one state or a batch. The persistent-broadphase cache (`bp`) is carried
+without the reference's tight-list memo fields, which the port does not
+model (ops/persistent_bp).
 """
 
 from __future__ import annotations
@@ -229,19 +229,11 @@ def _to_tensor(x, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True, order="C")).to(device)
 
 
-def state_from_numpy(tree: dict, device):
+def state_from_numpy(tree: dict, device) -> SimState:
     """SimState from a nested dict of numpy arrays laid out like the JAX
     package's SimState (`{"bodies": {"pos": ...}, ..., "step_count": ...}`),
-    with or without a leading batch axis on every array; an `envs.EnvState`
-    from one laid out like the JAX package's EnvState (`{"sim": ...,
-    "goal": ..., "t": ...}`). Keys the port does not model (the tight-list
-    memo of the JAX `bp`) are ignored."""
-    if "sim" in tree:
-        from .envs import EnvState
-
-        return EnvState(sim=state_from_numpy(tree["sim"], device),
-                        goal=_to_tensor(tree["goal"], device),
-                        t=_to_tensor(tree["t"], device))
+    with or without a leading batch axis on every array. Keys the port does
+    not model (the tight-list memo of the JAX `bp`) are ignored."""
     kw = {}
     for name, cls in _groups().items():
         sub = tree[name]
@@ -252,12 +244,8 @@ def state_from_numpy(tree: dict, device):
     return SimState(**kw)
 
 
-def state_to_numpy(state) -> dict:
+def state_to_numpy(state: SimState) -> dict:
     """Nested dict of numpy arrays, the inverse of `state_from_numpy`."""
-    if hasattr(state, "sim"):
-        return {"sim": state_to_numpy(state.sim),
-                "goal": state.goal.detach().cpu().numpy(),
-                "t": state.t.detach().cpu().numpy()}
     out = {}
     for name in _groups():
         sub = getattr(state, name)

@@ -30,8 +30,16 @@ def tree(obj):
 
 def to_port_state(jstate, device="cpu"):
     """The port state holding a JAX SimState, a batch of them (a leading
-    scene or chunk axis on every leaf) or a JAX EnvState."""
-    return state_from_numpy(tree(jstate), device)
+    scene or chunk axis on every leaf) or an EnvState (of either package)
+    as a port `envs.EnvState`."""
+    from nudge_tpu_torch.envs import EnvState
+
+    d = tree(jstate)
+    if "sim" not in d:
+        return state_from_numpy(d, device)
+    return EnvState(sim=state_from_numpy(d["sim"], device),
+                    goal=torch.from_numpy(np.array(d["goal"])).to(device),
+                    t=torch.from_numpy(np.array(d["t"])).to(device))
 
 
 def to_jax_state(pstate, jcfg):

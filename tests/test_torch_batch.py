@@ -26,9 +26,13 @@ from _torch_bridge import (
 
 
 # The renormalised quaternions: the reference's norm is an XLA reduction
-# that contracts the squares' sum into FMAs, so a component can land one
-# float32 step away: 2^-23 at 1.0, the largest component a unit quaternion
-# has.
+# that contracts the squares' sum into FMAs, and it lands one float32 step
+# from the port's on ~9% of the bodies (43 of 528 in the two cases below).
+# Where such a norm sits at or above 1.0 (21 of the 43), one step is 2^-23,
+# and dividing w ~ 0.998 by norms 2^-23 apart moves it by ~2^-23: two of
+# its own steps (2^-24 below 1.0). Measured on both cases: at most 2 steps,
+# max abs 2^-23 (1.19e-7), so 1e-7 cannot hold; the tolerance is that one
+# norm step.
 QUAT_ATOL = 2.0 ** -23
 
 
@@ -127,6 +131,22 @@ def test_port_jitter_draw():
         norm = torch.linalg.vector_norm(st.bodies.quat[c], dim=-1)
         assert float((norm - 1).abs().max()) < 1e-6
     assert not torch.equal(st.bodies.pos[0], st.bodies.pos[1])
+
+
+def test_megachunk_grid_table_covers_footprint():
+    """Without a cfg, scene_pile_megachunks grows auto_config's grid table
+    to the chunk's footprint at the smallest cell the grid can take (an
+    upright box's AABB); at a few scenes a chunk it is auto_config's own,
+    as in the reference."""
+    b = pscenes.scene_pile_batch(64, 8)
+    _, cfg = pscenes.scene_pile_megachunks(1, 64, 8, device="cpu")
+    pos = np.asarray(b.pos)
+    span = pos.max(0) - pos.min(0)
+    cell = 2 * (0.5 + cfg.aabb_margin)
+    assert all(d * cell >= s for d, s in zip(cfg.grid_table_dims, span))
+    assert cfg.grid_table_dims[0] > b.auto_config().grid_table_dims[0]
+    _, small = pscenes.scene_pile_megachunks(1, 2, 8, device="cpu")
+    assert small == pscenes.scene_pile_batch(2, 8).auto_config()
 
 
 # --- parallel.mesh: the cases of tests/test_parallel.py without a mesh -------

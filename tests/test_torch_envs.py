@@ -10,7 +10,6 @@ import torch
 from nudge_tpu import envs as jenvs
 from nudge_tpu_torch.envs import BoxPushEnv, EnvState, vec_reset, vec_step
 from nudge_tpu_torch.parallel import mesh
-from nudge_tpu_torch.state import state_from_numpy, state_to_numpy
 
 from _torch_bridge import POS_ATOL, assert_close, jax_cfg, to_port_state
 
@@ -32,7 +31,7 @@ def test_reset_and_obs(env):
     assert 2.0 <= r <= env.goal_radius + 1e-5
     assert isinstance(s.replace(t=s.t + 1), EnvState)
     # an EnvState goes through the numpy bridge and back unchanged
-    back = state_from_numpy(state_to_numpy(s), "cpu")
+    back = to_port_state(s)
     assert isinstance(back, EnvState)
     assert torch.equal(back.goal, s.goal) and torch.equal(back.t, s.t)
     assert torch.equal(back.sim.bodies.pos, s.sim.bodies.pos)
