@@ -105,15 +105,33 @@ no result):
      kernel); 16 BoxPushEnvs for 20 vec_steps of a damped push toward
      their goals, every reward up by more than 0.5, then the three kernels
      against their twins at env 0's next step (2 bodies, sleeping on).
+ 18. the differentiable mode: each backward kernel against autograd of
+     its twin on the same inputs and a seeded output adjoint, twice
+     bitwise, with its device time and device operations a call: the
+     narrowphase's backward (box-box, and the per-collider segment sum) on
+     the pile's step-40 pairs and (the one-point kernel) on config 3's
+     step-120 pairs, setup's on the pile's step-40 manifolds, the solve's
+     there with its 6 colors and with 4 (the spill color's adjoint),
+     against its float64 twin; then 5 differentiable steps of the pile
+     (the state bitwise equal to 5 steps of the normal mode, the summed
+     height's gradient to the initial velocities and positions finite,
+     nonzero on every body in contact, two backward runs bitwise, times
+     and peak memory) and one step against the twins (the solve in
+     float64); 3 differentiable steps of config 3; the 4-body gradient of
+     tests/test_autodiff.py (central differences, gradient descent, the
+     CPU port's gradient); the ported examples diff_throw and policy_grad,
+     each to its JAX original's gain.
 
-Phases 5-7, 9-13, 15, 16 and 17 each zero the kernels' launch counts before
-they run and read them after, and run with the plain twins replaced by
-functions that raise: the main paths go through the kernels only. The
-record line gives each kernel's launches on the earlier slices' paths
-(`launches`), on each path of phases 16-17 (`launches_by_path`) and its
-comparison with its twin on each of those paths (`compare_by_path`; its
-`max_abs_err` is the largest of every comparison). Nothing is cut: every
-phase runs at the size its docstring gives (8-10 minutes on an H100).
+Phases 5-7, 9-13, 15, 16, 17 and 18 each zero the kernels' launch counts
+before they run and read them after, and run with the plain twins (in 18
+also the backward kernels' plain versions) replaced by functions that
+raise: the main paths go through the kernels only. The record line gives
+each kernel's launches on the earlier slices' paths (`launches`; the
+backward kernels': phase 18's pile, and config 3 for the one-point one),
+on each path of phases 16-18 (`launches_by_path`) and its comparison with
+its twin on each of those paths (`compare_by_path`; its `max_abs_err` is
+the largest of every comparison). Nothing is cut: every phase runs at the
+size its docstring gives.
 
 The last line of standard output is one JSON object
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
@@ -245,6 +263,14 @@ SETUP_OPS_PER_MANIFOLD = 2200
 # velw in and out.
 SOLVE_BYTES_PER_MANIFOLD = 556 + 64 + 4
 SOLVE_OPS_PER_MANIFOLD = 750
+# A backward kernel's bound counts the work the gradient needs, not the
+# work of the algorithm that computes it (the narrowphases and setup run
+# one forward-mode dual pass per input tangent, 14 or 61 of them): a
+# vector-Jacobian product needs the forward once and its adjoint, at most
+# a small multiple of the forward's operations (the cheap-gradient
+# principle; Griewank and Walther, Evaluating Derivatives, ch. 4). The
+# bound takes three times the forward's operations.
+BWD_OPS_FACTOR = 3
 
 TPU_KERNEL_OF = {
     "box_box": "nudge_tpu/ops/narrowphase_kernel.py:535",
@@ -252,6 +278,12 @@ TPU_KERNEL_OF = {
     "coloring": "nudge_tpu/ops/coloring_kernel.py:246",
     "setup": "nudge_tpu/ops/setup_kernel.py:476",
     "solve": "nudge_tpu/ops/solver_kernel.py:597",
+    # the backward kernels supply the gradient the TPU kernels never had
+    # (the reference differentiates their XLA twins instead)
+    "box_box_bwd": "nudge_tpu/ops/narrowphase_kernel.py:535",
+    "pairs_1pt_bwd": "nudge_tpu/ops/narrowphase_kernel.py:762",
+    "setup_bwd": "nudge_tpu/ops/setup_kernel.py:476",
+    "solve_bwd": "nudge_tpu/ops/solver_kernel.py:597",
 }
 SOURCE_OF = {
     "box_box": "nudge_tpu_torch/csrc/narrowphase.cu",
@@ -259,6 +291,10 @@ SOURCE_OF = {
     "coloring": "nudge_tpu_torch/csrc/coloring.cu",
     "setup": "nudge_tpu_torch/csrc/setup.cu",
     "solve": "nudge_tpu_torch/csrc/solve.cu",
+    "box_box_bwd": "nudge_tpu_torch/csrc/narrowphase.cu",
+    "pairs_1pt_bwd": "nudge_tpu_torch/csrc/narrowphase_1pt.cu",
+    "setup_bwd": "nudge_tpu_torch/csrc/setup.cu",
+    "solve_bwd": "nudge_tpu_torch/csrc/solve_bwd.cu",
 }
 
 
@@ -284,7 +320,9 @@ def phase_device():
 
 # the entry functions of nudge_tpu_torch/csrc/
 DEVICE_KERNELS = ("box_box_kernel", "pairs_1pt_kernel", "setup_kernel",
-                  "warm_apply_kernel", "solve_kernel", "color_kernel")
+                  "warm_apply_kernel", "solve_kernel", "color_kernel",
+                  "box_box_bwd_kernel", "pairs_1pt_bwd_kernel",
+                  "setup_bwd_kernel", "solve_bwd_kernel", "segment_sum_kernel")
 
 
 def ptxas_report(build_log):
@@ -383,14 +421,29 @@ def counters():
             "setup": setup_kernel.setup, "solve": solver_kernel.solve}
 
 
+def grad_counters():
+    """The launch-counting wrapper of each backward kernel (phase 18)."""
+    from nudge_tpu_torch.ops import narrowphase_1pt, setup_kernel
+    from nudge_tpu_torch.ops import narrowphase_kernel as npk
+    from nudge_tpu_torch.ops import solver_kernel
+
+    return {"box_box_bwd": npk.box_box_adjoint_cuda,
+            "pairs_1pt_bwd": narrowphase_1pt.pairs_1pt_adjoint_cuda,
+            "setup_bwd": setup_kernel.setup_backward_cuda,
+            "solve_bwd": solver_kernel.solve_backward_cuda}
+
+
 class KernelsOnly:
     """Zeroes every launch count on entry and, while active, replaces each
     kernel's plain twin with a function that raises: a run inside it goes
-    through the kernels or fails. `launches` holds the counts on exit."""
+    through the kernels or fails. `launches` holds the counts on exit.
+    With `backward`, the backward kernels' counts too, and their plain
+    versions (autograd of the twins, the segment sum's index_add) raise as
+    well."""
 
-    def __init__(self):
+    def __init__(self, backward=False):
         from nudge_tpu_torch.ops import coloring_kernel, contacts, narrowphase
-        from nudge_tpu_torch.ops import narrowphase_1pt, setup_kernel
+        from nudge_tpu_torch.ops import narrowphase_1pt, segment, setup_kernel
         from nudge_tpu_torch.ops import narrowphase_kernel as npk
         from nudge_tpu_torch.ops import solver_kernel
 
@@ -402,6 +455,13 @@ class KernelsOnly:
                       (coloring_kernel, "color_rounds_plain"),
                       (setup_kernel, "setup_plain"),
                       (solver_kernel, "solve_plain")]
+        self.counters = counters()
+        if backward:
+            self.twins += [(contacts, "narrowphase_backward_plain"),
+                           (setup_kernel, "setup_backward_plain"),
+                           (solver_kernel, "solve_backward_plain"),
+                           (segment, "segment_sum_plain")]
+            self.counters.update(grad_counters())
         self.saved = []
         self.launches = {}
 
@@ -409,7 +469,7 @@ class KernelsOnly:
         import torch
 
         torch.cuda.synchronize()
-        for fn in counters().values():
+        for fn in self.counters.values():
             fn.launches = 0
         for mod, name in self.twins:
             self.saved.append((mod, name, getattr(mod, name)))
@@ -426,7 +486,7 @@ class KernelsOnly:
         for mod, name, fn in self.saved:
             setattr(mod, name, fn)
         torch.cuda.synchronize()
-        self.launches = {k: fn.launches for k, fn in counters().items()}
+        self.launches = {k: fn.launches for k, fn in self.counters.items()}
         return False
 
 
@@ -836,7 +896,7 @@ def phase_compare_1pt(card, dev):
     dead row without a valid point; at most NP_ALL_OPS device operations a
     call. Then the one-point kernel's call as narrowphase_all makes it (its
     rows of those buffers): one kernel and nothing else, its times.
-    Returns the one-point record fields."""
+    Returns (the one-point record fields, the state it compared at)."""
     import torch
 
     from nudge_tpu_torch import engine
@@ -905,7 +965,7 @@ def phase_compare_1pt(card, dev):
     wc_bytes = sum(t.numel() * t.element_size() for t in wc)
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                 **bound(wc_bytes + n_slots * (1 + 4) + n_live * (8 + 112),
-                        n_live * PAIRS_1PT_OPS_PER_PAIR))
+                        n_live * PAIRS_1PT_OPS_PER_PAIR)), st
 
 
 def phase_config1(card, dev):
@@ -1877,6 +1937,797 @@ def phase_batch_api_envs(card, dev):
     return launches, records
 
 
+# --- phase 18: the differentiable mode ----------------------------------
+# Each backward kernel against autograd of its twin, on the same inputs and
+# the same seeded random output adjoint: every gradient tensor within
+# GRAD_RTOL of its own largest element. The backward kernels replay the
+# forward's own float operations, so kernel and twin take every branch
+# alike; what differs is the order of the float sums (a collider's or a
+# body's adjoint summed over its up to ~30 pairs or manifolds, a row's
+# adjoint over 20 sweeps, each term rounded to ~6e-8 of itself): measured
+# ~1e-6 of the largest element on a host build of the kernels, so 1e-4
+# leaves a factor of ~100 for the card's other sum orders.
+GRAD_RTOL = 1e-4
+GRAD_SEED = 18
+DIFF_STEPS = 5             # W: differentiable steps of the 20,480 pile
+BACKWARD_REPS = 3          # device_ms calls of a backward kernel
+# The 4-body test of tests/test_autodiff.py: scene_pile(4, seed=0),
+# max_colors 8, 12 sweeps, 12 steps, loss |pos[1] - (1, 0, 3)|^2; central
+# differences at eps 1e-3 in 2 directions of RandomState(1) within 8%;
+# 15 gradient-descent steps at lr 4 to below 0.3x the first loss.
+AUTODIFF_STEPS = 12
+AUTODIFF_TARGET = (1.0, 0.0, 3.0)
+FD_EPS = 1e-3
+FD_RTOL = 0.08
+GD_LR = 4.0
+GD_ITERS = 15
+GD_SHARE = 0.3
+# The card's 4-body gradient against the CPU port's: the two run the same
+# float operations except setup (within 1e-6 of its twin on the card) and
+# the color sweeps (the card skips the unused ones, exact no-ops), over 12
+# steps of contact. Measured on an H100: 1.49e-8 apart at max |g| 1.386
+# (1.1e-8 of it, PERF.md); the gate is 5e-8 of the largest element.
+CPU_GRAD_RTOL = 5e-8
+# The solve's backward is held to autograd of its float64 twin (from the
+# same float32 inputs): autograd of the float32 twin through 20 sweeps
+# loses ~1e-3 of the gradient's norm to cancellation (the twin's scatter
+# new = old + (new - old) passes +g and -g to old, and the sums grow to
+# ~1e3 times the output adjoint: 4.30 off at max |g| 1,656 at 4 colors),
+# while the kernel's reverse visit takes the write's exact derivative.
+# Field by field, against the field's largest element (this phase's
+# per-field log line, H100, the pile's step 40; PERF.md): at 6
+# colors the kernel is within 8.4e-7 everywhere; at 4 colors (the spill
+# color) within 8.3e-6 except at a few manifolds where the kernel agrees
+# with autograd of the float32 twin to ~4e-9 and both part from the
+# float64 twin (pos_bias up to 1.1e-4): there the float32 forward itself
+# parts from the float64 one, not the backward. So every element must be
+# within SOLVE64_RTOL (6 colors) or SPILL64_RTOL (4 colors) of the field's
+# largest element from the float64 twin, except, at 4 colors, a corner:
+# an element farther than SOLVE64_RTOL from the float64 twin but within
+# SOLVE64_RTOL of the float32 twin. Corners are counted and logged.
+SOLVE64_RTOL = 4e-6
+SPILL64_RTOL = 4e-5
+# One step of the pile through the kernels against one through the twins
+# with the solve in float64 (the rest of the twins in float32), both on
+# the card: the gradients with respect to the initial velocities and
+# positions. The two forwards can part where a box-box pair meets a
+# near-tie (phase 3 allows TIE_SHARE of the live pairs) and do in setup's
+# last bits, so the gate is on the norm: measured on an H100 2.63e-7
+# (d/dv) and 9.74e-8 (d/dx) relative L2 (PERF.md); the gate is 1e-6.
+W1_RTOL = 1e-6
+# The examples' gates, from their JAX originals run once on a CPU
+# (PERF.md): diff_throw reaches its 1e-3 stop at iteration 14 of 30 (final
+# loss 3e-5 from 4.95); policy_grad's mean return rises from -53.5 at the
+# first update to -29.7 at the 20th, 18.3 above the untrained policy's
+# ~-48 (HORIZON x 4). The port must stop below THROW_LOSS, and end with a
+# mean return more than POLICY_GAIN above both the untrained policy's and
+# its own first update's. Both run deterministically from fixed seeds.
+THROW_LOSS = 1e-3
+POLICY_GAIN = 10.0
+
+
+def grad_check(name, k, t, diff, rtol=GRAD_RTOL):
+    """Raise unless the kernel's gradient `k` is finite and within rtol of
+    the twin's `t` at its largest element; keep the largest error in
+    `diff` (a dict of err, share)."""
+    import torch
+
+    if k.numel() == 0:
+        return
+    if not bool(torch.isfinite(k).all()):
+        raise AssertionError(f"{name}: non-finite gradient from the kernel")
+    err = float((k - t).abs().max())
+    big = float(t.abs().max())
+    if not err <= rtol * big:
+        raise AssertionError(f"{name}: max |kernel - twin| {err:.3g} against "
+                             f"max |twin| {big:.3g} (tolerance {rtol:g} of "
+                             "it)")
+    diff["err"] = max(diff["err"], err)
+    diff["share"] = max(diff["share"], err / (rtol * big) if big else 0.0)
+
+
+def grad_check64(name, k, q, rtol, diff, t=None):
+    """Raise unless every element of the kernel's gradient `k` is finite
+    and within rtol of the field's largest element from the float64
+    twin's `q`, or is a corner: given the float32 twin's `t`, an element
+    farther than SOLVE64_RTOL from `q` but within it of `t` (both float32
+    runs agree, the float64 one parts). Keep in `diff` the largest error,
+    the largest share of the tolerance off the corners and where, the
+    corners' count and largest error, and each field's readings (the
+    kernel's and the float32 twin's largest distance to `q` over the
+    field's largest element)."""
+    import torch
+
+    if k.numel() == 0:
+        return
+    if not bool(torch.isfinite(k).all()):
+        raise AssertionError(f"{name}: non-finite gradient from the kernel")
+    big = float(q.abs().max())
+    e = (k.double() - q).abs()
+    corner = torch.zeros_like(e, dtype=torch.bool)
+    if t is not None:
+        corner = (e > SOLVE64_RTOL * big) & (
+            (k - t).abs() <= SOLVE64_RTOL * big)
+    bad = (e > rtol * big) & ~corner
+    if bool(bad.any()):
+        raise AssertionError(
+            f"{name}: {int(bad.sum())} elements of the kernel's gradient "
+            f"farther than {rtol:g} x {big:.4g} from the float64 twin's (max "
+            f"{float(e[bad].max()):.3g})")
+    err = float(e[~corner].max()) if bool((~corner).any()) else 0.0
+    diff["err"] = max(diff["err"], float(e.max()))
+    diff["corners"] = diff.get("corners", 0) + int(corner.sum())
+    if bool(corner.any()):
+        diff["corner_err"] = max(diff.get("corner_err", 0.0),
+                                 float(e[corner].max()))
+    scale = big if big else 1.0
+    reading = f"{name.split(' d')[-1]} {float(e.max()) / scale:.3g}"
+    if t is not None:
+        reading += f"/{float((t.double() - q).abs().max()) / scale:.3g}"
+    diff.setdefault("fields", []).append(reading)
+    share = err / (rtol * big) if big else 0.0
+    if share >= diff["share"]:
+        diff["share"], diff["worst"] = share, name
+
+
+def fmt_diff(diff):
+    return (f"max abs err {diff['err']:.3g} ({100 * diff['share']:.1f}% of "
+            f"{GRAD_RTOL:g} x the largest element)")
+
+
+def bitwise_again(name, first, again):
+    import torch
+
+    for x, y in zip(first, again):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{name}: two backward runs from one input "
+                                 "differ")
+
+
+def backward_record(ms, plain_ms, dev_ms, diff, n_bytes, n_ops):
+    return dict(max_abs_err=diff["err"], ms=ms, plain_ms=plain_ms,
+                device_ms=dev_ms, **bound(n_bytes, n_ops))
+
+
+def compare_np_backward(card, label, st, cfg, kernel):
+    """narrowphase_all's backward (`contacts.narrowphase_backward_cuda`:
+    the box-box and one-point backward kernels, then the per-collider
+    segment sum) against autograd of the joined twins, on the step's
+    candidate pairs from `st`, with a seeded output adjoint on every live
+    pair whose integer outputs the kernel and the twin agree on (a
+    near-tie's swapped points have another gradient). Twice bitwise.
+    `kernel` ("box_box" or "pairs_1pt") names the record, whose device
+    time is that backward kernel's alone. Returns the record."""
+    import torch
+
+    from nudge_tpu_torch.ops import broadphase, contacts, grid
+    from nudge_tpu_torch.ops import narrowphase_1pt as p1pt
+    from nudge_tpu_torch.ops import narrowphase_kernel as npk
+    from nudge_tpu_torch.utils import timing
+
+    dev = st.bodies.pos.device
+    wc = broadphase.world_colliders(st)
+    bb, bs, ss = grid.grid_broadphase(st, wc, cfg)
+    k = contacts.narrowphase_all(st, wc, bb, bs, ss, cfg)
+    p = contacts.narrowphase_joined_plain(st, wc, bb, bs, ss)
+    live = torch.cat([bb.valid, bs.valid, ss.valid])
+    same = live.clone()
+    for key in ("point_valid", "feat"):
+        same &= (k[key] == p[key]).all(1)
+    for key in ("body_a", "body_b"):
+        same &= k[key] == p[key]
+    n, n_bb = live.shape[0], bb.a.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(GRAD_SEED)
+    w = same.to(torch.float32)
+    grads = {key: torch.randn(shape, generator=gen, device=dev) * w.reshape(
+        (n,) + (1,) * len(shape[1:])) for key, shape in
+        (("pos", (n, 4, 3)), ("depth", (n, 4)), ("normal", (n, 3)))}
+    args = (st, wc, bb, bs, ss, grads)
+    kg = contacts.narrowphase_backward_cuda(*args)
+    bitwise_again(f"{label} backward", kg,
+                  contacts.narrowphase_backward_cuda(*args))
+    tg = contacts.narrowphase_backward_plain(*args)
+    torch.cuda.synchronize()
+    diff = {"err": 0.0, "share": 0.0}
+    for name, x, y in zip(("box_pos", "box_quat", "sph_pos"), kg, tg):
+        grad_check(f"{label} d{name}", x, y, diff)
+    ms = timed(lambda: contacts.narrowphase_backward_cuda(*args))
+    plain_ms = timed(lambda: contacts.narrowphase_backward_plain(*args), 1, 1)
+    n_live_bb = int(bb.valid.sum())
+    n_live_1 = int(live[n_bb:].sum())
+    if kernel == "box_box":
+        def call():
+            return npk.box_box_adjoint_cuda(
+                st.boxes, wc, bb, grads["pos"][:n_bb], grads["depth"][:n_bb],
+                grads["normal"][:n_bb])
+        n_edge = int((bb.valid & (p["feat"][:n_bb, 0] >= 1024)).sum())
+        # per slot its valid flag in and 14 adjoints out; per live pair two
+        # indices and 76 B of output adjoints in; BWD_OPS_FACTOR times the
+        # forward's operations
+        n_bytes = (sum(t.numel() * t.element_size() for t in wc)
+                   + n_bb * (1 + 56) + n_live_bb * (8 + 76))
+        n_ops = BWD_OPS_FACTOR * ((n_live_bb - n_edge) * BOXBOX_OPS_FACE
+                                  + n_edge * BOXBOX_OPS_EDGE)
+        n_item = f"{n_bb} pair slots, {n_live_bb} live"
+    else:
+        def call():
+            return p1pt.pairs_1pt_adjoint_cuda(
+                st.boxes, st.spheres, wc, bs, ss, grads["pos"][n_bb:],
+                grads["depth"][n_bb:], grads["normal"][n_bb:])
+        n_1 = n - n_bb
+        n_bytes = (sum(t.numel() * t.element_size() for t in wc)
+                   + n_1 * (1 + 56) + n_live_1 * (8 + 28))
+        n_ops = BWD_OPS_FACTOR * n_live_1 * PAIRS_1PT_OPS_PER_PAIR
+        n_item = f"{n_1} one-point slots, {n_live_1} live"
+    one_kernel(f"{kernel}_bwd", timing.device_ops(call))
+    dev_ms = timing.device_ms(call, BACKWARD_REPS)
+    rec = backward_record(ms, plain_ms, dev_ms, diff, n_bytes, n_ops)
+    log(card, f"{kernel}_bwd ({label}): {n_item}, {int(same.sum())} of "
+        f"{int(live.sum())} live rows with the twin's integers; {fmt_diff(diff)}; "
+        f"two runs bitwise; one kernel a call; wrapper (with the segment "
+        f"sum) {ms:.4f} ms, kernel device {dev_ms:.4f} ms, twin autograd "
+        f"{plain_ms:.3f} ms; bound {rec['bound_ms']:.5f} ms "
+        f"({rec['bound_by']})")
+    return rec
+
+
+def compare_setup_backward(card, label, inputs, cfg):
+    """setup's backward (`setup_backward_cuda`: the backward kernel, then
+    the per-body segment sum) against autograd of `setup_plain` and
+    `pack_constraints` on the step's inputs, with seeded adjoints of every
+    float row of the live slots, their accumulators, frames and velw.
+    Twice bitwise. Returns the record."""
+    import torch
+
+    from nudge_tpu_torch.ops import setup_kernel, solver_kernel
+    from nudge_tpu_torch.utils import timing
+
+    bodies, man, warm, pwarm, col, order = inputs
+    dev = bodies.pos.device
+    m, n = man.valid.shape[0], bodies.pos.shape[0]
+    live = torch.arange(m, device=dev) < order.offsets[cfg.max_colors]
+    gen = torch.Generator(device=dev).manual_seed(GRAD_SEED)
+    d_rows = torch.randn((solver_kernel.ROWS, m), generator=gen,
+                         device=dev) * live
+    off = solver_kernel.ROW_OFFSET
+    d_rows[off["relax"]:] = 0.0       # relax, point_valid, body ids
+    d_work = torch.randn((solver_kernel.WORK_ROWS, m), generator=gen,
+                         device=dev) * live
+    d_work[16:] = 0.0                 # scratch: overwritten by the solve
+    d_frame = torch.randn((2, m, 3), generator=gen, device=dev) \
+        * man.valid[None, :, None]
+    d_velw = torch.randn((n, solver_kernel.VEL_ROW), generator=gen,
+                         device=dev)
+    use = setup_kernel.uses_pwarm(pwarm, cfg)
+    args = (bodies, man, warm, pwarm, col[2], order, cfg, use, d_rows,
+            d_work, d_frame, d_velw)
+    kg = setup_kernel.setup_backward_cuda(*args)
+    bitwise_again("setup_bwd", kg, setup_kernel.setup_backward_cuda(*args))
+    pargs = (bodies, man, warm, cfg, col, pwarm, order, d_rows, d_work,
+             d_frame, d_velw)
+    tg = setup_kernel.setup_backward_plain(*pargs)
+    torch.cuda.synchronize()
+    diff = {"err": 0.0, "share": 0.0}
+    for name, x, y in zip(setup_kernel.GRAD_INPUTS, kg, tg):
+        grad_check(f"setup_bwd d{name}", x, y, diff)
+    ms = timed(lambda: setup_kernel.setup_backward_cuda(*args))
+    plain_ms = timed(lambda: setup_kernel.setup_backward_plain(*pargs), 1, 1)
+    call = lambda: setup_kernel.setup_backward_cuda(*args)  # noqa: E731
+    ops = timing.device_ops(call)
+    dev_ms = timing.device_ms(call, BACKWARD_REPS)
+    n_live = int(man.valid.sum())
+    # per live manifold the forward's inputs (156 B), the adjoints of its
+    # rows, accumulators and frame (~630 B) in, 61 adjoints out; per body
+    # velw's adjoint in and 13 adjoints out; BWD_OPS_FACTOR times the
+    # forward's ~2,200 operations a manifold
+    rec = backward_record(ms, plain_ms, dev_ms, diff,
+                          n_live * (156 + 630 + 61 * 4) + n * (48 + 52),
+                          n_live * BWD_OPS_FACTOR * SETUP_OPS_PER_MANIFOLD)
+    log(card, f"setup_bwd ({label}): {n_live} live manifolds; "
+        f"{fmt_diff(diff)}; two runs bitwise; a call enqueues "
+        f"{fmt_ops(ops)}; wrapper {ms:.4f} ms (device {dev_ms:.4f} ms), "
+        f"twin autograd {plain_ms:.3f} ms; bound {rec['bound_ms']:.5f} ms "
+        f"({rec['bound_by']})")
+    return rec
+
+
+class Deterministic:
+    """While active, torch's deterministic algorithms: the twins' index_add
+    sums in a fixed order on the card, so a twin's result (setup's warm
+    start, the solve's spill color) is the same on every run."""
+
+    def __enter__(self):
+        import torch
+
+        self.was = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.use_deterministic_algorithms(self.was)
+        return False
+
+
+def compare_solve_backward(card, label, inputs, cfg, spill=False):
+    """The solve's backward (`solve_backward_cuda`: the reverse-sweep
+    kernel, then the static bodies' segment sum) against autograd of
+    `solve_plain` in float64, from the twin's setup: the kernel side
+    differentiates `pack_constraints` (plain) into `SolveFn`, so both
+    return the adjoints of the twin's velw, constraint fields and
+    accumulators, from one seeded adjoint of the output velw and
+    accumulators. A static side's j rows and the inverse masses' and relax
+    rows are left out: their adjoints end at inverse masses and inertias
+    (no gradient), and the kernel gives them none. Each field within
+    SOLVE64_RTOL of its largest element; with `spill` (few colors: the
+    spill color's Jacobi adjoint) within SPILL64_RTOL, and autograd of the
+    float32 twin also runs, to tell the corners (grad_check64). Twice
+    bitwise. Returns the record, its error against the float64 twin."""
+    import torch
+
+    from nudge_tpu_torch.ops import setup_kernel, solver_kernel
+    from nudge_tpu_torch.utils import timing
+
+    bodies, man, warm, pwarm, col, order = inputs
+    dev = bodies.pos.device
+    with Deterministic():
+        tcon, tvelw, tacc = setup_kernel.setup_plain(bodies, man, warm, cfg,
+                                                     col, pwarm)
+    m, n = man.valid.shape[0], bodies.pos.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(GRAD_SEED)
+    g_v = torch.randn((n, solver_kernel.VEL_ROW), generator=gen, device=dev)
+    g_o = torch.randn((4, m, 4), generator=gen, device=dev) \
+        * man.valid[None, :, None]
+    fields = [f for f, _ in solver_kernel.ROW_FIELDS
+              if f not in ("body_a", "body_b", "point_valid")]
+    with Deterministic():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # the float64 twin from the same (float32) inputs: the reference
+        qv, qf, qa = solver_kernel.solve_backward_plain(
+            tvelw.double(), tcon.replace(**{f: getattr(tcon, f).double()
+                                            for f in fields}),
+            tuple(x.double() for x in tacc), cfg, g_v.double(), g_o.double())
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)  # one call: seconds
+        tv, tf, ta = None, {f: None for f in fields}, (None,) * 3
+        if spill:
+            tv, tf, ta = solver_kernel.solve_backward_plain(
+                tvelw, tcon, tacc, cfg, g_v, g_o)
+
+    def kernel_grads():
+        leaves = {f: getattr(tcon, f).detach().requires_grad_()
+                  for f in fields}
+        v = tvelw.detach().requires_grad_()
+        a = [x.detach().requires_grad_() for x in tacc]
+        packed, work = setup_kernel.pack_constraints(
+            tcon.replace(**leaves), tuple(a), order)
+        vo, ao, po = solver_kernel.solve_cuda(v, packed, work, cfg)
+        got = torch.autograd.grad([vo, *ao, po], [v, *leaves.values(), *a],
+                                  [g_v, *g_o], allow_unused=True)
+        return [torch.zeros_like(x) if g is None else g
+                for g, x in zip(got, [v, *leaves.values(), *a])]
+
+    kg = kernel_grads()
+    bitwise_again(f"solve_bwd ({label})", kg, kernel_grads())
+    torch.cuda.synchronize()
+    rtol = SPILL64_RTOL if spill else SOLVE64_RTOL
+    diff = {"err": 0.0, "share": 0.0}
+    grad_check64("solve_bwd dvelw", kg[0], qv, rtol, diff, tv)
+    dyn = {"a": tcon.im_a > 0.0, "b": tcon.im_b > 0.0}
+    for i, f in enumerate(fields):
+        if f in ("im_a", "im_b", "relax"):
+            continue
+        x, y, z = kg[1 + i], tf[f], qf[f]
+        if f.startswith("j"):
+            keep = dyn[f[-1]]
+            x, z = x[keep], z[keep]
+            y = None if y is None else y[keep]
+        grad_check64(f"solve_bwd d{f}", x, z, rtol, diff, y)
+    for i in range(3):
+        grad_check64(f"solve_bwd dacc{i}", kg[-3 + i], qa[i], rtol, diff,
+                     ta[i])
+    # the backward alone, from a tape of the same forward
+    packed, work = setup_kernel.pack_constraints(tcon, tacc, order)
+    tape = torch.empty((cfg.solver_iters, solver_kernel.TAPE_ROWS, m),
+                       dtype=torch.float32, device=dev)
+    solver_kernel._solve_launch(tvelw.clone(), packed, work.clone(), cfg,
+                                tape)
+
+    def call():
+        return solver_kernel.solve_backward_cuda(packed.rows, tape, packed,
+                                                 cfg, g_v, g_o)
+
+    ms = timed(call)
+    ops = timing.device_ops(call)
+    dev_ms = timing.device_ms(call, BACKWARD_REPS)
+    n_live = int(man.valid.sum())
+    corners = ""
+    if spill:
+        corners = (f"; {diff['corners']} corners (the kernel within "
+                   f"{SOLVE64_RTOL:g} of the float32 twin, max err "
+                   f"{diff.get('corner_err', 0.0):.3g} from the float64 twin)")
+    log(card, f"solve_bwd ({label}) by field, the largest distance to the "
+        f"float64 twin over the field's largest element, the kernel's"
+        + ("/the float32 twin's" if spill else "") + ": "
+        + ", ".join(diff["fields"]))
+    log(card, f"solve_bwd ({label}): {cfg.solver_iters} sweeps x "
+        f"{int(col[1])} colors ({int(col[3])} spilled) in reverse in one "
+        f"launch of a {solver_kernel.solve_bwd_cluster_size()}-CTA cluster; "
+        f"against the float64 twin max abs err {diff['err']:.3g} (max |g| "
+        f"{float(qv.abs().max()):.4g}), off the corners "
+        f"{100 * diff['share']:.1f}% of {rtol:g} x each field's largest "
+        f"element at most, at {diff['worst']}{corners}; two runs bitwise; a "
+        f"call enqueues {fmt_ops(ops)}; wrapper {ms:.3f} ms (device "
+        f"{dev_ms:.4f} ms), float64 twin autograd {plain_ms:.1f} ms")
+    # per live manifold and sweep its tape row (160 B) in; per live
+    # manifold the rows (556 B) and the accumulators' adjoint (64 B) in,
+    # the rows' and accumulators' adjoints (556 + 64 B) out; per body
+    # velw's adjoint in and out; BWD_OPS_FACTOR times the forward's ~750
+    # operations a visit
+    return backward_record(
+        ms, plain_ms, dev_ms, diff,
+        n_live * (cfg.solver_iters * 160 + 2 * (556 + 64)) + n * 2 * 48,
+        n_live * cfg.solver_iters * BWD_OPS_FACTOR * SOLVE_OPS_PER_MANIFOLD)
+
+
+def solve_plain64(velw, con, acc, cfg):
+    """solve_plain run in float64 on float32 inputs, its outputs rounded
+    back to float32 (autograd passes through both casts)."""
+    from nudge_tpu_torch.ops import solver_kernel
+
+    c = con.replace(**{f: getattr(con, f).double()
+                       for f, _ in solver_kernel.ROW_FIELDS
+                       if getattr(con, f).is_floating_point()})
+    v, a, p = solver_kernel.solve_plain(velw.double(), c,
+                                        tuple(x.double() for x in acc), cfg)
+    return v.float(), tuple(x.float() for x in a), p.float()
+
+
+class TwinsOnly:
+    """While active, every kernel wrapper's CUDA branch runs its plain twin
+    (tests/test_torch_kernels.py `_through_twins`), the solve's in float64
+    with `solve64`, and the narrowphase is the joined twins in place of
+    NarrowphaseFn: a differentiable step on the card is autograd through
+    the twins."""
+
+    def __init__(self, solve64=False):
+        self.solve64 = solve64
+
+    def __enter__(self):
+        from nudge_tpu_torch.ops import coloring_kernel as ck
+        from nudge_tpu_torch.ops import contacts, setup_kernel, solver_kernel
+        from nudge_tpu_torch.ops import narrowphase_kernel as npk
+
+        self.saved = []
+        for mod, name, fn in (
+                (npk, "box_box_slots_cuda", npk.box_box_slots_plain),
+                (contacts, "narrowphase_cuda",
+                 contacts.narrowphase_joined_plain),
+                (ck, "color_rounds_cuda", ck.color_rounds_plain),
+                (solver_kernel, "solve_cuda", solve_plain64 if self.solve64
+                 else solver_kernel.solve_plain),
+                (setup_kernel, "setup_cuda",
+                 lambda *a: setup_kernel.setup_plain(*a[:6]))):
+            self.saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def rollout_grad(st0, cfg, steps, loss_fn, repeat=True):
+    """(loss, d loss / d initial vel, d loss / d initial pos, final state,
+    seconds forward, seconds backward) of `steps` engine steps from `st0`;
+    with `repeat` the backward runs twice from the one graph and must give
+    the same bits."""
+    import torch
+
+    from nudge_tpu_torch import engine
+
+    vel = st0.bodies.vel.detach().clone().requires_grad_()
+    pos = st0.bodies.pos.detach().clone().requires_grad_()
+    st = st0.replace(bodies=st0.bodies.replace(vel=vel, pos=pos))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        st, _ = engine.step(st, cfg)
+    loss = loss_fn(st)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    gv, gp = torch.autograd.grad(loss, [vel, pos], retain_graph=repeat)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if repeat:
+        again = torch.autograd.grad(loss, [vel, pos])
+        bitwise_again("a rollout's backward", (gv, gp), again)
+    return loss.detach(), gv, gp, st, t1 - t0, t2 - t1
+
+
+def dynamic_height(st):
+    import torch
+
+    b = st.bodies
+    return torch.sum(torch.where(b.inv_mass > 0.0, b.pos[:, 1], 0.0))
+
+
+def phase_grad_pile(card, pile_state):
+    """Phase 18 at full width: DIFF_STEPS differentiable steps of the
+    20,480 pile from phase 3's state through the kernels (the twins
+    raising), loss the summed height of the dynamic bodies, backward to
+    the initial velocities and positions through the backward kernels,
+    twice bitwise; the state bitwise equal to DIFF_STEPS steps of the
+    normal mode; one step's gradient against the twins' on the card.
+    Returns the launches."""
+    import torch
+
+    from nudge_tpu_torch import engine, scenes
+    from nudge_tpu_torch.ops import contacts, solver_kernel
+
+    b = scenes.scene_pile(N_PILE)
+    cfg = pile_config(b, N_PILE)
+    dcfg = cfg.replace(differentiable=True)
+    plain, _ = engine.simulate(clone_state(pile_state), cfg, DIFF_STEPS)
+    st0 = clone_state(pile_state)
+    man0, _ = contacts.collide(st0, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with KernelsOnly(backward=True) as run:
+        loss, gv, gp, st, t_fwd, t_bwd = rollout_grad(st0, dcfg, DIFF_STEPS,
+                                                      dynamic_height)
+    peak = torch.cuda.max_memory_allocated()
+    need_launches("pile gradient", run.launches,
+                  ("box_box", "setup", "solve", "box_box_bwd", "setup_bwd",
+                   "solve_bwd"))
+    if not same_state(plain, st):
+        raise AssertionError("the differentiable mode's forward differs from "
+                             "the normal mode's")
+    if not (bool(torch.isfinite(gv).all()) and bool(torch.isfinite(gp).all())):
+        raise AssertionError("pile gradient: not finite")
+    dyn = pile_state.bodies.inv_mass > 0.0
+    touched = torch.zeros_like(dyn)
+    for side in (man0.body_a, man0.body_b):
+        touched[side[man0.valid].long()] = True
+    touched &= dyn
+    zero = touched & (gv.abs().sum(1) == 0.0)
+    if int(touched.sum()) == 0 or bool(zero.any()):
+        raise AssertionError(f"pile gradient: {int(zero.sum())} of "
+                             f"{int(touched.sum())} bodies in contact have a "
+                             "zero velocity gradient")
+    tape_mb = (DIFF_STEPS * cfg.solver_iters * solver_kernel.TAPE_ROWS
+               * cfg.max_manifolds * 4 / 1e6)
+    log(card, f"pile gradient: {DIFF_STEPS} differentiable steps of the "
+        f"{N_PILE}-box pile from step {COMPARE_AFTER}, loss (summed height) "
+        f"{float(loss):.6g}; forward {1e3 * t_fwd / DIFF_STEPS:.2f} ms a "
+        f"step, backward {1e3 * t_bwd / DIFF_STEPS:.2f} ms a step; tapes "
+        f"{tape_mb:.1f} MB; peak memory {peak / 1e9:.3f} GB "
+        f"({(peak - base) / 1e9:.3f} GB above the state); gradient finite, "
+        f"nonzero on all {int(touched.sum())} dynamic bodies in contact, "
+        f"max |d/dv| {float(gv.abs().max()):.4g}, max |d/dx| "
+        f"{float(gp.abs().max()):.4g}; two backward runs bitwise; the state "
+        f"bitwise equal to {DIFF_STEPS} steps of the normal mode; launches "
+        f"{run.launches}")
+    launches = {f"pile gradient ({DIFF_STEPS} steps)": run.launches}
+
+    # one step through the kernels against one through the twins
+    with KernelsOnly(backward=True):
+        _, kv, kp, _, _, _ = rollout_grad(clone_state(pile_state), dcfg, 1,
+                                          dynamic_height)
+    # the twins sweep the colors the step uses (the normal mode's count):
+    # the same values and gradient as the static max_colors sweep
+    # (tests/test_torch_autodiff.py), a quarter of the passes
+    t0 = time.perf_counter()
+    with TwinsOnly(solve64=True):
+        _, qv, qp, _, _, _ = rollout_grad(clone_state(pile_state), cfg, 1,
+                                          dynamic_height, repeat=False)
+    t_twin = time.perf_counter() - t0
+    errs = []
+    for name, x, y in (("d/dv", kv, qv), ("d/dx", kp, qp)):
+        r = float(torch.linalg.norm(x - y) / torch.linalg.norm(y))
+        errs.append(f"{name}: {r:.3g} relative L2 (max abs "
+                    f"{float((x - y).abs().max()):.3g} of "
+                    f"{float(y.abs().max()):.4g})")
+        if not r <= W1_RTOL:
+            raise AssertionError(f"pile gradient, one step: {name} relative "
+                                 f"L2 {r:.3g} from the twins' (tolerance "
+                                 f"{W1_RTOL:g})")
+    log(card, f"pile gradient, one step, against the twins on the card with "
+        f"the solve in float64 ({t_twin:.1f} s): " + "; ".join(errs))
+    return launches
+
+
+def phase_grad_mixed(card, mixed_state):
+    """Config 3 differentiates on the card: 3 steps from phase 3's state
+    (box-box and the one-point kernels and their backward), the twins
+    raising. Returns the launches."""
+    import torch
+
+    b, cfg = mixed_scene()
+    with KernelsOnly(backward=True) as run:
+        loss, gv, gp, _, t_fwd, t_bwd = rollout_grad(
+            clone_state(mixed_state), cfg.replace(differentiable=True), 3,
+            dynamic_height)
+    need_launches("config 3 gradient", run.launches,
+                  ("box_box", "pairs_1pt", "setup", "solve", "box_box_bwd",
+                   "pairs_1pt_bwd", "setup_bwd", "solve_bwd"))
+    if not (bool(torch.isfinite(gv).all()) and bool(torch.isfinite(gp).all())):
+        raise AssertionError("config 3 gradient: not finite")
+    log(card, f"config 3 gradient: 3 steps from step {MIXED_COMPARE_AFTER}, "
+        f"forward {1e3 * t_fwd / 3:.2f} ms a step, backward "
+        f"{1e3 * t_bwd / 3:.2f} ms a step, finite; launches {run.launches}")
+    return {"config 3 gradient (3 steps)": run.launches}
+
+
+def phase_grad_small(card, dev):
+    """tests/test_autodiff.py on the card, through the kernels (the twins
+    raising): the 4-body gradient finite and nonzero on body 1, central
+    differences, gradient descent; then the same gradient from the CPU
+    port. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from nudge_tpu_torch import engine, scenes
+
+    b = scenes.scene_pile(4, seed=0)
+    cfg = b.auto_config(differentiable=True, max_colors=8, solver_iters=12)
+
+    def value_and_grad(st0, vel0, cfg=cfg):
+        v = vel0.detach().clone().requires_grad_()
+        st = st0.replace(bodies=st0.bodies.replace(vel=v))
+        for _ in range(AUTODIFF_STEPS):
+            st, _ = engine.step(st, cfg)
+        target = torch.tensor(AUTODIFF_TARGET, device=v.device)
+        loss = torch.sum((st.bodies.pos[1] - target) ** 2)
+        (g,) = torch.autograd.grad(loss, v)
+        return float(loss.detach()), g
+
+    st0 = b.finalize(cfg, device=dev)
+    t0 = time.perf_counter()
+    with KernelsOnly(backward=True) as run:
+        l0, g = value_and_grad(st0, st0.bodies.vel)
+        if not (np.isfinite(l0) and bool(torch.isfinite(g).all())
+                and float(torch.linalg.norm(g[1])) > 1e-4):
+            raise AssertionError(f"4-body gradient: loss {l0}, |g[1]| "
+                                 f"{float(torch.linalg.norm(g[1]))}")
+        v0 = st0.bodies.vel.double().cpu().numpy()
+        gd = g.double().cpu().numpy()
+        rng = np.random.RandomState(1)
+        fds = []
+        for _ in range(2):
+            d = rng.randn(*v0.shape)
+            d /= np.linalg.norm(d)
+            lp, _ = value_and_grad(st0, torch.tensor(v0 + FD_EPS * d,
+                                                     dtype=torch.float32,
+                                                     device=dev))
+            lm, _ = value_and_grad(st0, torch.tensor(v0 - FD_EPS * d,
+                                                     dtype=torch.float32,
+                                                     device=dev))
+            fd = (lp - lm) / (2 * FD_EPS)
+            an = float(np.sum(gd * d))
+            fds.append((fd, an))
+            if abs(fd - an) > FD_RTOL * max(abs(fd), abs(an), 1e-6):
+                raise AssertionError(f"4-body gradient: central difference "
+                                     f"{fd} against {an}")
+        v = st0.bodies.vel
+        best = l0
+        for _ in range(GD_ITERS):
+            lv, gv = value_and_grad(st0, v)
+            best = min(best, lv)
+            v = v - GD_LR * gv
+        best = min(best, value_and_grad(st0, v)[0])
+    t_card = time.perf_counter() - t0
+    if not best < GD_SHARE * l0:
+        raise AssertionError(f"4-body gradient descent: best loss {best} from "
+                             f"{l0}")
+    # the CPU port sweeps the colors the scene uses: the static sweep's
+    # value and gradient bit for bit (tests/test_torch_autodiff.py), faster
+    t0 = time.perf_counter()
+    cpu0 = b.finalize(cfg, device="cpu")
+    lc, gc = value_and_grad(cpu0, cpu0.bodies.vel,
+                            cfg.replace(differentiable=False))
+    t_cpu = time.perf_counter() - t0
+    err = float((g.cpu() - gc).abs().max())
+    big = float(gc.abs().max())
+    if not err <= CPU_GRAD_RTOL * big:
+        raise AssertionError(f"4-body gradient: card against the CPU port "
+                             f"{err:.3g} of {big:.3g}")
+    log(card, f"4-body gradient (tests/test_autodiff.py): loss {l0:.7g} "
+        f"(CPU port {lc:.7g}), |g[1]| {float(torch.linalg.norm(g[1])):.4g}; "
+        f"central differences " + ", ".join(
+            f"{fd:.5g} vs {an:.5g}" for fd, an in fds)
+        + f" (within {FD_RTOL:g}); gradient descent best {best:.4g} from "
+        f"{l0:.4g}; the card's gradient within {err:.3g} of the CPU port's "
+        f"(max |g| {big:.4g}); {t_card:.1f} s on the card "
+        f"({2 + 4 + GD_ITERS + 1} gradients), {t_cpu:.1f} s for one on the "
+        f"CPU; launches {run.launches}")
+    return {"4-body gradient (test_autodiff)": run.launches}
+
+
+def phase_grad_examples(card):
+    """The ported examples on the card, the twins raising: diff_throw's
+    loss below THROW_LOSS, policy_grad's final mean return POLICY_GAIN
+    above its first update's and the untrained policy's. Returns the
+    launches."""
+    import numpy as np
+
+    from nudge_tpu_torch.examples import diff_throw, policy_grad
+
+    launches = {}
+    with KernelsOnly(backward=True) as run:
+        throw = diff_throw.main(["--device", "cuda"])
+    launches["diff_throw"] = run.launches
+    if not throw["final_loss"] < THROW_LOSS:
+        raise AssertionError(f"diff_throw: final loss {throw['final_loss']}")
+    log(card, f"diff_throw: {len(throw['loss'])} iterations of "
+        f"{diff_throw.STEPS} steps, loss " + " ".join(
+            f"{x:.4g}" for x in throw["loss"])
+        + f", final {throw['final_loss']:.3g}; "
+        f"{np.mean(throw['seconds']):.3f} s an iteration; launches "
+        f"{run.launches}")
+    with KernelsOnly(backward=True) as run:
+        pg = policy_grad.main(["--device", "cuda"])
+    launches["policy_grad"] = run.launches
+    gain = pg["return"][-1] - pg["return"][0]
+    untrained = -policy_grad.HORIZON * 4.0
+    if not (gain > POLICY_GAIN
+            and pg["return"][-1] > untrained + POLICY_GAIN):
+        raise AssertionError(f"policy_grad: mean return "
+                             f"{pg['return'][0]} -> {pg['return'][-1]}")
+    log(card, f"policy_grad: {len(pg['return'])} updates of "
+        f"{policy_grad.BATCH} rollouts, mean return " + " ".join(
+            f"{x:.3f}" for x in pg["return"])
+        + f" (gain {gain:.3f}); {np.mean(pg['seconds']):.3f} s an update; "
+        f"launches {run.launches}")
+    return launches
+
+
+def phase_grad(card, dev, pile_state, mixed_state):
+    """Phase 18, the differentiable mode. Returns (backward kernel records,
+    launches by path)."""
+    from nudge_tpu_torch import scenes
+
+    t0 = time.perf_counter()
+    b = scenes.scene_pile(N_PILE)
+    cfg = pile_config(b, N_PILE)
+    records = {"box_box_bwd": compare_np_backward(
+        card, f"awake pile, step {COMPARE_AFTER}", pile_state, cfg,
+        "box_box")}
+    _, mcfg = mixed_scene()
+    records["pairs_1pt_bwd"] = compare_np_backward(
+        card, f"config 3, step {MIXED_COMPARE_AFTER}", mixed_state, mcfg,
+        "pairs_1pt")
+    inputs = step_inputs(pile_state, cfg)
+    label = f"awake pile, step {COMPARE_AFTER}"
+    records["setup_bwd"] = compare_setup_backward(card, label, inputs, cfg)
+    records["solve_bwd"] = compare_solve_backward(card, label, inputs, cfg)
+    # the spill color's adjoint at full size
+    from nudge_tpu_torch.ops import solver, solver_kernel
+
+    bodies, man, warm, pwarm, _, _ = inputs
+    scfg = cfg.replace(max_colors=SPILL_COLORS)
+    scol = solver.color_manifolds(man, bodies, scfg)
+    sorder = solver_kernel.color_order(man, bodies, scol, scfg)
+    spill = compare_solve_backward(
+        card, f"{label}, {SPILL_COLORS} colors",
+        (bodies, man, warm, pwarm, scol, sorder), scfg, spill=True)
+    records["solve_bwd"]["max_abs_err"] = max(
+        records["solve_bwd"]["max_abs_err"], spill["max_abs_err"])
+    launches = phase_grad_pile(card, pile_state)
+    launches.update(phase_grad_mixed(card, mixed_state))
+    launches.update(phase_grad_small(card, dev))
+    t1 = time.perf_counter()
+    launches.update(phase_grad_examples(card))
+    t2 = time.perf_counter()
+    log(card, f"phase 18: {t2 - t0:.1f} s, of which the two examples at "
+        f"their originals' iteration counts {t2 - t1:.1f} s")
+    return records, launches
+
+
 def main():
     sys.path.insert(0, REPO)
     import torch
@@ -1885,7 +2736,7 @@ def main():
     dev = torch.device("cuda", 0)
     phase_build(card)
     records, pile_state = phase_compare(card, dev)
-    records["pairs_1pt"] = phase_compare_1pt(card, dev)
+    records["pairs_1pt"], mixed_state = phase_compare_1pt(card, dev)
     phase_config1(card, dev)
     phase_slice(card, dev)
     phase_mixed(card, dev)
@@ -1911,12 +2762,20 @@ def main():
     got, more = phase_batch_api_envs(card, dev)
     by_path.update(got)
     compared.update(more)
+    # this slice's paths: the differentiable mode
+    grads, got = phase_grad(card, dev, pile_state, mixed_state)
+    records.update(grads)
+    by_path.update(got)
+    launches.update({k: got[f"pile gradient ({DIFF_STEPS} steps)"][k]
+                     for k in grads})
+    launches["pairs_1pt_bwd"] = got["config 3 gradient (3 steps)"][
+        "pairs_1pt_bwd"]
     kernels = []
     for k in TPU_KERNEL_OF:
         rec = dict(name=k, route="cuda", source=SOURCE_OF[k],
                    replaces=TPU_KERNEL_OF[k], launches=launches[k],
                    **records[k])
-        rec["launches_by_path"] = {p: n[k] for p, n in by_path.items()}
+        rec["launches_by_path"] = {p: n.get(k, 0) for p, n in by_path.items()}
         at = {p: r[k] for p, r in compared.items() if k in r}
         if at:
             rec["compare_by_path"] = at

@@ -32,16 +32,24 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 # C entry points and their argument types (pointers and the stream are
 # c_void_p, counts c_int, physics constants c_float). Each returns the
-# cudaError_t of its launches, except nudge_solve_cluster, which returns the
-# solve's cluster size (0 on error).
+# cudaError_t of its launches, except nudge_solve_cluster and
+# nudge_solve_bwd_cluster, which return the cluster size of the solve and of
+# its backward (0 on error).
 _SIGNATURES = {
     "nudge_box_box": [_P] * 8 + [_I] + [_P] * 10 + [_P],
     "nudge_setup": [_P] * 23 + [_I] * 3 + [_F] * 9 + [_I] * 3 + [_P] * 4
                    + [_P],
-    "nudge_solve": [_P] * 12 + [_I] * 5 + [_P],
+    "nudge_solve": [_P] * 12 + [_I] * 5 + [_P] + [_P],
+    "nudge_solve_bwd": [_P] * 15 + [_I] * 4 + [_P],
+    "nudge_solve_bwd_cluster": [],
     "nudge_solve_cluster": [],
     "nudge_pairs_1pt": [_P] * 15 + [_I] * 3 + [_P] * 10 + [_P],
     "nudge_color_rounds": [_P] * 5 + [_I] * 3 + [_P] * 2 + [_P],
+    "nudge_box_box_bwd": [_P] * 6 + [_I] + [_P] * 4 + [_P],
+    "nudge_pairs_1pt_bwd": [_P] * 11 + [_I] * 2 + [_P] * 4 + [_P],
+    "nudge_segment_sum": [_P] * 3 + [_I] * 4 + [_P] + [_P],
+    "nudge_setup_bwd": [_P] * 17 + [_I] * 2 + [_F] * 9 + [_I] * 3 + [_P] * 10
+                       + [_P],
 }
 
 

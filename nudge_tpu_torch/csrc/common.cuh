@@ -10,36 +10,70 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-struct V3 {
-  float x, y, z;
-};
+// The helpers are templates over the scalar type: float in the forward
+// kernels, the forward-mode dual number of dual.cuh in the backward
+// kernels, which run the forward's own math with a tangent beside each
+// value. V3, Q4 and M3 are the float instances.
 
-__device__ __forceinline__ V3 v3(float x, float y, float z) {
-  V3 r;
+template <typename T>
+struct Vec3 {
+  T x, y, z;
+};
+template <typename T>
+struct Quat {
+  T x, y, z, w;
+};
+template <typename T>
+struct Mat3 {
+  T m[3][3];
+};
+using V3 = Vec3<float>;
+using Q4 = Quat<float>;
+using M3 = Mat3<float>;
+
+template <typename T>
+__device__ __forceinline__ Vec3<T> v3(T x, T y, T z) {
+  Vec3<T> r;
   r.x = x;
   r.y = y;
   r.z = z;
   return r;
 }
 __device__ __forceinline__ V3 load3(const float* p) { return v3(p[0], p[1], p[2]); }
-__device__ __forceinline__ void store3(float* p, V3 a) {
+template <typename T>
+__device__ __forceinline__ void store3(float* p, Vec3<T> a) {
   p[0] = a.x;
   p[1] = a.y;
   p[2] = a.z;
 }
-__device__ __forceinline__ V3 add(V3 a, V3 b) { return v3(a.x + b.x, a.y + b.y, a.z + b.z); }
-__device__ __forceinline__ V3 sub(V3 a, V3 b) { return v3(a.x - b.x, a.y - b.y, a.z - b.z); }
-__device__ __forceinline__ V3 scale(V3 a, float s) { return v3(a.x * s, a.y * s, a.z * s); }
-__device__ __forceinline__ V3 neg(V3 a) { return v3(-a.x, -a.y, -a.z); }
-__device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
-__device__ __forceinline__ V3 cross(V3 a, V3 b) {
+template <typename T>
+__device__ __forceinline__ Vec3<T> add(Vec3<T> a, Vec3<T> b) {
+  return v3(a.x + b.x, a.y + b.y, a.z + b.z);
+}
+template <typename T>
+__device__ __forceinline__ Vec3<T> sub(Vec3<T> a, Vec3<T> b) {
+  return v3(a.x - b.x, a.y - b.y, a.z - b.z);
+}
+template <typename T, typename S>
+__device__ __forceinline__ Vec3<T> scale(Vec3<T> a, S s) {
+  return v3<T>(a.x * s, a.y * s, a.z * s);
+}
+template <typename T>
+__device__ __forceinline__ Vec3<T> neg(Vec3<T> a) {
+  return v3(-a.x, -a.y, -a.z);
+}
+template <typename T>
+__device__ __forceinline__ T dot(Vec3<T> a, Vec3<T> b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z;
+}
+template <typename T>
+__device__ __forceinline__ Vec3<T> cross(Vec3<T> a, Vec3<T> b) {
   return v3(a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x);
 }
-__device__ __forceinline__ float get(V3 a, int i) { return i == 0 ? a.x : (i == 1 ? a.y : a.z); }
-
-struct Q4 {
-  float x, y, z, w;
-};
+template <typename T>
+__device__ __forceinline__ T get(Vec3<T> a, int i) {
+  return i == 0 ? a.x : (i == 1 ? a.y : a.z);
+}
 
 __device__ __forceinline__ Q4 load4(const float* p) {
   Q4 q;
@@ -50,18 +84,36 @@ __device__ __forceinline__ Q4 load4(const float* p) {
   return q;
 }
 
+// The twins' clamps and selections, as float operations. Their dual
+// versions (dual.cuh) carry the derivative autograd gives the twin's op at
+// the same inputs: clamp_min/clamp_max (torch.clamp_min/clamp_max with a
+// scalar bound) pass the gradient where x >= c / x <= c; maximum/minimum
+// (torch.maximum/minimum) split it in halves at a tie; absv (torch.abs)
+// takes sign(x), 0 at 0.
+__device__ __forceinline__ float clamp_min(float x, float c) { return fmaxf(x, c); }
+__device__ __forceinline__ float clamp_max(float x, float c) { return fminf(x, c); }
+__device__ __forceinline__ float maximum(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ float minimum(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ float absv(float x) { return fabsf(x); }
+__device__ __forceinline__ float sqrtv(float x) { return sqrtf(x); }
+__device__ __forceinline__ bool finite(float x) { return isfinite(x); }
+// the value of a scalar (the dual's primal)
+__device__ __forceinline__ float val(float x) { return x; }
+
 // v + 2 (w (u×v) + u×(u×v)), u = q.xyz  (mathx.quat_rotate)
-__device__ __forceinline__ V3 quat_rotate(Q4 q, V3 v) {
-  V3 u = v3(q.x, q.y, q.z);
-  V3 uv = cross(u, v);
-  V3 uuv = cross(u, uv);
-  return v3(v.x + 2.0f * (q.w * uv.x + uuv.x), v.y + 2.0f * (q.w * uv.y + uuv.y),
-            v.z + 2.0f * (q.w * uv.z + uuv.z));
+template <typename T>
+__device__ __forceinline__ Vec3<T> quat_rotate(Quat<T> q, Vec3<T> v) {
+  Vec3<T> u = v3(q.x, q.y, q.z);
+  Vec3<T> uv = cross(u, v);
+  Vec3<T> uuv = cross(u, uv);
+  return v3<T>(v.x + 2.0f * (q.w * uv.x + uuv.x), v.y + 2.0f * (q.w * uv.y + uuv.y),
+               v.z + 2.0f * (q.w * uv.z + uuv.z));
 }
 
 // rotation by the conjugate: u -> -u, w -> w·1 (mathx.quat_rotate_inv)
-__device__ __forceinline__ V3 quat_rotate_inv(Q4 q, V3 v) {
-  Q4 c;
+template <typename T>
+__device__ __forceinline__ Vec3<T> quat_rotate_inv(Quat<T> q, Vec3<T> v) {
+  Quat<T> c;
   c.x = -q.x;
   c.y = -q.y;
   c.z = -q.z;
@@ -70,22 +122,20 @@ __device__ __forceinline__ V3 quat_rotate_inv(Q4 q, V3 v) {
 }
 
 // R · (I⁻¹_diag ⊙ (Rᵀ v))  (solver._inv_inertia_apply)
-__device__ __forceinline__ V3 inv_inertia_apply(Q4 q, V3 ii, V3 v) {
-  V3 l = quat_rotate_inv(q, v);
+template <typename T>
+__device__ __forceinline__ Vec3<T> inv_inertia_apply(Quat<T> q, Vec3<T> ii, Vec3<T> v) {
+  Vec3<T> l = quat_rotate_inv(q, v);
   return quat_rotate(q, v3(ii.x * l.x, ii.y * l.y, ii.z * l.z));
 }
 
-struct M3 {
-  float m[3][3];
-};
-
 // mathx.quat_to_mat: columns are the body axes in world
-__device__ __forceinline__ M3 quat_to_mat(Q4 q) {
-  float x = q.x, y = q.y, z = q.z, w = q.w;
-  float xx = x * x, yy = y * y, zz = z * z;
-  float xy = x * y, xz = x * z, yz = y * z;
-  float wx = w * x, wy = w * y, wz = w * z;
-  M3 r;
+template <typename T>
+__device__ __forceinline__ Mat3<T> quat_to_mat(Quat<T> q) {
+  T x = q.x, y = q.y, z = q.z, w = q.w;
+  T xx = x * x, yy = y * y, zz = z * z;
+  T xy = x * y, xz = x * z, yz = y * z;
+  T wx = w * x, wy = w * y, wz = w * z;
+  Mat3<T> r;
   r.m[0][0] = 1.0f - 2.0f * (yy + zz);
   r.m[0][1] = 2.0f * (xy - wz);
   r.m[0][2] = 2.0f * (xz + wy);
@@ -99,26 +149,30 @@ __device__ __forceinline__ M3 quat_to_mat(Q4 q) {
 }
 
 // M @ v, terms in index order
-__device__ __forceinline__ V3 mv(const M3& M, V3 v) {
-  return v3(M.m[0][0] * v.x + M.m[0][1] * v.y + M.m[0][2] * v.z,
-            M.m[1][0] * v.x + M.m[1][1] * v.y + M.m[1][2] * v.z,
-            M.m[2][0] * v.x + M.m[2][1] * v.y + M.m[2][2] * v.z);
+template <typename T>
+__device__ __forceinline__ Vec3<T> mv(const Mat3<T>& M, Vec3<T> v) {
+  return v3<T>(M.m[0][0] * v.x + M.m[0][1] * v.y + M.m[0][2] * v.z,
+               M.m[1][0] * v.x + M.m[1][1] * v.y + M.m[1][2] * v.z,
+               M.m[2][0] * v.x + M.m[2][1] * v.y + M.m[2][2] * v.z);
 }
 
 // Mᵀ @ v
-__device__ __forceinline__ V3 mtv(const M3& M, V3 v) {
-  return v3(M.m[0][0] * v.x + M.m[1][0] * v.y + M.m[2][0] * v.z,
-            M.m[0][1] * v.x + M.m[1][1] * v.y + M.m[2][1] * v.z,
-            M.m[0][2] * v.x + M.m[1][2] * v.y + M.m[2][2] * v.z);
+template <typename T>
+__device__ __forceinline__ Vec3<T> mtv(const Mat3<T>& M, Vec3<T> v) {
+  return v3<T>(M.m[0][0] * v.x + M.m[1][0] * v.y + M.m[2][0] * v.z,
+               M.m[0][1] * v.x + M.m[1][1] * v.y + M.m[2][1] * v.z,
+               M.m[0][2] * v.x + M.m[1][2] * v.y + M.m[2][2] * v.z);
 }
 
-// Duff et al. branch-free tangent basis (mathx.orthonormal_basis)
-__device__ __forceinline__ void orthonormal_basis(V3 n, V3* t1, V3* t2) {
+// Duff et al. branch-free tangent basis (mathx.orthonormal_basis); the sign
+// is a constant of the twin's torch.where, with no gradient
+template <typename T>
+__device__ __forceinline__ void orthonormal_basis(Vec3<T> n, Vec3<T>* t1, Vec3<T>* t2) {
   float sign = n.z >= 0.0f ? 1.0f : -1.0f;
-  float a = -1.0f / (sign + n.z);
-  float b = n.x * n.y * a;
-  *t1 = v3(1.0f + sign * n.x * n.x * a, sign * b, -sign * n.x);
-  *t2 = v3(b, sign + n.y * n.y * a, -n.y);
+  T a = -1.0f / (sign + n.z);
+  T b = n.x * n.y * a;
+  *t1 = v3<T>(1.0f + sign * n.x * n.x * a, sign * b, -sign * n.x);
+  *t2 = v3<T>(b, sign + n.y * n.y * a, -n.y);
 }
 
 // Body velocity state of the kernel path: one row of 12 floats per body,
@@ -167,6 +221,12 @@ constexpr int kWorkAccT2 = 8;
 constexpr int kWorkAccP = 12;
 constexpr int kWorkScratch = 16;
 constexpr int kWorkRows = 40;
+
+// The solve's tape (differentiable mode only): at each visit of a live slot,
+// the state the visit starts from, field-major per sweep: tape[(it *
+// kTapeRows + f) * M + s], f = side a's velw row (0-11), side b's (12-23),
+// the slot's accumulators (24-39). A slot is visited once a sweep.
+constexpr int kTapeRows = 2 * kVelRow + 16;
 
 constexpr int kThreads = 128;
 

@@ -26,6 +26,10 @@
 // row 0 of this launch's rows: contacts.narrowphase_all passes the rows
 // after box-box's of its joined buffers.
 //
+// The per-pair math, one_point, is a template over its scalar type: floats
+// in the forward, the dual numbers of dual.cuh in pairs_1pt_bwd_kernel
+// (the differentiable mode's backward).
+//
 // What bounds it on an H100: latency, not bytes or operations. A live pair
 // reads two collider records (at most 48 + 24 bytes) by scattered index,
 // does ~200 float operations and writes 116 bytes; a dead slot reads 1 byte
@@ -36,7 +40,7 @@
 // point_valid one 32-bit word; a slot's rows are 48, 16, 16 and 4 bytes, so
 // every row is aligned where row 0 is: the wrapper checks each base).
 
-#include "common.cuh"
+#include "dual.cuh"
 
 namespace {
 
@@ -74,6 +78,79 @@ struct Slots {
   int* gb;        // [P]
 };
 
+// The pose inputs of a pair, in the order of the backward kernel's tangents
+// and of its adjoint rows (the box-box kernel's): side a's world position
+// (0-2) and, for a box, quaternion (3-6); side b's (a sphere) position
+// (7-9); 10-13 are always zero.
+constexpr int kPoseTangents = 14;
+
+template <typename T>
+struct OnePoint {
+  Vec3<T> pos, nrm;
+  T depth;
+};
+
+// The contact of pair (a, b) (sphere_a: sphere-sphere, else box-sphere),
+// the twins' math over scalars of type T (float, or Dual with the pose
+// input `seed` seeded; -1 for none).
+template <typename T>
+__device__ __forceinline__ OnePoint<T> one_point(const Colliders& c, bool sphere_a, int a, int b,
+                                                 int seed) {
+  const float rb = c.radius[b];
+  const Vec3<T> pb = seeded3<T>(c.sph_pos + 3 * b, 7, seed);
+  OnePoint<T> o;
+  if (sphere_a) {
+    // sphere-sphere (narrowphase.sphere_sphere)
+    const float ra = c.radius[a];
+    const Vec3<T> pa = seeded3<T>(c.sph_pos + 3 * a, 0, seed);
+    const Vec3<T> d = sub(pb, pa);
+    const T d2 = d.x * d.x + d.y * d.y + d.z * d.z;
+    const T dist = sqrtv(clamp_min(d2, 1e-12f));
+    o.nrm = d2 > 1e-12f ? v3(d.x / dist, d.y / dist, d.z / dist) : v3(T(0.0f), T(1.0f), T(0.0f));
+    o.depth = (ra + rb) - dist;
+    const T s = ra - 0.5f * o.depth;
+    o.pos = v3(pa.x + o.nrm.x * s, pa.y + o.nrm.y * s, pa.z + o.nrm.z * s);
+  } else {
+    // box-sphere (narrowphase.box_sphere)
+    const float h[3] = {c.half[3 * a], c.half[3 * a + 1], c.half[3 * a + 2]};
+    const Vec3<T> pa = seeded3<T>(c.box_pos + 3 * a, 0, seed);
+    const Mat3<T> Ra = quat_to_mat(seeded4<T>(c.box_quat + 4 * a, 3, seed));
+    const Vec3<T> cc = mtv(Ra, sub(pb, pa));  // sphere centre in the box frame
+    const T ctr[3] = {cc.x, cc.y, cc.z};
+    T cl[3], dl[3], fp[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      cl[i] = minimum(maximum(ctr[i], T(-h[i])), T(h[i]));
+      dl[i] = ctr[i] - cl[i];
+      fp[i] = h[i] - absv(ctr[i]);
+    }
+    const T d2 = dl[0] * dl[0] + dl[1] * dl[1] + dl[2] * dl[2];
+    const bool outside = d2 > 1e-12f;
+    const T dist = sqrtv(clamp_min(d2, 1e-12f));
+    // least-penetrated face, first minimum
+    int k = 0;
+    if (fp[1] < fp[k]) k = 1;
+    if (fp[2] < fp[k]) k = 2;
+    const T fk = k == 0 ? fp[0] : (k == 1 ? fp[1] : fp[2]);
+    const float sgn = (k == 0 ? ctr[0] : (k == 1 ? ctr[1] : ctr[2])) >= 0.0f ? 1.0f : -1.0f;
+    T nl[3], pl[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      if (outside) {
+        nl[i] = dl[i] / dist;
+        pl[i] = cl[i];
+      } else {
+        nl[i] = T(i == k ? sgn : 0.0f);
+        pl[i] = i == k ? T(sgn * h[i]) : ctr[i];
+      }
+    }
+    o.depth = outside ? rb - dist : rb + fk;
+    o.pos = add(mv(Ra, v3(pl[0], pl[1], pl[2])), pa);
+    o.nrm = mv(Ra, v3(nl[0], nl[1], nl[2]));
+  }
+  return o;
+}
+
 __global__ void __launch_bounds__(kThreads)
     pairs_1pt_kernel(Colliders c, Pairs in, int nb, int n_bs, int n_ss, Slots out) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
@@ -86,65 +163,11 @@ __global__ void __launch_bounds__(kThreads)
   }
   const int a = sphere_a ? in.ss_a[q] : in.bs_a[q];
   const int b = sphere_a ? in.ss_b[q] : in.bs_b[q];
-
-  const float rb = c.radius[b];
-  const V3 pb = load3(c.sph_pos + 3 * b);
-  V3 nrm, pos;
-  float depth, fa;
-  int body_a;
-  if (sphere_a) {
-    // sphere-sphere (narrowphase.sphere_sphere)
-    const float ra = c.radius[a];
-    const V3 pa = load3(c.sph_pos + 3 * a);
-    const V3 d = sub(pb, pa);
-    const float d2 = d.x * d.x + d.y * d.y + d.z * d.z;
-    const float dist = sqrtf(fmaxf(d2, 1e-12f));
-    nrm = d2 > 1e-12f ? v3(d.x / dist, d.y / dist, d.z / dist) : v3(0.0f, 1.0f, 0.0f);
-    depth = (ra + rb) - dist;
-    const float s = ra - 0.5f * depth;
-    pos = v3(pa.x + nrm.x * s, pa.y + nrm.y * s, pa.z + nrm.z * s);
-    fa = c.sph_fric[a];
-    body_a = c.sph_body[a];
-  } else {
-    // box-sphere (narrowphase.box_sphere)
-    const float h[3] = {c.half[3 * a], c.half[3 * a + 1], c.half[3 * a + 2]};
-    const V3 pa = load3(c.box_pos + 3 * a);
-    const M3 Ra = quat_to_mat(load4(c.box_quat + 4 * a));
-    const V3 cc = mtv(Ra, sub(pb, pa));  // sphere centre in the box frame
-    const float ctr[3] = {cc.x, cc.y, cc.z};
-    float cl[3], dl[3], fp[3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      cl[i] = fminf(fmaxf(ctr[i], -h[i]), h[i]);
-      dl[i] = ctr[i] - cl[i];
-      fp[i] = h[i] - fabsf(ctr[i]);
-    }
-    const float d2 = dl[0] * dl[0] + dl[1] * dl[1] + dl[2] * dl[2];
-    const bool outside = d2 > 1e-12f;
-    const float dist = sqrtf(fmaxf(d2, 1e-12f));
-    // least-penetrated face, first minimum
-    int k = 0;
-    if (fp[1] < fp[k]) k = 1;
-    if (fp[2] < fp[k]) k = 2;
-    const float fk = k == 0 ? fp[0] : (k == 1 ? fp[1] : fp[2]);
-    const float sgn = (k == 0 ? ctr[0] : (k == 1 ? ctr[1] : ctr[2])) >= 0.0f ? 1.0f : -1.0f;
-    float nl[3], pl[3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      if (outside) {
-        nl[i] = dl[i] / dist;
-        pl[i] = cl[i];
-      } else {
-        nl[i] = i == k ? sgn : 0.0f;
-        pl[i] = i == k ? sgn * h[i] : ctr[i];
-      }
-    }
-    depth = outside ? rb - dist : rb + fk;
-    pos = add(mv(Ra, v3(pl[0], pl[1], pl[2])), pa);
-    nrm = mv(Ra, v3(nl[0], nl[1], nl[2]));
-    fa = c.box_fric[a];
-    body_a = c.box_body[a];
-  }
+  const OnePoint<float> o = one_point<float>(c, sphere_a, a, b, -1);
+  const V3 pos = o.pos, nrm = o.nrm;
+  const float depth = o.depth;
+  const float fa = sphere_a ? c.sph_fric[a] : c.box_fric[a];
+  const int body_a = sphere_a ? c.sph_body[a] : c.box_body[a];
 
   float4* prow = reinterpret_cast<float4*>(out.pos) + 3 * r;
   prow[0] = make_float4(pos.x, pos.y, pos.z, 0.0f);
@@ -159,6 +182,39 @@ __global__ void __launch_bounds__(kThreads)
   out.bb[r] = c.sph_body[b];
   out.ga[r] = sphere_a ? nb + a : a;
   out.gb[r] = nb + b;
+}
+
+// The backward: thread (r, j) runs pair r's math with pose input j seeded
+// (one_point<Dual>) and writes adj[r][j] = Σ tangent · output adjoint over
+// point 0's pos and depth and the normal (points 1-3 are constants). Inputs
+// a pair does not have (a sphere's quaternion, side b's 10-13) and dead
+// pair slots write zeros. The per-collider sums are csrc/segment.cu's.
+//
+// What bounds it on an H100: latency, as the forward: ~3x the forward's
+// ~200 operations a live pair (the tangents), 14 threads a pair.
+__global__ void __launch_bounds__(kThreads)
+    pairs_1pt_bwd_kernel(Colliders c, Pairs in, int n_bs, int n_ss,
+                         const float* __restrict__ g_pos, const float* __restrict__ g_depth,
+                         const float* __restrict__ g_normal, float* __restrict__ adj) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= (long long)(n_bs + n_ss) * kPoseTangents) return;
+  const int r = (int)(t / kPoseTangents), j = (int)(t % kPoseTangents);
+  const bool sphere_a = r >= n_bs;
+  const int q = sphere_a ? r - n_bs : r;
+  const bool live = sphere_a ? in.ss_valid[q] : in.bs_valid[q];
+  if (!live || j >= 10 || (sphere_a && j >= 3 && j < 7)) {
+    adj[t] = 0.0f;
+    return;
+  }
+  const int a = sphere_a ? in.ss_a[q] : in.bs_a[q];
+  const int b = sphere_a ? in.ss_b[q] : in.bs_b[q];
+  const OnePoint<Dual> o = one_point<Dual>(c, sphere_a, a, b, j);
+  float g = o.pos.x.d * g_pos[12 * r] + o.pos.y.d * g_pos[12 * r + 1] +
+            o.pos.z.d * g_pos[12 * r + 2];
+  g = g + o.depth.d * g_depth[4 * r];
+  g = g + (o.nrm.x.d * g_normal[3 * r] + o.nrm.y.d * g_normal[3 * r + 1] +
+           o.nrm.z.d * g_normal[3 * r + 2]);
+  adj[t] = g;
 }
 
 }  // namespace
@@ -181,6 +237,28 @@ extern "C" int nudge_pairs_1pt(const float* half, const float* box_quat, const f
                     out_depth,  out_feat, out_valid, out_ga, out_gb};
     pairs_1pt_kernel<<<blocks_for(rows), kThreads, 0, (cudaStream_t)stream>>>(c, in, nb, n_bs,
                                                                             n_ss, out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The adjoint rows of the colliders' poses, one per pair row of this launch
+// (the box-sphere rows, then the sphere-sphere rows): adj[r][0..13], from
+// the rows' adjoints g_pos[P,4,3], g_depth[P,4], g_normal[P,3].
+extern "C" int nudge_pairs_1pt_bwd(const float* half, const float* box_quat,
+                                   const float* box_pos, const float* radius,
+                                   const float* sph_pos, const int* bs_a, const int* bs_b,
+                                   const bool* bs_valid, const int* ss_a, const int* ss_b,
+                                   const bool* ss_valid, int n_bs, int n_ss, const float* g_pos,
+                                   const float* g_depth, const float* g_normal, float* adj,
+                                   void* stream) {
+  const long long threads = (long long)(n_bs + n_ss) * kPoseTangents;
+  if (threads > 0) {
+    const Colliders c{half, box_quat, box_pos, nullptr, nullptr,
+                      radius, sph_pos, nullptr, nullptr};
+    const Pairs in{bs_a, bs_b, bs_valid, ss_a, ss_b, ss_valid};
+    pairs_1pt_bwd_kernel<<<(unsigned)((threads + kThreads - 1) / kThreads), kThreads, 0,
+                           (cudaStream_t)stream>>>(c, in, n_bs, n_ss, g_pos, g_depth, g_normal,
+                                                   adj);
   }
   return (int)cudaGetLastError();
 }

@@ -39,6 +39,12 @@
 // float atomics anywhere. At the end the accumulators go back to manifold
 // order (zeros for manifolds that are not live).
 //
+// In the differentiable mode the wrapper passes a tape: each visit of a
+// live slot records the state it starts from (both bodies' velw rows and
+// the slot's accumulators, common.cuh kTapeRows), from which
+// csrc/solve_bwd.cu replays it backward. With a null tape nothing else
+// changes, so the results are bitwise those without one.
+//
 // What bounds it on an H100: the order. The bytes are small (~560 B of
 // rows a live manifold, 64 B of accumulators, and velw: ~13 MB for the
 // pile, ~4 us at 3.35 TB/s, L2-resident after the first sweep), but
@@ -76,6 +82,7 @@ struct SolveArgs {
   const int *keys_a, *keys_b;
   const long long *perm_a, *perm_b;
   int m, max_colors, iters, split, pfric;
+  float* tape;  // [iters, kTapeRows, m], or null: the differentiable mode's record
 };
 
 __device__ __forceinline__ void load_row(const float* p, float* r) {
@@ -96,8 +103,9 @@ __device__ __forceinline__ void store_row(float* p, const float* r) {
 }
 
 // One manifold of a color pass. jacobi: store the post-pass rows instead of
-// writing the bodies.
-__device__ __forceinline__ void solve_manifold(const SolveArgs& A, int s, bool jacobi) {
+// writing the bodies. With a tape, record the state the visit starts from
+// (sweep `it`): csrc/solve_bwd.cu replays the visit from it.
+__device__ __forceinline__ void solve_manifold(const SolveArgs& A, int s, bool jacobi, int it) {
   const long long fm = A.m;
   const float* R = A.rows + s;
   float* W = A.work + s;
@@ -110,6 +118,14 @@ __device__ __forceinline__ void solve_manifold(const SolveArgs& A, int s, bool j
   float acc[16];  // λn, λt1, λt2, pseudo λ of the 4 points (this thread's own)
 #pragma unroll
   for (int f = 0; f < 16; ++f) acc[f] = W[(kWorkAccN + f) * fm];
+  if (A.tape) {
+    float* T = A.tape + (long long)it * kTapeRows * fm + s;
+    for (int c = 0; c < kVelRow; ++c) {
+      T[c * fm] = olda[c];
+      T[(kVelRow + c) * fm] = oldb[c];
+    }
+    for (int f = 0; f < 16; ++f) T[(2 * kVelRow + f) * fm] = acc[f];
+  }
   const float ima = q(kRowImA), imb = q(kRowImB);
   const float relax = q(kRowRelax);
   const float mu = q(kRowMu);
@@ -234,7 +250,7 @@ __global__ void __launch_bounds__(kSolveThreads) solve_kernel(SolveArgs A) {
       const int lo = A.offsets[c], hi = A.offsets[c + 1];
       if (lo == hi) continue;
       const bool jacobi = c == spill;
-      for (int s = lo + g; s < hi; s += stride) solve_manifold(A, s, jacobi);
+      for (int s = lo + g; s < hi; s += stride) solve_manifold(A, s, jacobi, it);
       cluster.sync();
       if (jacobi) {
         spill_side(A, A.keys_a, A.perm_a, 0, lo, hi, g, stride);
@@ -283,13 +299,14 @@ extern "C" int nudge_solve(
     // slot of each manifold; body-sorted side-a / side-b entries (setup's)
     const int* slot, const int* keys_a, const long long* perm_a, const int* keys_b,
     const long long* perm_b, int m, int max_colors, int iters, int split, int pfric,
-    void* stream_) {
+    // the tape [iters, kTapeRows, m] (differentiable mode), or null
+    float* tape, void* stream_) {
   if (m <= 0) return 0;
   cudaError_t err = choose_solve_cluster();
   if (err != cudaSuccess) return (int)err;
   SolveArgs A{rows,   work,   velw,   out,  offsets, n_colors, spill_color,
               slot,   keys_a, keys_b, perm_a, perm_b, m,     max_colors,
-              iters,  split,  pfric};
+              iters,  split,  pfric,    tape};
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg =
       cluster_config(g_cluster, kSolveThreads, 0, (cudaStream_t)stream_, &attr);

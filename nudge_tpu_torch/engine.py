@@ -12,9 +12,21 @@ without sleeping and the persistent broadphase (together: the reference
 mode of the JAX bench). The reference's two `lax.cond`s that depend only
 on the state a step starts from (any dynamic body awake: step or park;
 `persistent_bp.needs_rebuild`: fat rebuild or reuse) are Python branches
-here, on flags read to the host in one transfer per step. The
-differentiable mode raises NotImplementedError instead of running a
-partial path.
+here, on flags read to the host in one transfer per step.
+
+The differentiable mode (`cfg.differentiable`): `step` and `simulate` build
+an autograd graph from whatever state tensors require grad, as the
+reference's jax.grad reverses its step. No stage takes a gradient out of
+the graph: it flows through the narrowphase geometry, the cache's warm
+impulses, setup, the solve, advance and the split-impulse fix; the integer
+stages (broadphase, coloring, the solve's order) carry none, as in the
+reference. On the CPU the graph runs through the plain twins, with the
+reference's static `solver_iters * max_colors` sweep (ops/solver.py). On
+the card the kernels run inside autograd Functions whose backward is a
+kernel too (the narrowphases, setup, the solve; the solve keeps its
+dynamic color count, since the passes of unused colors are exact no-ops,
+and records a tape of each visit). Without a gradient to build, the mode's
+forward is the normal one, bit for bit.
 """
 
 from __future__ import annotations
@@ -35,18 +47,6 @@ from .ops.solver import (
     accumulated_world_impulse, color_manifolds, color_manifolds_cached,
 )
 from .state import SimState
-
-_NOT_YET = {
-    "differentiable": "ROADMAP Queue 1 item 5",
-}
-
-
-def check_supported(cfg: SimConfig):
-    for knob, where in _NOT_YET.items():
-        if getattr(cfg, knob):
-            raise NotImplementedError(
-                f"SimConfig.{knob}=True is not ported yet ({where})")
-
 
 @dataclasses.dataclass
 class StepMetrics:
@@ -69,7 +69,6 @@ def step(state: SimState, cfg: SimConfig):
     With sleeping on, a scene whose every dynamic body is asleep skips the
     whole contact pipeline (the park): nothing inside the engine can wake
     an all-asleep scene, so the skip is exact."""
-    check_supported(cfg)
     rebuild = None
     if cfg.sleeping or cfg.persistent_broadphase:
         flags = []

@@ -9,9 +9,11 @@ card every physics step of every env goes through the kernels. Everything
 rides the public API: `engine.step`, `api.apply_impulse`, `api.wake`.
 
 Where the reference takes a `jax.random` key, `reset` takes a
-`torch.Generator`. The differentiable mode (`BoxPushEnv(
-differentiable=True)`) is not ported yet and raises, as
-`engine.check_supported` does.
+`torch.Generator`. With `BoxPushEnv(differentiable=True, sleeping=False)`
+a rollout differentiates end to end (analytic policy gradients): on the
+CPU through the engine's plain twins, on the card through the kernels and
+their backward kernels; `vec_step` stacks the batch out of place when it
+carries a gradient (`parallel.mesh`).
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch
 
 from .api import apply_impulse, wake
 from .config import SimConfig
-from .engine import check_supported, step as _phys_step
+from .engine import step as _phys_step
 from .parallel.mesh import batched_simulate, make_scene_batch
 from .scenes import SceneBuilder
 from .state import SimState
@@ -65,7 +67,6 @@ class BoxPushEnv:
         self._agent = b.add_box((0.5, 0.5, 0.5), (0.0, 0.5, 0.0))
         if cfg is None:
             cfg = b.auto_config(**{"sleeping": True, **cfg_overrides})
-        check_supported(cfg)
         self.cfg = cfg
         self._proto = b.finalize(cfg, device=device)
         self.device = self._proto.device

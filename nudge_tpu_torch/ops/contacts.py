@@ -13,15 +13,19 @@ from typing import Optional
 import torch
 
 from ..config import SimConfig
-from ..state import SimState
+from ..state import SimState, flatten
 from . import narrowphase as nps
 from .broadphase import (
     allpairs_broadphase, compact_mask, dead_mask, world_colliders,
 )
-from .narrowphase_1pt import pairs_1pt_slots_cuda, pairs_1pt_slots_plain
-from .narrowphase_kernel import (
-    box_box_slots, box_box_slots_cuda, box_box_slots_plain, empty_slots,
+from .narrowphase_1pt import (
+    pairs_1pt_adjoint_cuda, pairs_1pt_slots_cuda, pairs_1pt_slots_plain,
 )
+from .narrowphase_kernel import (
+    SLOTS, box_box_adjoint_cuda, box_box_slots, box_box_slots_cuda,
+    box_box_slots_plain, empty_slots,
+)
+from .segment import entries, segment_sum
 
 POINTS = nps.BOX_BOX_POINTS
 _I32_MAX = 2 ** 31 - 1
@@ -61,12 +65,34 @@ class Manifolds:
 def narrowphase_all(state: SimState, wc, bb, bs, ss, cfg: SimConfig):
     """Per-pair manifold slot arrays over all candidates, in the order
     box-box, box-sphere, sphere-sphere. This is the one place that knows
-    that layout: each narrowphase writes its own rows from row 0."""
+    that layout: each narrowphase writes its own rows from row 0.
+
+    On the card the kernels run inside `NarrowphaseFn` (`narrowphase_cuda`),
+    whose backward is the kernels' backward; when no collider pose carries
+    a gradient it builds no graph."""
+    if state.boxes.half.device.type == "cuda":
+        return narrowphase_cuda(state, wc, bb, bs, ss)
     if bs.a.shape[0] + ss.a.shape[0] == 0:
         return box_box_slots(state.boxes, wc, bb)
-    if state.boxes.half.device.type == "cuda":
-        return narrowphase_joined_cuda(state, wc, bb, bs, ss)
     return narrowphase_joined_plain(state, wc, bb, bs, ss)
+
+
+def narrowphase_cuda(state: SimState, wc, bb, bs, ss):
+    """The kernels' slots, as one `NarrowphaseFn` node: differentiable in
+    the colliders' world poses (`wc`'s box_pos, box_quat, sph_pos), not in
+    their shapes or friction."""
+    if torch.is_grad_enabled():
+        for name, t in (("half", state.boxes.half),
+                        ("friction", state.boxes.friction),
+                        ("radius", state.spheres.radius),
+                        ("friction", state.spheres.friction)):
+            if t.requires_grad:
+                raise NotImplementedError(
+                    f"narrowphase: the kernels' backward gives no gradient "
+                    f"to a collider's {name}")
+    outs = NarrowphaseFn.apply(wc.box_pos, wc.box_quat, wc.sph_pos, state,
+                               wc, bb, bs, ss)
+    return dict(zip(SLOTS, outs))
 
 
 def narrowphase_joined_plain(state: SimState, wc, bb, bs, ss):
@@ -88,6 +114,107 @@ def narrowphase_joined_cuda(state: SimState, wc, bb, bs, ss):
     pairs_1pt_slots_cuda(state.boxes, state.spheres, wc, bs, ss,
                          out={k: v[n_bb:] for k, v in out.items()})
     return out
+
+
+def _slot_grads(grads: dict, p: int, device):
+    """The adjoints of the slots' pos, depth and normal (zeros for an
+    output autograd passed none)."""
+    out = []
+    for key in ("pos", "depth", "normal"):
+        g = grads.get(key)
+        row, _ = SLOTS[key]
+        out.append(torch.zeros((p,) + row, dtype=torch.float32, device=device)
+                   if g is None else g.contiguous())
+    return out
+
+
+def collider_entries(bb, bs, ss, nb: int):
+    """The segment-sum entries of the narrowphase's pose adjoint rows: row
+    2r + side of pair row r (box-box, box-sphere, sphere-sphere rows in
+    narrowphase_all's order) adds into collider `side ? gb : ga` (global
+    ids: a box keeps its index, sphere i is nb + i), for live pairs."""
+    ga = torch.cat([bb.a, bs.a, nb + ss.a])
+    gb = torch.cat([bb.b, nb + bs.b, nb + ss.b])
+    live = torch.cat([bb.valid, bs.valid, ss.valid])
+    return entries(torch.stack([ga, gb], 1), live[:, None].expand(-1, 2))
+
+
+def narrowphase_backward_cuda(state: SimState, wc, bb, bs, ss, grads: dict):
+    """d loss / d (box_pos, box_quat, sph_pos) of the world colliders from
+    the adjoints of narrowphase_all's slots (`grads`: pos, depth, normal):
+    the box-box and the one-point backward kernels write each pair row's
+    pose adjoints, and one segment sum adds them per collider in a fixed
+    order."""
+    return _backward_kernels(state.boxes, state.spheres, wc, bb, bs, ss,
+                             grads)
+
+
+def _backward_kernels(boxes, spheres, wc, bb, bs, ss, grads: dict):
+    nb = boxes.half.shape[0]
+    ns = spheres.radius.shape[0]
+    n_bb, n_1pt = bb.a.shape[0], bs.a.shape[0] + ss.a.shape[0]
+    dev = boxes.half.device
+    g_pos, g_depth, g_normal = _slot_grads(grads, n_bb + n_1pt, dev)
+    adj = [box_box_adjoint_cuda(boxes, wc, bb, g_pos[:n_bb], g_depth[:n_bb],
+                                g_normal[:n_bb])]
+    if n_1pt:
+        adj.append(pairs_1pt_adjoint_cuda(
+            boxes, spheres, wc, bs, ss, g_pos[n_bb:], g_depth[n_bb:],
+            g_normal[n_bb:]))
+    rows = torch.cat(adj).reshape(-1, 7)
+    keys, perm = collider_entries(bb, bs, ss, nb)
+    pose = segment_sum(keys, perm, rows, nb + ns)
+    return (pose[:nb, 0:3].contiguous(), pose[:nb, 3:7].contiguous(),
+            pose[nb:, 0:3].contiguous())
+
+
+def narrowphase_backward_plain(state: SimState, wc, bb, bs, ss, grads: dict):
+    """The plain version of `narrowphase_backward_cuda`: autograd through
+    the twins (`narrowphase_joined_plain`) on the same inputs."""
+    leaves = [t.detach().requires_grad_() for t in
+              (wc.box_pos, wc.box_quat, wc.sph_pos)]
+    wcg = wc._replace(box_pos=leaves[0], box_quat=leaves[1],
+                      sph_pos=leaves[2])
+    with torch.enable_grad():
+        slots = narrowphase_joined_plain(state, wcg, bb, bs, ss)
+        n = slots["pos"].shape[0]
+        outs, gs = [], []
+        for key, g in zip(("pos", "depth", "normal"),
+                          _slot_grads(grads, n, slots["pos"].device)):
+            outs.append(slots[key])
+            gs.append(g)
+        got = torch.autograd.grad(outs, leaves, gs, allow_unused=True)
+    return tuple(torch.zeros_like(x) if g is None else g
+                 for g, x in zip(got, leaves))
+
+
+class NarrowphaseFn(torch.autograd.Function):
+    """narrowphase_all on the card as one autograd node: the forward runs
+    the box-box and one-point kernels into fresh slot buffers and saves the
+    tensors its backward reads (an in-place write to one before the
+    backward raises); the backward runs their backward kernels. Inputs with
+    a gradient: the colliders' world positions and quaternions (`wc`'s
+    box_pos, box_quat, sph_pos); outputs with one: pos, depth, normal."""
+
+    @staticmethod
+    def forward(ctx, box_pos, box_quat, sph_pos, state, wc, bb, bs, ss):
+        if bs.a.shape[0] + ss.a.shape[0] == 0:
+            slots = box_box_slots(state.boxes, wc, bb)
+        else:
+            slots = narrowphase_joined_cuda(state, wc, bb, bs, ss)
+        saved, ctx.rebuild = flatten((state.boxes, state.spheres, wc, bb, bs,
+                                      ss))
+        ctx.save_for_backward(*saved)
+        ctx.mark_non_differentiable(*[slots[k] for k in SLOTS
+                                      if k not in ("pos", "depth", "normal")])
+        return tuple(slots[k] for k in SLOTS)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        g = dict(zip(SLOTS, grads))
+        d_box_pos, d_box_quat, d_sph_pos = _backward_kernels(
+            *ctx.rebuild(ctx.saved_tensors), g)
+        return d_box_pos, d_box_quat, d_sph_pos, None, None, None, None, None
 
 
 def compact_manifolds(slots: dict, cfg: SimConfig, pair_overflow,

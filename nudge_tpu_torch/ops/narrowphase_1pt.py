@@ -20,7 +20,9 @@ field, and the two agree on live slots.
 
 The engine reaches both through `contacts.narrowphase_all`: on the CPU it
 joins the twin's slots after box-box's, on the card it hands the kernel the
-rows after box-box's of one set of buffers (`out`).
+rows after box-box's of one set of buffers (`out`). `pairs_1pt_adjoint_cuda`
+launches the backward kernel of the differentiable mode
+(`contacts.NarrowphaseFn`).
 """
 
 from __future__ import annotations
@@ -123,3 +125,41 @@ def pairs_1pt_slots_cuda(bx: Boxes, sp: Spheres, wc: WorldColliders,
 
 
 pairs_1pt_slots_cuda.launches = 0
+
+
+def pairs_1pt_adjoint_cuda(bx: Boxes, sp: Spheres, wc: WorldColliders,
+                           bs: CandidatePairs, ss: CandidatePairs, g_pos,
+                           g_depth, g_normal):
+    """The backward kernel: the pose adjoint rows f32[P_bs + P_ss, 14] of
+    the box-sphere then the sphere-sphere pair rows (side a's position and,
+    for a box, quaternion; side b's position; zeros elsewhere and for dead
+    rows), from the rows' pos, depth and normal adjoints."""
+    nb, ns = bx.half.shape[0], sp.radius.shape[0]
+    n_bs, n_ss = bs.a.shape[0], ss.a.shape[0]
+    rows = n_bs + n_ss
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    ins = dict(half=(bx.half, f32, (nb, 3)),
+               box_quat=(wc.box_quat, f32, (nb, 4)),
+               box_pos=(wc.box_pos, f32, (nb, 3)),
+               radius=(sp.radius, f32, (ns,)),
+               sph_pos=(wc.sph_pos, f32, (ns, 3)),
+               bs_a=(bs.a, i32, (n_bs,)), bs_b=(bs.b, i32, (n_bs,)),
+               bs_valid=(bs.valid, b8, (n_bs,)),
+               ss_a=(ss.a, i32, (n_ss,)), ss_b=(ss.b, i32, (n_ss,)),
+               ss_valid=(ss.valid, b8, (n_ss,)),
+               g_pos=(g_pos, f32, (rows, POINTS, 3)),
+               g_depth=(g_depth, f32, (rows, POINTS)),
+               g_normal=(g_normal, f32, (rows, 3)))
+    for name, (t, dt, shape) in ins.items():
+        _build.check_cuda("pairs_1pt_bwd", name, t, dt, shape)
+    adj = torch.empty((rows, 14), dtype=f32, device=bx.half.device)
+    if rows:
+        ptrs = [_build.ptr(t) for t, _, _ in ins.values()]
+        _build.library().call("nudge_pairs_1pt_bwd", *ptrs[:11], n_bs, n_ss,
+                              *ptrs[11:], _build.ptr(adj),
+                              _build.stream_of(bx.half))
+        pairs_1pt_adjoint_cuda.launches += 1
+    return adj
+
+
+pairs_1pt_adjoint_cuda.launches = 0

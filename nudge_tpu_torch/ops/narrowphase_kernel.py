@@ -15,7 +15,8 @@ without a valid point. A live slot gets its whole row, its collider ids
 
 `box_box_slots` dispatches by device: CPU tensors go to the plain twin
 `box_box_slots_plain` (which calls `narrowphase.box_box`); CUDA tensors
-launch the kernel or raise.
+launch the kernel or raise. `box_box_adjoint_cuda` launches the backward
+kernel of the differentiable mode (`contacts.NarrowphaseFn`).
 """
 
 from __future__ import annotations
@@ -114,6 +115,39 @@ def box_box_slots_cuda(bx: Boxes, wc: WorldColliders, bb: CandidatePairs,
         *[_build.ptr(out[k]) for k in SLOTS], _build.stream_of(bx.half))
     box_box_slots.launches += 1
     return out
+
+
+# the pose inputs of a pair slot, in the backward kernel's order: box a's
+# world position and quaternion, then box b's (csrc/narrowphase.cu)
+POSE_TANGENTS = 14
+
+
+def box_box_adjoint_cuda(bx: Boxes, wc: WorldColliders, bb: CandidatePairs,
+                         g_pos, g_depth, g_normal):
+    """The backward kernel: the pose adjoint rows f32[P, 14] of every pair
+    slot (zeros for a dead one), from the slots' pos, depth and normal
+    adjoints. The per-box sums are `contacts.narrowphase_backward_cuda`'s."""
+    nb = bx.half.shape[0]
+    p = bb.a.shape[0]
+    f32 = torch.float32
+    ins = dict(half=(bx.half, f32, (nb, 3)), quat=(wc.box_quat, f32, (nb, 4)),
+               pos=(wc.box_pos, f32, (nb, 3)),
+               a=(bb.a, torch.int32, (p,)), b=(bb.b, torch.int32, (p,)),
+               valid=(bb.valid, torch.bool, (p,)),
+               g_pos=(g_pos, f32, (p, POINTS, 3)),
+               g_depth=(g_depth, f32, (p, POINTS)),
+               g_normal=(g_normal, f32, (p, 3)))
+    for name, (t, dt, shape) in ins.items():
+        _build.check_cuda("box_box_bwd", name, t, dt, shape)
+    adj = torch.empty((p, POSE_TANGENTS), dtype=f32, device=bx.half.device)
+    ptrs = [_build.ptr(t) for t, _, _ in ins.values()]
+    _build.library().call("nudge_box_box_bwd", *ptrs[:6], p, *ptrs[6:],
+                          _build.ptr(adj), _build.stream_of(bx.half))
+    box_box_adjoint_cuda.launches += 1
+    return adj
+
+
+box_box_adjoint_cuda.launches = 0
 
 
 def first_max_model(x):

@@ -19,7 +19,11 @@ manifold-major `ContactConstraints` and (λn, λt1, λt2); CUDA tensors launch
 the kernels, or raise, and return a `PackedConstraints` and the work rows.
 `pack_constraints`, `unpack_constraints` and `unpack_acc` convert between
 the two in plain PyTorch; the comparisons use them, the main path does
-not.
+not. On the card the kernels run inside `SetupFn` (a graph only when an
+input requires grad: the differentiable mode), whose backward is
+csrc/setup.cu's `setup_bwd_kernel` and a per-body segment sum
+(`setup_backward_cuda`; plain version `setup_backward_plain`, autograd of
+the twin).
 """
 
 from __future__ import annotations
@@ -30,9 +34,10 @@ import torch
 
 from .. import _build
 from ..config import CONTACT_POINTS, SimConfig
-from ..state import Bodies
+from ..state import Bodies, flatten
 from . import solver
 from .contacts import Manifolds
+from .segment import entries, segment_sum
 from .solver_kernel import (
     ROW_FIELDS, ROWS, VEL_ROW, WORK_ROWS, SlotOrder, color_order, pack_velw,
 )
@@ -134,23 +139,14 @@ def setup_plain(bodies: Bodies, man: Manifolds, warm, cfg: SimConfig,
     return con, pack_velw(b2.vel, b2.angvel, pv0, pw0), acc
 
 
-def setup_cuda(bodies: Bodies, man: Manifolds, warm, cfg: SimConfig,
-               coloring=None, pwarm=None, order: SlotOrder = None):
-    """The setup kernel and the warm start. Returns (PackedConstraints,
-    velw, work rows)."""
-    if coloring is None:
-        coloring = solver.color_manifolds(man, bodies, cfg)
-    if order is None:
-        order = color_order(man, bodies, coloring, cfg)
-    color, n_colors, relax, spill, spill_color = coloring
+def _setup_args(bodies: Bodies, man: Manifolds, warm, pwarm, relax,
+                order: SlotOrder, cfg: SimConfig):
+    """The setup kernels' inputs, checked, in their C order, and the
+    constants."""
     n = bodies.pos.shape[0]
     m = man.valid.shape[0]
     K = cfg.max_colors
     P = CONTACT_POINTS
-    dev = bodies.pos.device
-    use_pwarm = pwarm is not None and cfg.split_impulse and cfg.warm_start
-    if pwarm is None:
-        pwarm = torch.zeros((m, P), dtype=torch.float32, device=dev)
     f32, i32, i64, b8 = torch.float32, torch.int32, torch.int64, torch.bool
     ins = [
         ("pos", bodies.pos, f32, (n, 3)), ("quat", bodies.quat, f32, (n, 4)),
@@ -171,22 +167,181 @@ def setup_cuda(bodies: Bodies, man: Manifolds, warm, cfg: SimConfig,
     ]
     for name, t, dt, shape in ins:
         _build.check_cuda("setup", name, t, dt, shape)
-
-    rows = torch.empty((ROWS, m), dtype=f32, device=dev)
-    work = torch.empty((WORK_ROWS, m), dtype=f32, device=dev)
-    frame = torch.zeros((2, m, 3), dtype=f32, device=dev)
-    velw = torch.empty((n, VEL_ROW), dtype=f32, device=dev)
     consts = [cfg.baumgarte / cfg.dt, cfg.slop, cfg.max_bias_vel,
               cfg.deep_bias_depth, cfg.deep_bias_gate,
               cfg.deep_bias_ungated_depth, cfg.deep_bias_ungated_vel,
               cfg.max_pseudo_vel, cfg.restitution]
+    return {name: t for name, t, _, _ in ins}, consts
+
+
+def uses_pwarm(pwarm, cfg: SimConfig) -> bool:
+    """Whether setup warm-starts the pseudo impulses from `pwarm`."""
+    return pwarm is not None and cfg.split_impulse and cfg.warm_start
+
+
+def _setup_launch(bodies: Bodies, man: Manifolds, warm, pwarm, relax,
+                  order: SlotOrder, cfg: SimConfig, use_pwarm: bool):
+    """One call of the setup kernels: (rows, work, frame, velw)."""
+    ins, consts = _setup_args(bodies, man, warm, pwarm, relax, order, cfg)
+    n = bodies.pos.shape[0]
+    m = man.valid.shape[0]
+    dev = bodies.pos.device
+    f32 = torch.float32
+    rows = torch.empty((ROWS, m), dtype=f32, device=dev)
+    work = torch.empty((WORK_ROWS, m), dtype=f32, device=dev)
+    frame = torch.zeros((2, m, 3), dtype=f32, device=dev)
+    velw = torch.empty((n, VEL_ROW), dtype=f32, device=dev)
     _build.library().call(
-        "nudge_setup", *[_build.ptr(t) for _, t, _, _ in ins], K, m, n,
-        *consts, int(cfg.split_impulse), int(cfg.warm_start), int(use_pwarm),
-        _build.ptr(rows), _build.ptr(work), _build.ptr(frame),
+        "nudge_setup", *[_build.ptr(t) for t in ins.values()], cfg.max_colors,
+        m, n, *consts, int(cfg.split_impulse), int(cfg.warm_start),
+        int(use_pwarm), _build.ptr(rows), _build.ptr(work), _build.ptr(frame),
         _build.ptr(velw), _build.stream_of(bodies.pos))
     setup.launches += 1
+    return rows, work, frame, velw
 
+
+# setup's inputs that carry a gradient, in SetupFn's order
+GRAD_INPUTS = ("pos", "quat", "vel", "angvel", "normal", "pos_m", "depth",
+                "warm", "pwarm")
+
+
+def _grad_inputs(bodies: Bodies, man: Manifolds, warm, pwarm):
+    return (bodies.pos, bodies.quat, bodies.vel, bodies.angvel, man.normal,
+            man.pos, man.depth, warm, pwarm)
+
+
+def setup_backward_cuda(bodies: Bodies, man: Manifolds, warm, pwarm, relax,
+                        order: SlotOrder, cfg: SimConfig, use_pwarm: bool,
+                        d_rows, d_work, d_frame, d_velw):
+    """The backward of `_setup_launch`: the adjoints of GRAD_INPUTS from
+    those of (rows, work, frame, velw). The backward kernel writes each
+    live manifold's input adjoints (its body inputs as one row a side), and
+    a segment sum adds the body rows per body in a fixed order, onto velw's
+    own adjoint (velw = v | w + the warm-start changes). The work rows'
+    scratch part (the warm-start changes, which the solve overwrites before
+    it reads them) takes no adjoint."""
+    ins, consts = _setup_args(bodies, man, warm, pwarm, relax, order, cfg)
+    n = bodies.pos.shape[0]
+    m = man.valid.shape[0]
+    dev = bodies.pos.device
+    f32 = torch.float32
+    for name, t, shape in (("d_rows", d_rows, (ROWS, m)),
+                           ("d_work", d_work, (WORK_ROWS, m)),
+                           ("d_frame", d_frame, (2, m, 3)),
+                           ("d_velw", d_velw, (n, VEL_ROW))):
+        _build.check_cuda("setup_bwd", name, t, f32, shape)
+    P = CONTACT_POINTS
+    adj_body = torch.empty((2 * m, 13), dtype=f32, device=dev)
+    adj = [torch.zeros(shape, dtype=f32, device=dev) for shape in
+           ((m, 3), (m, P, 3), (m, P), (m, P, 3), (m, P))]
+    names = ("pos", "quat", "vel", "angvel", "inv_mass", "inv_inertia",
+             "body_a", "body_b", "normal", "friction", "pos_m", "depth",
+             "point_valid", "warm", "pwarm", "order", "offsets")
+    _build.library().call(
+        "nudge_setup_bwd", *[_build.ptr(ins[k]) for k in names],
+        cfg.max_colors, m, *consts, int(cfg.split_impulse),
+        int(cfg.warm_start), int(use_pwarm), _build.ptr(d_rows),
+        _build.ptr(d_work), _build.ptr(d_frame), _build.ptr(d_velw),
+        _build.ptr(adj_body), *[_build.ptr(t) for t in adj],
+        _build.stream_of(bodies.pos))
+    setup_backward_cuda.launches += 1
+    keys, perm = entries(torch.stack([man.body_a, man.body_b], 1),
+                         man.valid[:, None].expand(-1, 2))
+    init = torch.cat([torch.zeros((n, 7), dtype=f32, device=dev),
+                      d_velw[:, 0:6]], 1)
+    body = segment_sum(keys, perm, adj_body, n, init)
+    return (body[:, 0:3].contiguous(), body[:, 3:7].contiguous(),
+            body[:, 7:10].contiguous(), body[:, 10:13].contiguous(), *adj)
+
+
+setup_backward_cuda.launches = 0
+
+
+class SetupFn(torch.autograd.Function):
+    """The setup kernels as one autograd node on the card: the forward is
+    `_setup_launch` and saves the tensors its backward reads (an in-place
+    write to one before the backward raises), the backward
+    `setup_backward_cuda`. Inputs with a gradient: GRAD_INPUTS; outputs:
+    (rows, work, frame, velw)."""
+
+    @staticmethod
+    def forward(ctx, pos, quat, vel, angvel, normal, mpos, depth, warm, pwarm,
+                bodies, man, relax, order, cfg, use_pwarm):
+        saved, ctx.rebuild = flatten((bodies, man, warm, pwarm, relax, order))
+        ctx.save_for_backward(*saved)
+        ctx.cfg, ctx.use_pwarm = cfg, use_pwarm
+        return _setup_launch(bodies, man, warm, pwarm, relax, order, cfg,
+                             use_pwarm)
+
+    @staticmethod
+    def backward(ctx, d_rows, d_work, d_frame, d_velw):
+        bodies, man, warm, pwarm, relax, order = ctx.rebuild(
+            ctx.saved_tensors)
+        n, m = bodies.pos.shape[0], man.valid.shape[0]
+
+        def dense(g, shape):
+            return (torch.zeros(shape, dtype=torch.float32,
+                                device=bodies.pos.device)
+                    if g is None else g.contiguous())
+
+        grads = setup_backward_cuda(
+            bodies, man, warm, pwarm, relax, order, ctx.cfg, ctx.use_pwarm,
+            dense(d_rows, (ROWS, m)), dense(d_work, (WORK_ROWS, m)),
+            dense(d_frame, (2, m, 3)), dense(d_velw, (n, VEL_ROW)))
+        return (*grads, None, None, None, None, None, None)
+
+
+def setup_backward_plain(bodies: Bodies, man: Manifolds, warm, cfg: SimConfig,
+                         coloring, pwarm, order: SlotOrder, d_rows, d_work,
+                         d_frame, d_velw):
+    """The plain version of `setup_backward_cuda`: autograd through
+    `setup_plain` and `pack_constraints` (the kernel's layout) on the same
+    inputs, with the same output adjoints (the work rows' scratch part
+    takes none, as in the kernel). Returns the adjoints of GRAD_INPUTS."""
+    if pwarm is None:
+        pwarm = torch.zeros_like(man.depth)
+    leaves = [t.detach().requires_grad_()
+              for t in _grad_inputs(bodies, man, warm, pwarm)]
+    with torch.enable_grad():
+        b2 = bodies.replace(pos=leaves[0], quat=leaves[1], vel=leaves[2],
+                            angvel=leaves[3])
+        m2 = man.replace(normal=leaves[4], pos=leaves[5], depth=leaves[6])
+        con, velw, acc = setup_plain(b2, m2, leaves[7], cfg, coloring,
+                                     leaves[8])
+        packed, work = pack_constraints(con, acc, order)
+        got = torch.autograd.grad(
+            [packed.rows, work[:4 * CONTACT_POINTS], packed.frame, velw],
+            leaves, [d_rows, d_work[:4 * CONTACT_POINTS], d_frame, d_velw],
+            allow_unused=True)
+    return tuple(torch.zeros_like(x) if g is None else g
+                 for g, x in zip(got, leaves))
+
+
+def setup_cuda(bodies: Bodies, man: Manifolds, warm, cfg: SimConfig,
+               coloring=None, pwarm=None, order: SlotOrder = None):
+    """The setup kernel and the warm start, as one `SetupFn` node (without
+    an input that carries a gradient it builds no graph). Returns
+    (PackedConstraints, velw, work rows)."""
+    if coloring is None:
+        coloring = solver.color_manifolds(man, bodies, cfg)
+    if order is None:
+        order = color_order(man, bodies, coloring, cfg)
+    color, n_colors, relax, spill, spill_color = coloring
+    use_pwarm = uses_pwarm(pwarm, cfg)
+    if pwarm is None:
+        pwarm = torch.zeros(man.depth.shape, dtype=torch.float32,
+                            device=bodies.pos.device)
+    if torch.is_grad_enabled():
+        for name, t in (("inv_mass", bodies.inv_mass),
+                        ("inv_inertia", bodies.inv_inertia),
+                        ("friction", man.friction)):
+            if t.requires_grad:
+                raise NotImplementedError(
+                    f"setup: the kernels' backward gives no gradient to "
+                    f"{name}")
+    rows, work, frame, velw = SetupFn.apply(
+        *_grad_inputs(bodies, man, warm, pwarm), bodies, man, relax, order,
+        cfg, use_pwarm)
     con = PackedConstraints(
         rows=rows, frame=frame, n=man.normal, order=order, color=color,
         n_colors=n_colors, valid=man.valid, spill_count=spill,

@@ -17,7 +17,11 @@ over the body-sorted entry lists that setup's warm start also uses.
 dispatches by device: CPU tensors go to the plain twin `solve_plain`
 (`solver.solve_from`) over a `ContactConstraints`; CUDA tensors launch the
 kernel over setup's `PackedConstraints`, or raise. The CUDA path updates
-velw and setup's work rows in place.
+velw and setup's work rows in place, except in the differentiable mode:
+when an input requires grad the kernel runs inside `SolveFn` on copies,
+recording a tape of each visit, and its backward is csrc/solve_bwd.cu's
+reverse sweep (`solve_backward_cuda`; plain version `solve_backward_plain`,
+autograd of the twin).
 """
 
 from __future__ import annotations
@@ -28,7 +32,9 @@ import torch
 
 from .. import _build
 from ..config import CONTACT_POINTS, SimConfig
+from ..state import flatten
 from . import solver
+from .segment import entries, segment_sum
 
 VEL_ROW = 12
 # The solve's constraint rows: (field, words per manifold), stored
@@ -44,6 +50,9 @@ ROW_FIELDS = (
     ("body_a", 1), ("body_b", 1),
 )
 ROWS = sum(w for _, w in ROW_FIELDS)
+# each field's first row
+ROW_OFFSET = {name: sum(w for _, w in ROW_FIELDS[:k])
+              for k, (name, _) in enumerate(ROW_FIELDS)}
 # The work rows (slot order): λn, λt1, λt2, pseudo λ (4 points each), then
 # 24 scratch rows (csrc/common.cuh kWork*)
 WORK_ROWS = 4 * CONTACT_POINTS + 2 * VEL_ROW
@@ -121,45 +130,183 @@ def solve_cluster_size() -> int:
     return _build.library().lib.nudge_solve_cluster()
 
 
-def solve_cuda(velw, con, acc, cfg: SimConfig):
-    """Run the solve kernel over setup's `PackedConstraints` and work rows
-    `acc`, both updated in place. Returns (velw, (λn, λt1, λt2),
-    pseudo_acc), the accumulators in manifold order."""
-    if cfg.differentiable:
-        raise NotImplementedError(
-            "differentiable mode has no kernel path yet (ROADMAP Queue 1 "
-            "item 5)")
-    n = velw.shape[0]
+def _order_args(kernel: str, con, cfg: SimConfig):
+    """Pointers to the solve's color segments and body-sorted entries,
+    checked."""
     m = con.rows.shape[1]
     K = cfg.max_colors
     o = con.order
-    f32, i32, i64 = torch.float32, torch.int32, torch.int64
+    i32, i64 = torch.int32, torch.int64
     for name, t, dt, shape in (
-            ("velw", velw, f32, (n, VEL_ROW)),
-            ("rows", con.rows, f32, (ROWS, m)),
-            ("work", acc, f32, (WORK_ROWS, m)),
             ("offsets", o.offsets, i32, (K + 1,)),
             ("n_colors", con.n_colors, i32, ()),
             ("spill_color", con.spill_color, i32, ()),
             ("slot", o.slot, i32, (m,)), ("keys_a", o.keys_a, i32, (m,)),
             ("perm_a", o.perm_a, i64, (m,)), ("keys_b", o.keys_b, i32, (m,)),
             ("perm_b", o.perm_b, i64, (m,))):
-        _build.check_cuda("solve", name, t, dt, shape)
+        _build.check_cuda(kernel, name, t, dt, shape)
+    return [_build.ptr(t) for t in (o.offsets, con.n_colors, con.spill_color,
+                                    o.slot, o.keys_a, o.perm_a, o.keys_b,
+                                    o.perm_b)]
+
+
+def _check_velw(kernel: str, velw, n: int):
+    _build.check_cuda(kernel, "velw", velw, torch.float32, (n, VEL_ROW))
     if velw.data_ptr() % 16:
-        raise ValueError("solve kernel: velw needs a 16-byte aligned base "
-                         "(it reads and writes each body's row as 16-byte "
-                         "words)")
-    out = torch.empty((4, m, CONTACT_POINTS), dtype=f32, device=velw.device)
+        raise ValueError(f"{kernel} kernel: velw needs a 16-byte aligned "
+                         "base (it reads and writes each body's row as "
+                         "16-byte words)")
+
+
+def _solve_launch(velw, con, acc, cfg: SimConfig, tape=None):
+    """One launch of the solve kernel, velw and the work rows `acc` updated
+    in place; with a `tape` [iters, TAPE_ROWS, M] it records each visit's
+    starting state. Returns (velw, accumulators f32[4, M, 4] in manifold
+    order)."""
+    m = con.rows.shape[1]
+    _check_velw("solve", velw, velw.shape[0])
+    _build.check_cuda("solve", "rows", con.rows, torch.float32, (ROWS, m))
+    _build.check_cuda("solve", "work", acc, torch.float32, (WORK_ROWS, m))
+    order_ptrs = _order_args("solve", con, cfg)
+    out = torch.empty((4, m, CONTACT_POINTS), dtype=torch.float32,
+                      device=velw.device)
     _build.library().call(
         "nudge_solve", _build.ptr(con.rows), _build.ptr(acc), _build.ptr(velw),
-        _build.ptr(out), _build.ptr(o.offsets), _build.ptr(con.n_colors),
-        _build.ptr(con.spill_color), _build.ptr(o.slot), _build.ptr(o.keys_a),
-        _build.ptr(o.perm_a), _build.ptr(o.keys_b), _build.ptr(o.perm_b), m, K,
+        _build.ptr(out), *order_ptrs, m, cfg.max_colors, cfg.solver_iters,
+        int(cfg.split_impulse), int(cfg.split_impulse and cfg.pseudo_friction),
+        None if tape is None else _build.ptr(tape), _build.stream_of(velw))
+    solve.launches += 1
+    return velw, out
+
+
+def solve_cuda(velw, con, acc, cfg: SimConfig):
+    """Run the solve kernel over setup's `PackedConstraints` and work rows
+    `acc`, both updated in place. Returns (velw, (λn, λt1, λt2),
+    pseudo_acc), the accumulators in manifold order. When an input carries
+    a gradient (the differentiable mode) the kernel runs inside `SolveFn`:
+    on copies of velw and the work rows, with a tape."""
+    if torch.is_grad_enabled() and (velw.requires_grad or acc.requires_grad
+                                    or con.rows.requires_grad):
+        velw, out = SolveFn.apply(velw, con.rows, acc, con, cfg)
+    else:
+        velw, out = _solve_launch(velw, con, acc, cfg)
+    return velw, (out[0], out[1], out[2]), out[3]
+
+
+# the tape's rows a visit (csrc/common.cuh kTapeRows): both bodies' velw
+# rows and the slot's 16 accumulators
+TAPE_ROWS = 2 * VEL_ROW + 4 * CONTACT_POINTS
+
+
+def solve_bwd_cluster_size() -> int:
+    """The thread-block cluster size the solve's backward launches with."""
+    return _build.library().lib.nudge_solve_bwd_cluster()
+
+
+def solve_backward_cuda(rows, tape, con, cfg: SimConfig, d_velw, d_out):
+    """The backward of `_solve_launch` with a tape: from the adjoints of
+    the output velw and accumulators (d_out [4, M, 4], manifold order) the
+    adjoints of the input velw, rows and work rows. The reverse-sweep
+    kernel (csrc/solve_bwd.cu) leaves the adjoint of the static bodies'
+    reads in one column a slot; a segment sum adds them per body in a fixed
+    order."""
+    n = d_velw.shape[0]
+    m = rows.shape[1]
+    f32 = torch.float32
+    dev = rows.device
+    _build.check_cuda("solve_bwd", "tape", tape, f32,
+                      (cfg.solver_iters, TAPE_ROWS, m))
+    _build.check_cuda("solve_bwd", "d_out", d_out, f32, (4, m, CONTACT_POINTS))
+    o = con.order
+    _build.check_cuda("solve_bwd", "rows", rows, f32, (ROWS, m))
+    adj_velw = d_velw.clone()
+    _check_velw("solve_bwd", adj_velw, n)
+    order_ptrs = _order_args("solve_bwd", con, cfg)
+    slot = o.slot.long()
+    adj_acc = torch.zeros((4 * CONTACT_POINTS, m), dtype=f32, device=dev)
+    adj_acc[:, slot] = d_out.permute(0, 2, 1).reshape(4 * CONTACT_POINTS, m)
+    adj_rows = torch.zeros((ROWS, m), dtype=f32, device=dev)
+    adj_static = torch.zeros((2 * VEL_ROW, m), dtype=f32, device=dev)
+    scratch = torch.empty((4 * VEL_ROW, m), dtype=f32, device=dev)
+    _build.library().call(
+        "nudge_solve_bwd", _build.ptr(rows), _build.ptr(tape),
+        _build.ptr(adj_velw), _build.ptr(adj_acc), _build.ptr(adj_rows),
+        _build.ptr(adj_static), _build.ptr(scratch), *order_ptrs, m,
         cfg.solver_iters, int(cfg.split_impulse),
         int(cfg.split_impulse and cfg.pseudo_friction),
-        _build.stream_of(velw))
-    solve.launches += 1
-    return velw, (out[0], out[1], out[2]), out[3]
+        _build.stream_of(rows))
+    solve_backward_cuda.launches += 1
+    # the static sides' reads, summed per body onto adj_velw
+    live = torch.arange(m, device=dev) < o.offsets[cfg.max_colors]
+    ids = rows[ROW_OFFSET["body_a"]:ROW_OFFSET["body_b"] + 1].view(torch.int32)
+    im = rows[ROW_OFFSET["im_a"]:ROW_OFFSET["im_b"] + 1]
+    keys, perm = entries(ids.T, (live[None, :] & ~(im > 0.0)).T)
+    vals = adj_static.reshape(2, VEL_ROW, m).permute(2, 0, 1).reshape(
+        2 * m, VEL_ROW)
+    adj_velw = segment_sum(keys, perm, vals.contiguous(), n, adj_velw)
+    d_work = torch.cat([adj_acc * live, torch.zeros(
+        (WORK_ROWS - 4 * CONTACT_POINTS, m), dtype=f32, device=dev)])
+    return adj_velw, adj_rows, d_work
+
+
+solve_backward_cuda.launches = 0
+
+
+class SolveFn(torch.autograd.Function):
+    """The solve kernel as one autograd node on the card: the forward runs
+    `_solve_launch` on copies of velw and the work rows (the kernel writes
+    them in place; autograd must not see an input change) with a tape
+    sized by capacity, [solver_iters, TAPE_ROWS, M] floats; the backward is
+    `solve_backward_cuda`. Inputs with a gradient: velw, the rows, the work
+    rows; outputs: velw and the accumulators [4, M, 4]."""
+
+    @staticmethod
+    def forward(ctx, velw, rows, work, con, cfg):
+        m = rows.shape[1]
+        tape = torch.empty((cfg.solver_iters, TAPE_ROWS, m),
+                           dtype=torch.float32, device=rows.device)
+        velw, out = _solve_launch(velw.clone(), con, work.clone(), cfg, tape)
+        saved, ctx.rebuild = flatten((tape, con))
+        ctx.save_for_backward(*saved)
+        ctx.cfg, ctx.n = cfg, velw.shape[0]
+        return velw, out
+
+    @staticmethod
+    def backward(ctx, d_velw, d_out):
+        tape, con = ctx.rebuild(ctx.saved_tensors)
+        rows = con.rows
+        n, m = ctx.n, rows.shape[1]
+        dev = rows.device
+        d_velw = (torch.zeros((n, VEL_ROW), dtype=torch.float32, device=dev)
+                  if d_velw is None else d_velw.contiguous())
+        d_out = (torch.zeros((4, m, CONTACT_POINTS), dtype=torch.float32,
+                             device=dev)
+                 if d_out is None else d_out.contiguous())
+        d_velw_in, d_rows, d_work = solve_backward_cuda(
+            rows, tape, con, ctx.cfg, d_velw, d_out)
+        return d_velw_in, d_rows, d_work, None, None
+
+
+def solve_backward_plain(velw, con: solver.ContactConstraints, acc,
+                         cfg: SimConfig, d_velw, d_out):
+    """The plain version of the solve's backward: autograd through
+    `solve_plain` on the same inputs, from the adjoints of velw and of the
+    accumulators (d_out [4, M, 4]). Returns (d velw, {field: adjoint} of
+    the constraints' float fields, (d λn, d λt1, d λt2))."""
+    fields = [f for f, _ in ROW_FIELDS
+              if f not in ("body_a", "body_b", "point_valid")]
+    leaves = {f: getattr(con, f).detach().requires_grad_() for f in fields}
+    v = velw.detach().requires_grad_()
+    a = [x.detach().requires_grad_() for x in acc]
+    with torch.enable_grad():
+        vout, aout, pout = solve_plain(v, con.replace(**leaves), tuple(a), cfg)
+        outs = [vout, *aout, pout]
+        gs = [d_velw, d_out[0], d_out[1], d_out[2], d_out[3]]
+        got = torch.autograd.grad(outs, [v, *leaves.values(), *a], gs,
+                                  allow_unused=True)
+    got = [torch.zeros_like(x) if g is None else g
+           for g, x in zip(got, [v, *leaves.values(), *a])]
+    return got[0], dict(zip(fields, got[1:1 + len(fields)])), tuple(got[-3:])
 
 
 def solve(velw, con, acc, cfg: SimConfig):

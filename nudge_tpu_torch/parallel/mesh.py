@@ -23,7 +23,10 @@ collider arrays one element at a time; what a kernel reads or writes as
 slots), and its wrapper checks that alignment.
 
 `donate` is kept for the reference's signatures and has no effect: each
-function returns a new batch and leaves its input as it was.
+function returns a new batch and leaves its input as it was. When a leaf
+of the batch requires grad (the differentiable mode), the scenes' results
+are stacked into a new batch instead of written into a copy, so autograd
+sees no saved tensor change; the values are the same, bit for bit.
 Multi-device sharding (`shard_scene_batch`, `megabatch_simulate(mesh=)`)
 is not ported yet (ROADMAP Queue 1): it needs a second device.
 """
@@ -81,20 +84,33 @@ def _stack_metrics(ms, dim=0):
                           for f in dataclasses.fields(StepMetrics)})
 
 
+def _requires_grad(state_b) -> bool:
+    found = []
+    tree_map(lambda x: found.append(x.requires_grad), state_b)
+    return torch.is_grad_enabled() and any(found)
+
+
 def _rollout(cfg: SimConfig, state_b, steps: int, every_step: bool):
     """Each scene of a copy of `state_b` stepped `steps` times, written
-    back. Returns (batch, metrics): [steps, scenes] fields with
-    `every_step`, else the last step's [scenes]."""
-    out = tree_map(torch.clone, state_b)
-    per_scene = []
+    back (stacked anew when the batch carries a gradient). Returns (batch,
+    metrics): [steps, scenes] fields with `every_step`, else the last
+    step's [scenes]."""
+    grad = _requires_grad(state_b)
+    out = state_b if grad else tree_map(torch.clone, state_b)
+    per_scene, stepped = [], []
     for i in range(_batch_size(out)):
         st = take(out, i)
         ms = []
         for _ in range(steps):
             st, m = step(st, cfg)
             ms.append(m)
-        _put(out, i, st)
+        if grad:
+            stepped.append(st)
+        else:
+            _put(out, i, st)
         per_scene.append(_stack_metrics(ms) if every_step else ms[-1])
+    if grad:
+        out = make_scene_batch(stepped)
     return out, _stack_metrics(per_scene, 1 if every_step else 0)
 
 

@@ -148,6 +148,34 @@ def tree_map(fn, *trees):
     return fn(*trees)
 
 
+def flatten(tree):
+    """(the tensor leaves of `tree`, in order; a function that rebuilds the
+    tree from such a list). `tree` nests dataclasses, named tuples, tuples
+    and lists; other leaves are kept as they are. An autograd Function
+    saves a tree's tensors with `ctx.save_for_backward(*leaves)`, so that
+    an in-place write to one before the backward raises."""
+    leaves = []
+
+    def walk(t):
+        if isinstance(t, torch.Tensor):
+            leaves.append(t)
+            return lambda it: next(it)
+        if dataclasses.is_dataclass(t):
+            parts = [(f.name, walk(getattr(t, f.name)))
+                     for f in dataclasses.fields(t)]
+            return lambda it: dataclasses.replace(
+                t, **{name: part(it) for name, part in parts})
+        if isinstance(t, (tuple, list)):
+            parts = [walk(x) for x in t]
+            if hasattr(t, "_fields"):
+                return lambda it: type(t)(*[part(it) for part in parts])
+            return lambda it: type(t)(part(it) for part in parts)
+        return lambda it: t
+
+    build = walk(tree)
+    return leaves, lambda tensors: build(iter(tensors))
+
+
 def empty_color_cache(cfg: SimConfig, device="cuda") -> ColorCache:
     m = cfg.max_manifolds
     z = torch.zeros((m,), dtype=_I32, device=device)

@@ -1,5 +1,5 @@
-"""The box-box, coloring and one-point kernels against their twins, on the
-card.
+"""The box-box, coloring and one-point kernels against their twins, and
+setup's time, on the card.
 
     python3 scripts/torch_kernel_probe.py [--parent DIR]
 
@@ -11,8 +11,8 @@ Copies nudge_tpu_torch under build/kernel_probe/ (git-ignored):
 
 For each, in a process of its own:
 
-  - ptxas's registers, stack frame and spills of the box-box and coloring
-    kernels;
+  - ptxas's registers, stack frame and spills of the box-box, coloring,
+    one-point, setup and solve kernels (forward and backward);
   - the box-box kernel against its twin on the 20,480-box pile after 40
     steps (the step's grid pairs: 163,840 slots, ~48,500 live) and on a
     copy of those pairs with only the first LOW_LIVE live (the tail dead,
@@ -26,7 +26,10 @@ For each, in a process of its own:
     mixed scene) after 120 steps, on every live pair, with its device
     time, the device operations a call enqueues and the wrapper's time;
     and the same three of contacts.narrowphase_all on the same step's
-    pairs of all three classes.
+    pairs of all three classes;
+  - setup (`setup_kernel.setup_cuda`: its kernels and the warm start) on
+    the pile's step-40 inputs (chip_smoke.py `step_inputs`): the device
+    time, the device operations a call enqueues and the wrapper's time.
 
 The pile's and config 3's states are made once by the committed kernels
 and shared by both trees. Needs one NVIDIA GPU; prints the card's name and power limit, then
@@ -90,7 +93,8 @@ def make_state(cs):
     bx, wc, bb = cs.box_box_inputs(st, cfg)
     man, _ = contacts.collide(st, cfg)
     dyn = st.bodies.inv_mass > 0.0
-    torch.save((bx, wc, bb, man.body_a, man.body_b, man.valid, dyn), STATE)
+    torch.save((bx, wc, bb, man.body_a, man.body_b, man.valid, dyn, st, cfg),
+               STATE)
 
 
 def make_mixed_state(cs):
@@ -193,6 +197,23 @@ def coloring_case(cs, name, body_a, body_b, valid, dyn, max_colors):
           f"wrapper {ms:.4f} ms", flush=True)
 
 
+def setup_case(cs, name, st, cfg):
+    from nudge_tpu_torch.ops import setup_kernel
+
+    bodies, man, warm, pwarm, col, order = cs.step_inputs(st, cfg)
+
+    def call():
+        return setup_kernel.setup_cuda(bodies, man, warm, cfg, col, pwarm,
+                                       order)
+
+    dev = timing().device_ms(call, reps=REPS)
+    ops = cs.fmt_ops(timing().device_ops(call))
+    ms = cs.timed(call, reps=REPS)
+    print(f"{name}: setup awake pile: {int(man.valid.sum())} live "
+          f"manifolds; device {dev:.4f} ms (a call enqueues {ops}), wrapper "
+          f"{ms:.4f} ms", flush=True)
+
+
 def measure(root):
     """Run in a process of its own, with `root`'s copy of the package."""
     sys.path.insert(0, root)
@@ -206,11 +227,12 @@ def measure(root):
     print(f"{name}: ptxas " + "; ".join(
         f"{k} {r} regs, {fr} B stack frame, {ss}/{sl} B spill stores/loads"
         for k, (r, fr, ss, sl) in sorted(report.items())
-        if k.startswith(("box_box", "color", "pairs_1pt"))), flush=True)
+        if k.startswith(("box_box", "color", "pairs_1pt", "setup", "warm",
+                          "solve", "segment"))), flush=True)
     if not os.path.exists(STATE):
         make_state(cs)
-    bx, wc, bb, body_a, body_b, valid, dyn = torch.load(STATE,
-                                                        weights_only=False)
+    bx, wc, bb, body_a, body_b, valid, dyn, st, cfg = torch.load(
+        STATE, weights_only=False)
     box_box_case(cs, name, "awake pile", bx, wc, bb)
     low = bb.valid & (torch.cumsum(bb.valid.int(), 0) <= LOW_LIVE)
     zero = torch.zeros_like(bb.a)
@@ -219,6 +241,7 @@ def measure(root):
         valid=low))
     for mc in (24, cs.SPILL_COLORS):
         coloring_case(cs, name, body_a, body_b, valid, dyn, mc)
+    setup_case(cs, name, st, cfg)
     if not os.path.exists(MIXED_STATE):
         make_mixed_state(cs)
     one_point_case(cs, name, *torch.load(MIXED_STATE, weights_only=False))

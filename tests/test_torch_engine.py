@@ -27,6 +27,7 @@ from nudge_tpu.ops import solver as jsolver
 from nudge_tpu_torch import config as pconfig
 from nudge_tpu_torch import engine as pengine
 from nudge_tpu_torch import scenes as pscenes
+from nudge_tpu_torch.parallel import mesh as pmesh
 from nudge_tpu_torch.ops import broadphase as pbp
 from nudge_tpu_torch.ops import cache as pcache
 from nudge_tpu_torch.ops import contacts as pcontacts
@@ -62,13 +63,19 @@ def test_package_imports_no_jax():
     subprocess.run([sys.executable, "-c", code], check=True)
 
 
-@pytest.mark.parametrize("knob", [dict(differentiable=True)])
+@pytest.mark.parametrize("knob", [dict(mesh=object())])
 def test_unported_modes_raise(knob):
+    """What is still not ported (multi-device sharding) raises instead of
+    running a partial path; the differentiable mode runs
+    (tests/test_torch_autodiff.py)."""
     b = pscenes.scene_single_box()
-    cfg = b.auto_config(**knob)
+    cfg = b.auto_config(differentiable=True)
     st = b.finalize(cfg, device="cpu")
+    pengine.step(st, cfg)
     with pytest.raises(NotImplementedError):
-        pengine.step(st, cfg)
+        pmesh.megabatch_simulate(cfg, steps=1, **knob)
+    with pytest.raises(NotImplementedError):
+        pmesh.shard_scene_batch(pmesh.make_scene_batch([st]), **knob)
 
 
 def _pressed_pile(n=120):

@@ -84,8 +84,3 @@ def test_env_step_matches_reference(env):
     assert_close(prew, jrew, POS_ATOL, "reward")
     assert bool(pdone) == bool(jdone)
     assert int(ps.t) == int(js.t) == 1
-
-
-def test_differentiable_env_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        BoxPushEnv(differentiable=True, device="cpu")

@@ -18,7 +18,7 @@ from nudge_tpu_torch.ops import broadphase, cache, contacts, grid, integrate
 from nudge_tpu_torch.ops import coloring_kernel as ck
 from nudge_tpu_torch.ops import narrowphase_1pt as p1pt
 from nudge_tpu_torch.ops import narrowphase_kernel as npk
-from nudge_tpu_torch.ops import setup_kernel, solver, solver_kernel
+from nudge_tpu_torch.ops import segment, setup_kernel, solver, solver_kernel
 
 pytestmark = pytest.mark.gpu
 
@@ -405,10 +405,12 @@ def test_mixed_pile_fresh_coloring_launches_every_kernel_and_repeats(dev):
 
 def _through_twins(monkeypatch):
     """Route every kernel wrapper's CUDA branch to its plain twin."""
-    for mod, name in ((npk, "box_box_slots"),
-                      (contacts, "narrowphase_joined"),
-                      (ck, "color_rounds"), (solver_kernel, "solve")):
+    for mod, name in ((npk, "box_box_slots"), (ck, "color_rounds"),
+                      (solver_kernel, "solve")):
         monkeypatch.setattr(mod, f"{name}_cuda", getattr(mod, f"{name}_plain"))
+    # the joined twins in place of NarrowphaseFn: autograd through them
+    monkeypatch.setattr(contacts, "narrowphase_cuda",
+                        contacts.narrowphase_joined_plain)
     # the twin keeps manifold order: it takes no slot order
     monkeypatch.setattr(setup_kernel, "setup_cuda",
                         lambda *a: setup_kernel.setup_plain(*a[:6]))
@@ -453,3 +455,197 @@ def test_reference_mode_step_matches_twins(dev, monkeypatch):
         assert not bool(k.bodies.vel[asleep].any())
         assert not bool(k.bodies.angvel[asleep].any())
         st = k
+
+
+# --- the backward kernels (the differentiable mode) ---------------------
+# Each against autograd of its twin on the same inputs and output adjoint:
+# every gradient within GRAD_RTOL of its largest element (the backward
+# replays the forward's bits, so only the order of float sums differs).
+# The solve is held to its float64 twin instead: autograd of the float32
+# twin loses more than that to cancellation over the sweeps.
+GRAD_RTOL = 1e-4
+
+
+def _grad_close(k, t, name, rtol=GRAD_RTOL):
+    assert bool(torch.isfinite(k).all()), name
+    err = float((k - t).abs().max()) if k.numel() else 0.0
+    assert err <= rtol * float(t.abs().max() if t.numel() else 0.0), \
+        (name, err)
+
+
+def _randn(shape, dev, seed):
+    return torch.randn(shape, generator=torch.Generator(device=dev)
+                       .manual_seed(seed), device=dev)
+
+
+@pytest.mark.parametrize("spheres", [False, True])
+def test_narrowphase_backward_matches_twin(dev, spheres):
+    if spheres:
+        cfg, st = _falling_mixed_pile(400, dev, 60)
+    else:
+        cfg, st = _pressed_pile(300, dev, broadphase="grid")
+    wc = broadphase.world_colliders(st)
+    bb, bs, ss = grid.grid_broadphase(st, wc, cfg)
+    k = contacts.narrowphase_all(st, wc, bb, bs, ss, cfg)
+    p = contacts.narrowphase_joined_plain(st, wc, bb, bs, ss)
+    same = torch.cat([bb.valid, bs.valid, ss.valid])
+    for key in ("point_valid", "feat"):
+        same &= (k[key] == p[key]).all(1)
+    n = same.shape[0]
+    w = same.float()
+    grads = {"pos": _randn((n, 4, 3), dev, 1) * w[:, None, None],
+             "depth": _randn((n, 4), dev, 2) * w[:, None],
+             "normal": _randn((n, 3), dev, 3) * w[:, None]}
+    args = (st, wc, bb, bs, ss, grads)
+    kg = contacts.narrowphase_backward_cuda(*args)
+    again = contacts.narrowphase_backward_cuda(*args)
+    tg = contacts.narrowphase_backward_plain(*args)
+    for name, x, y, z in zip(("box_pos", "box_quat", "sph_pos"), kg, again,
+                             tg):
+        assert torch.equal(x, y), name
+        _grad_close(x, z, name)
+    assert int(bs.valid.sum() + ss.valid.sum()) > 0 or not spheres
+
+
+def test_setup_backward_matches_twin(dev):
+    cfg, st = _pressed_pile(300, dev, broadphase="grid")
+    st, _ = engine.simulate(st, cfg, 3)
+    bodies, man, warm, pwarm, col = _stage_inputs(cfg, st)
+    order = solver_kernel.color_order(man, bodies, col, cfg)
+    m, n = man.valid.shape[0], bodies.pos.shape[0]
+    live = torch.arange(m, device=dev) < order.offsets[cfg.max_colors]
+    d_rows = _randn((solver_kernel.ROWS, m), dev, 1) * live
+    d_rows[solver_kernel.ROW_OFFSET["relax"]:] = 0.0
+    d_work = _randn((solver_kernel.WORK_ROWS, m), dev, 2) * live
+    d_work[16:] = 0.0
+    d_frame = _randn((2, m, 3), dev, 3) * man.valid[None, :, None]
+    d_velw = _randn((n, solver_kernel.VEL_ROW), dev, 4)
+    args = (bodies, man, warm, pwarm, col[2], order, cfg,
+            setup_kernel.uses_pwarm(pwarm, cfg), d_rows, d_work, d_frame,
+            d_velw)
+    kg = setup_kernel.setup_backward_cuda(*args)
+    again = setup_kernel.setup_backward_cuda(*args)
+    tg = setup_kernel.setup_backward_plain(bodies, man, warm, cfg, col, pwarm,
+                                           order, d_rows, d_work, d_frame,
+                                           d_velw)
+    for name, x, y, z in zip(setup_kernel.GRAD_INPUTS, kg, again, tg):
+        assert torch.equal(x, y), name
+        _grad_close(x, z, name)
+
+
+SOLVE64_RTOL, SOLVE64_CORNER = 4e-5, 4e-6
+
+
+@pytest.mark.parametrize("max_colors", [24, 3])
+def test_solve_backward_matches_float64_twin(dev, max_colors):
+    """The reverse sweep (with the spill color's Jacobi adjoint at 3
+    colors) against autograd of solve_plain in float64: every element
+    within SOLVE64_RTOL of its field's largest element, or, where the
+    float32 forward itself parts from the float64 one, equal to autograd
+    of the float32 twin within SOLVE64_CORNER of it (chip_smoke.py's
+    grad_check64; autograd of the float32 twin alone loses ~1e-3 of the
+    norm to cancellation, so it is no reference)."""
+    cfg, st = _pressed_pile(300, dev, broadphase="grid",
+                            max_colors=max_colors)
+    st, _ = engine.simulate(st, cfg, 3)
+    bodies, man, warm, pwarm, col = _stage_inputs(cfg, st)
+    order = solver_kernel.color_order(man, bodies, col, cfg)
+    con, velw, acc = setup_kernel.setup_plain(bodies, man, warm, cfg, col,
+                                              pwarm)
+    m, n = man.valid.shape[0], bodies.pos.shape[0]
+    g_v = _randn((n, solver_kernel.VEL_ROW), dev, 1)
+    g_o = _randn((4, m, 4), dev, 2) * man.valid[None, :, None]
+    tv, tf, ta = solver_kernel.solve_backward_plain(velw, con, acc, cfg, g_v,
+                                                    g_o)
+    fields = list(tf)
+    qv, qf, qa = solver_kernel.solve_backward_plain(
+        velw.double(), con.replace(**{f: getattr(con, f).double()
+                                      for f in fields}),
+        tuple(x.double() for x in acc), cfg, g_v.double(), g_o.double())
+
+    def kernel():
+        leaves = {f: getattr(con, f).detach().requires_grad_()
+                  for f in fields}
+        v = velw.detach().requires_grad_()
+        a = [x.detach().requires_grad_() for x in acc]
+        packed, work = setup_kernel.pack_constraints(
+            con.replace(**leaves), tuple(a), order)
+        vo, ao, po = solver_kernel.solve_cuda(v, packed, work, cfg)
+        return torch.autograd.grad([vo, *ao, po], [v, *leaves.values(), *a],
+                                   [g_v, *g_o], allow_unused=True)
+
+    kg, again = kernel(), kernel()
+    for x, y in zip(kg, again):
+        assert (x is None and y is None) or torch.equal(x, y)
+    dyn = {"a": con.im_a > 0.0, "b": con.im_b > 0.0}
+    pairs = [("velw", kg[0], tv, qv)]
+    for i, f in enumerate(fields):
+        if f in ("im_a", "im_b", "relax"):
+            continue            # their adjoints end at the inverse masses
+        x, y, z = kg[1 + i], tf[f], qf[f]
+        if f.startswith("j"):   # a static side's j rows: the same
+            x, y, z = x[dyn[f[-1]]], y[dyn[f[-1]]], z[dyn[f[-1]]]
+        pairs.append((f, x, y, z))
+    pairs += [(f"acc{i}", kg[-3 + i], ta[i], qa[i]) for i in range(3)]
+    for name, x, y, z in pairs:
+        assert bool(torch.isfinite(x).all()), name
+        big = float(z.abs().max())
+        far = (x.double() - z).abs() > SOLVE64_RTOL * big
+        corner = (x - y).abs() <= SOLVE64_CORNER * big
+        assert not bool((far & ~corner).any()), (
+            name, float((x.double() - z).abs().max()), big)
+
+
+def test_segment_sum_kernel_is_the_plain_sum(dev):
+    keys = torch.randint(0, 500, (20_000,), device=dev, dtype=torch.int32,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+    take = _randn((20_000,), dev, 1) > -1.0
+    vals = _randn((20_000, 13), dev, 2)
+    k, perm = segment.entries(keys, take)
+    init = _randn((500, 13), dev, 3)
+    for start in (None, init):
+        got = segment.segment_sum_cuda(k, perm, vals, 500, start)
+        want = segment.segment_sum_plain(k.cpu(), perm.cpu(), vals.cpu(),
+                                         500, None if start is None
+                                         else start.cpu())
+        assert torch.equal(got.cpu(), want)
+
+
+def test_differentiable_rollout_matches_twins(dev, monkeypatch):
+    """Three differentiable steps of a pressed pile through the kernels and
+    their backward kernels, against autograd through the twins on the same
+    CUDA tensors (the solve in float64: see the solve's test), and the
+    forward bitwise equal to the normal mode's."""
+    cfg, st0 = _pressed_pile(200, dev, broadphase="grid")
+    dcfg = cfg.replace(differentiable=True)
+
+    def grads(solve64=False):
+        v = st0.bodies.vel.clone().requires_grad_()
+        x = st0.bodies.pos.clone().requires_grad_()
+        st = st0.replace(bodies=st0.bodies.replace(vel=v, pos=x))
+        for _ in range(3):
+            st, _ = engine.step(st, dcfg)
+        loss = torch.sum(st.bodies.pos[:, 1] * (st.bodies.inv_mass > 0))
+        return st, torch.autograd.grad(loss, [v, x])
+
+    plain, _ = engine.simulate(st0, cfg, 3)
+    st, kg = grads()
+    for f in ("pos", "quat", "vel", "angvel"):
+        assert torch.equal(getattr(st.bodies, f), getattr(plain.bodies, f)), f
+    with monkeypatch.context() as m:
+        _through_twins(m)
+
+        def solve64(velw, con, acc, cfg):
+            c = con.replace(**{f: getattr(con, f).double()
+                               for f, _ in solver_kernel.ROW_FIELDS
+                               if getattr(con, f).is_floating_point()})
+            v, a, p = solver_kernel.solve_plain(
+                velw.double(), c, tuple(x.double() for x in acc), cfg)
+            return v.float(), tuple(x.float() for x in a), p.float()
+
+        m.setattr(solver_kernel, "solve_cuda", solve64)
+        _, tg = grads()
+    for name, x, y in zip(("d/dv", "d/dx"), kg, tg):
+        assert bool(torch.isfinite(x).all())
+        rel = float(torch.linalg.norm(x - y) / torch.linalg.norm(y))
+        assert rel <= 1e-3, (name, rel)
