@@ -9,7 +9,8 @@ no result):
      power limit as nvidia-smi reports them;
   2. build: compiles the kernels under nudge_tpu_torch/csrc/ with nvcc and
      prints each kernel's registers, stack frame and spills from ptxas;
-     the box-box kernel must have no stack frame and no spill;
+     the box-box kernel and the solve's and setup's backward kernels must
+     have no stack frame and no spill;
   3. kernel vs twin: on the 20,480-box pile after 40 steps, each CUDA kernel
      (box-box narrowphase, setup, solve, coloring rounds) against its plain
      PyTorch twin on the same CUDA tensors, with both times, the kernel's
@@ -107,7 +108,9 @@ no result):
      against their twins at env 0's next step (2 bodies, sleeping on).
  18. the differentiable mode: each backward kernel against autograd of
      its twin on the same inputs and a seeded output adjoint, twice
-     bitwise, with its device time and device operations a call: the
+     bitwise, with its device time and device operations a call (setup's
+     and the solve's also with their backward kernel's device time alone,
+     one kernel a launch): the
      narrowphase's backward (box-box, and the per-collider segment sum) on
      the pile's step-40 pairs and (the one-point kernel) on config 3's
      step-120 pairs, setup's on the pile's step-40 manifolds, the solve's
@@ -322,7 +325,10 @@ def phase_device():
 DEVICE_KERNELS = ("box_box_kernel", "pairs_1pt_kernel", "setup_kernel",
                   "warm_apply_kernel", "solve_kernel", "color_kernel",
                   "box_box_bwd_kernel", "pairs_1pt_bwd_kernel",
-                  "setup_bwd_kernel", "solve_bwd_kernel", "segment_sum_kernel")
+                  "setup_bwd_kernel", "setup_body_sum_kernel", "solve_bwd_kernel",
+                  "segment_sum_kernel")
+# kernels that must keep every value in registers: no stack frame, no spill
+NO_SPILL_KERNELS = ("box_box_kernel", "solve_bwd_kernel", "setup_bwd_kernel")
 
 
 def ptxas_report(build_log):
@@ -368,14 +374,13 @@ def phase_build(card):
         "stack frame, spill stores, spill loads in bytes): " + "; ".join(
             f"{k} {r} regs, {fr} B frame, {ss}/{sl} B spill"
             for k, (r, fr, ss, sl) in sorted(report.items())))
-    # the box-box kernel keeps every value in registers
-    if "box_box_kernel" not in report:
-        raise AssertionError("the build log holds no ptxas report for "
-                             "box_box_kernel")
-    _, frame, st, ld = report["box_box_kernel"]
-    if frame or st or ld:
-        raise AssertionError(f"box_box_kernel: {frame} B stack frame, {st} B "
-                             f"spill stores, {ld} B spill loads, not 0")
+    for k in NO_SPILL_KERNELS:
+        if k not in report:
+            raise AssertionError(f"the build log holds no ptxas report for {k}")
+        _, frame, st, ld = report[k]
+        if frame or st or ld:
+            raise AssertionError(f"{k}: {frame} B stack frame, {st} B spill "
+                                 f"stores, {ld} B spill loads, not 0")
     return dt
 
 
@@ -2215,6 +2220,17 @@ def compare_setup_backward(card, label, inputs, cfg):
     call = lambda: setup_kernel.setup_backward_cuda(*args)  # noqa: E731
     ops = timing.device_ops(call)
     dev_ms = timing.device_ms(call, BACKWARD_REPS)
+    # the backward kernel alone (the wrapper adds the static keys' sort and
+    # the per-body sums)
+    ins, consts = setup_kernel._setup_args(bodies, man, warm, pwarm, col[2],
+                                           order, cfg)
+
+    def kernel():
+        return setup_kernel._setup_bwd_launch(ins, consts, cfg, use, d_rows,
+                                              d_work, d_frame, d_velw)
+
+    one_kernel("setup_bwd", timing.device_ops(kernel))
+    kernel_ms = timing.device_ms(kernel, BACKWARD_REPS)
     n_live = int(man.valid.sum())
     # per live manifold the forward's inputs (156 B), the adjoints of its
     # rows, accumulators and frame (~630 B) in, 61 adjoints out; per body
@@ -2223,10 +2239,12 @@ def compare_setup_backward(card, label, inputs, cfg):
     rec = backward_record(ms, plain_ms, dev_ms, diff,
                           n_live * (156 + 630 + 61 * 4) + n * (48 + 52),
                           n_live * BWD_OPS_FACTOR * SETUP_OPS_PER_MANIFOLD)
+    rec["kernel_device_ms"] = kernel_ms
     log(card, f"setup_bwd ({label}): {n_live} live manifolds; "
         f"{fmt_diff(diff)}; two runs bitwise; a call enqueues "
-        f"{fmt_ops(ops)}; wrapper {ms:.4f} ms (device {dev_ms:.4f} ms), "
-        f"twin autograd {plain_ms:.3f} ms; bound {rec['bound_ms']:.5f} ms "
+        f"{fmt_ops(ops)}; wrapper {ms:.4f} ms (device {dev_ms:.4f} ms; the "
+        f"kernel alone {kernel_ms:.4f} ms, one kernel), twin autograd "
+        f"{plain_ms:.3f} ms; bound {rec['bound_ms']:.5f} ms "
         f"({rec['bound_by']})")
     return rec
 
@@ -2342,6 +2360,22 @@ def compare_solve_backward(card, label, inputs, cfg, spill=False):
     ms = timed(call)
     ops = timing.device_ops(call)
     dev_ms = timing.device_ms(call, BACKWARD_REPS)
+    # the reverse-sweep kernel alone, on buffers made once (the wrapper
+    # adds their fills and the static reads' segment sum)
+    f32 = torch.float32
+    bufs = (g_v.clone(),
+            torch.zeros((4 * 4, m), dtype=f32, device=dev),
+            torch.zeros((solver_kernel.ROWS, m), dtype=f32, device=dev),
+            torch.zeros((2 * solver_kernel.VEL_ROW, m), dtype=f32, device=dev),
+            torch.empty((4 * solver_kernel.VEL_ROW, m), dtype=f32, device=dev))
+    optrs = solver_kernel._order_args("solve_bwd", packed, cfg)
+
+    def kernel():
+        return solver_kernel._solve_bwd_launch(packed.rows, tape, optrs, cfg,
+                                               *bufs)
+
+    one_kernel("solve_bwd", timing.device_ops(kernel))
+    kernel_ms = timing.device_ms(kernel, BACKWARD_REPS)
     n_live = int(man.valid.sum())
     corners = ""
     if spill:
@@ -2360,16 +2394,19 @@ def compare_solve_backward(card, label, inputs, cfg, spill=False):
         f"{100 * diff['share']:.1f}% of {rtol:g} x each field's largest "
         f"element at most, at {diff['worst']}{corners}; two runs bitwise; a "
         f"call enqueues {fmt_ops(ops)}; wrapper {ms:.3f} ms (device "
-        f"{dev_ms:.4f} ms), float64 twin autograd {plain_ms:.1f} ms")
+        f"{dev_ms:.4f} ms; the kernel alone {kernel_ms:.4f} ms, one kernel), "
+        f"float64 twin autograd {plain_ms:.1f} ms")
     # per live manifold and sweep its tape row (160 B) in; per live
     # manifold the rows (556 B) and the accumulators' adjoint (64 B) in,
     # the rows' and accumulators' adjoints (556 + 64 B) out; per body
     # velw's adjoint in and out; BWD_OPS_FACTOR times the forward's ~750
     # operations a visit
-    return backward_record(
+    rec = backward_record(
         ms, plain_ms, dev_ms, diff,
         n_live * (cfg.solver_iters * 160 + 2 * (556 + 64)) + n * 2 * 48,
         n_live * cfg.solver_iters * BWD_OPS_FACTOR * SOLVE_OPS_PER_MANIFOLD)
+    rec["kernel_device_ms"] = kernel_ms
+    return rec
 
 
 def solve_plain64(velw, con, acc, cfg):

@@ -48,8 +48,9 @@ _SIGNATURES = {
     "nudge_box_box_bwd": [_P] * 6 + [_I] + [_P] * 4 + [_P],
     "nudge_pairs_1pt_bwd": [_P] * 11 + [_I] * 2 + [_P] * 4 + [_P],
     "nudge_segment_sum": [_P] * 3 + [_I] * 4 + [_P] + [_P],
-    "nudge_setup_bwd": [_P] * 17 + [_I] * 2 + [_F] * 9 + [_I] * 3 + [_P] * 10
+    "nudge_setup_bwd": [_P] * 17 + [_I] * 2 + [_F] * 9 + [_I] * 3 + [_P] * 11
                        + [_P],
+    "nudge_setup_body_sum": [_P] * 9 + [_I] * 2 + [_P] * 4 + [_P],
 }
 
 

@@ -11,9 +11,9 @@
 #include <math.h>
 
 // The helpers are templates over the scalar type: float in the forward
-// kernels, the forward-mode dual number of dual.cuh in the backward
-// kernels, which run the forward's own math with a tangent beside each
-// value. V3, Q4 and M3 are the float instances.
+// kernels, the forward-mode dual number of dual.cuh in the narrowphases'
+// backward kernels, which run the forward's own math with a tangent beside
+// each value. V3, Q4 and M3 are the float instances.
 
 template <typename T>
 struct Vec3 {

@@ -1,6 +1,6 @@
 // A forward-mode dual number for the backward kernels: a float value and
-// one tangent. The backward kernels of the narrowphases and of setup run the
-// forward kernels' own templated math (common.cuh, narrowphase.cu, ...) on
+// one tangent. The backward kernels of the narrowphases run the forward
+// kernels' own templated math (common.cuh, narrowphase.cu, ...) on
 // Dual inputs, with the tangent of one input component set to 1, and read
 // one column of the Jacobian from the outputs' tangents: its dot with the
 // output adjoint is that input's adjoint.

@@ -5,8 +5,9 @@ per item: a pair's pose inputs, a manifold's body inputs, a slot's reads of
 static bodies. A body or collider is in many items, so its adjoint is the
 sum of their rows. `entries` sorts the rows' keys stably once, and
 `segment_sum` adds the rows of each key in that order (csrc/segment.cu: one
-thread an output row, no float atomics), so a backward repeats bit for bit
-and equals the plain sequential `index_add_` of `segment_sum_plain`.
+warp an output row, one lane a column, no float atomics), so a backward
+repeats bit for bit and equals the plain sequential `index_add_` of
+`segment_sum_plain`.
 
 `segment_sum` dispatches by device: CPU tensors go to the plain twin, CUDA
 tensors launch the kernel or raise.

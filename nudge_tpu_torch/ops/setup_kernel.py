@@ -21,9 +21,9 @@ the kernels, or raise, and return a `PackedConstraints` and the work rows.
 the two in plain PyTorch; the comparisons use them, the main path does
 not. On the card the kernels run inside `SetupFn` (a graph only when an
 input requires grad: the differentiable mode), whose backward is
-csrc/setup.cu's `setup_bwd_kernel` and a per-body segment sum
-(`setup_backward_cuda`; plain version `setup_backward_plain`, autograd of
-the twin).
+csrc/setup.cu's `setup_bwd_kernel`, a reverse pass of the setup math on one
+quad of lanes a live slot, and its per-body sums (`setup_backward_cuda`;
+plain version `setup_backward_plain`, autograd of the twin).
 """
 
 from __future__ import annotations
@@ -37,7 +37,6 @@ from ..config import CONTACT_POINTS, SimConfig
 from ..state import Bodies, flatten
 from . import solver
 from .contacts import Manifolds
-from .segment import entries, segment_sum
 from .solver_kernel import (
     ROW_FIELDS, ROWS, VEL_ROW, WORK_ROWS, SlotOrder, color_order, pack_velw,
 )
@@ -210,29 +209,24 @@ def _grad_inputs(bodies: Bodies, man: Manifolds, warm, pwarm):
             man.pos, man.depth, warm, pwarm)
 
 
-def setup_backward_cuda(bodies: Bodies, man: Manifolds, warm, pwarm, relax,
-                        order: SlotOrder, cfg: SimConfig, use_pwarm: bool,
-                        d_rows, d_work, d_frame, d_velw):
-    """The backward of `_setup_launch`: the adjoints of GRAD_INPUTS from
-    those of (rows, work, frame, velw). The backward kernel writes each
-    live manifold's input adjoints (its body inputs as one row a side), and
-    a segment sum adds the body rows per body in a fixed order, onto velw's
-    own adjoint (velw = v | w + the warm-start changes). The work rows'
-    scratch part (the warm-start changes, which the solve overwrites before
-    it reads them) takes no adjoint."""
-    ins, consts = _setup_args(bodies, man, warm, pwarm, relax, order, cfg)
-    n = bodies.pos.shape[0]
-    m = man.valid.shape[0]
-    dev = bodies.pos.device
+def _setup_bwd_launch(ins, consts, cfg: SimConfig, use_pwarm: bool, d_rows,
+                      d_work, d_frame, d_velw):
+    """The backward kernel alone: (adj_body f32[2M, 13], the live
+    manifolds' body rows, row 2i + side; static_keys i32[2M], the body of a
+    live manifold's static side, else INT32_MAX; the adjoints of normal,
+    pos, depth, warm and pwarm, every manifold written)."""
+    m = ins["normal"].shape[0]
+    dev = ins["normal"].device
     f32 = torch.float32
     for name, t, shape in (("d_rows", d_rows, (ROWS, m)),
                            ("d_work", d_work, (WORK_ROWS, m)),
                            ("d_frame", d_frame, (2, m, 3)),
-                           ("d_velw", d_velw, (n, VEL_ROW))):
+                           ("d_velw", d_velw, (ins["pos"].shape[0], VEL_ROW))):
         _build.check_cuda("setup_bwd", name, t, f32, shape)
     P = CONTACT_POINTS
     adj_body = torch.empty((2 * m, 13), dtype=f32, device=dev)
-    adj = [torch.zeros(shape, dtype=f32, device=dev) for shape in
+    static_keys = torch.empty(2 * m, dtype=torch.int32, device=dev)
+    adj = [torch.empty(shape, dtype=f32, device=dev) for shape in
            ((m, 3), (m, P, 3), (m, P), (m, P, 3), (m, P))]
     names = ("pos", "quat", "vel", "angvel", "inv_mass", "inv_inertia",
              "body_a", "body_b", "normal", "friction", "pos_m", "depth",
@@ -243,15 +237,42 @@ def setup_backward_cuda(bodies: Bodies, man: Manifolds, warm, pwarm, relax,
         int(cfg.warm_start), int(use_pwarm), _build.ptr(d_rows),
         _build.ptr(d_work), _build.ptr(d_frame), _build.ptr(d_velw),
         _build.ptr(adj_body), *[_build.ptr(t) for t in adj],
-        _build.stream_of(bodies.pos))
+        _build.ptr(static_keys), _build.stream_of(d_rows))
     setup_backward_cuda.launches += 1
-    keys, perm = entries(torch.stack([man.body_a, man.body_b], 1),
-                         man.valid[:, None].expand(-1, 2))
-    init = torch.cat([torch.zeros((n, 7), dtype=f32, device=dev),
-                      d_velw[:, 0:6]], 1)
-    body = segment_sum(keys, perm, adj_body, n, init)
-    return (body[:, 0:3].contiguous(), body[:, 3:7].contiguous(),
-            body[:, 7:10].contiguous(), body[:, 10:13].contiguous(), *adj)
+    return adj_body, static_keys, adj
+
+
+def setup_backward_cuda(bodies: Bodies, man: Manifolds, warm, pwarm, relax,
+                        order: SlotOrder, cfg: SimConfig, use_pwarm: bool,
+                        d_rows, d_work, d_frame, d_velw):
+    """The backward of `_setup_launch`: the adjoints of GRAD_INPUTS from
+    those of (rows, work, frame, velw). The backward kernel (one quad a
+    live slot) writes the manifolds' input adjoints and each live
+    manifold's body rows; the per-body sums (csrc/setup.cu
+    setup_body_sum_kernel, one warp a body, fixed order) walk a dynamic
+    body's rows through the forward's body-sorted lists (`order`: live
+    dynamic entries) and a static body's through one stable sort of the
+    static-body keys the kernel wrote, the only entries those lists do
+    not hold; velw's own adjoint goes to vel and angvel (velw = v | w +
+    the warm-start changes). The work rows' scratch part (the warm-start
+    changes, which the solve overwrites before it reads them) takes no
+    adjoint."""
+    ins, consts = _setup_args(bodies, man, warm, pwarm, relax, order, cfg)
+    adj_body, static_keys, adj = _setup_bwd_launch(
+        ins, consts, cfg, use_pwarm, d_rows, d_work, d_frame, d_velw)
+    static_keys, static_perm = torch.sort(static_keys, stable=True)
+    n = bodies.pos.shape[0]
+    m = man.valid.shape[0]
+    body = [torch.empty((n, w), dtype=torch.float32, device=d_rows.device)
+            for w in (3, 4, 3, 3)]
+    _build.library().call(
+        "nudge_setup_body_sum", _build.ptr(bodies.inv_mass),
+        *[_build.ptr(ins[k]) for k in ("keys_a", "perm_a", "keys_b",
+                                        "perm_b")],
+        _build.ptr(static_keys), _build.ptr(static_perm),
+        _build.ptr(adj_body), _build.ptr(d_velw), m, n,
+        *[_build.ptr(t) for t in body], _build.stream_of(d_rows))
+    return (*body, *adj)
 
 
 setup_backward_cuda.launches = 0
@@ -309,10 +330,13 @@ def setup_backward_plain(bodies: Bodies, man: Manifolds, warm, cfg: SimConfig,
         con, velw, acc = setup_plain(b2, m2, leaves[7], cfg, coloring,
                                      leaves[8])
         packed, work = pack_constraints(con, acc, order)
-        got = torch.autograd.grad(
-            [packed.rows, work[:4 * CONTACT_POINTS], packed.frame, velw],
-            leaves, [d_rows, d_work[:4 * CONTACT_POINTS], d_frame, d_velw],
-            allow_unused=True)
+        # without a warm start the accumulators are constants
+        outs = [(y, g) for y, g in (
+            (packed.rows, d_rows),
+            (work[:4 * CONTACT_POINTS], d_work[:4 * CONTACT_POINTS]),
+            (packed.frame, d_frame), (velw, d_velw)) if y.requires_grad]
+        got = torch.autograd.grad([y for y, _ in outs], leaves,
+                                  [g for _, g in outs], allow_unused=True)
     return tuple(torch.zeros_like(x) if g is None else g
                  for g, x in zip(got, leaves))
 

@@ -20,8 +20,8 @@ kernel over setup's `PackedConstraints`, or raise. The CUDA path updates
 velw and setup's work rows in place, except in the differentiable mode:
 when an input requires grad the kernel runs inside `SolveFn` on copies,
 recording a tape of each visit, and its backward is csrc/solve_bwd.cu's
-reverse sweep (`solve_backward_cuda`; plain version `solve_backward_plain`,
-autograd of the twin).
+reverse sweep, one manifold on two lanes (`solve_backward_cuda`; plain
+version `solve_backward_plain`, autograd of the twin).
 """
 
 from __future__ import annotations
@@ -203,6 +203,21 @@ def solve_bwd_cluster_size() -> int:
     return _build.library().lib.nudge_solve_bwd_cluster()
 
 
+def _solve_bwd_launch(rows, tape, order_ptrs, cfg: SimConfig, adj_velw,
+                      adj_acc, adj_rows, adj_static, scratch):
+    """One launch of the reverse-sweep kernel alone, on checked buffers
+    (`solve_backward_cuda` makes them): adj_velw and adj_acc in and out,
+    adj_rows and adj_static added into."""
+    _build.library().call(
+        "nudge_solve_bwd", _build.ptr(rows), _build.ptr(tape),
+        _build.ptr(adj_velw), _build.ptr(adj_acc), _build.ptr(adj_rows),
+        _build.ptr(adj_static), _build.ptr(scratch), *order_ptrs,
+        rows.shape[1], cfg.solver_iters, int(cfg.split_impulse),
+        int(cfg.split_impulse and cfg.pseudo_friction),
+        _build.stream_of(rows))
+    solve_backward_cuda.launches += 1
+
+
 def solve_backward_cuda(rows, tape, con, cfg: SimConfig, d_velw, d_out):
     """The backward of `_solve_launch` with a tape: from the adjoints of
     the output velw and accumulators (d_out [4, M, 4], manifold order) the
@@ -228,14 +243,8 @@ def solve_backward_cuda(rows, tape, con, cfg: SimConfig, d_velw, d_out):
     adj_rows = torch.zeros((ROWS, m), dtype=f32, device=dev)
     adj_static = torch.zeros((2 * VEL_ROW, m), dtype=f32, device=dev)
     scratch = torch.empty((4 * VEL_ROW, m), dtype=f32, device=dev)
-    _build.library().call(
-        "nudge_solve_bwd", _build.ptr(rows), _build.ptr(tape),
-        _build.ptr(adj_velw), _build.ptr(adj_acc), _build.ptr(adj_rows),
-        _build.ptr(adj_static), _build.ptr(scratch), *order_ptrs, m,
-        cfg.solver_iters, int(cfg.split_impulse),
-        int(cfg.split_impulse and cfg.pseudo_friction),
-        _build.stream_of(rows))
-    solve_backward_cuda.launches += 1
+    _solve_bwd_launch(rows, tape, order_ptrs, cfg, adj_velw, adj_acc,
+                      adj_rows, adj_static, scratch)
     # the static sides' reads, summed per body onto adj_velw
     live = torch.arange(m, device=dev) < o.offsets[cfg.max_colors]
     ids = rows[ROW_OFFSET["body_a"]:ROW_OFFSET["body_b"] + 1].view(torch.int32)

@@ -1,5 +1,5 @@
 """The box-box, coloring and one-point kernels against their twins, and
-setup's time, on the card.
+setup's and the backward kernels' times, on the card.
 
     python3 scripts/torch_kernel_probe.py [--parent DIR]
 
@@ -29,7 +29,16 @@ For each, in a process of its own:
     pairs of all three classes;
   - setup (`setup_kernel.setup_cuda`: its kernels and the warm start) on
     the pile's step-40 inputs (chip_smoke.py `step_inputs`): the device
-    time, the device operations a call enqueues and the wrapper's time.
+    time, the device operations a call enqueues and the wrapper's time;
+  - setup's backward (`setup_backward_cuda`) on the same inputs, and the
+    solve's (`solve_backward_cuda`, from a tape of the twin's setup packed
+    into the kernel's layout, as chip_smoke.py phase 18 runs it) there at
+    the step's 6 colors and at 4 (the spill color): for each the full
+    call's device time and device operations, the backward kernel's own
+    device time from torch.profiler over PROFILED calls (CUDA events
+    cannot tell one kernel of a call from the others; how many of the
+    kernel's launches the profiler recorded is printed beside it) with the
+    call's largest device kernels, and the wrapper's time.
 
 The pile's and config 3's states are made once by the committed kernels
 and shared by both trees. Needs one NVIDIA GPU; prints the card's name and power limit, then
@@ -50,6 +59,8 @@ STATE = os.path.join(OUT, "state.pt")
 MIXED_STATE = os.path.join(OUT, "mixed_state.pt")
 LOW_LIVE = 3000          # live pairs of the low-live copy (~the settled pile's)
 REPS = 20                # calls a profiled time averages
+PROFILED = 5             # calls under torch.profiler for a kernel's own time
+GRAD_SEED = 7
 
 
 def load(name, path):
@@ -214,6 +225,122 @@ def setup_case(cs, name, st, cfg):
           f"{ms:.4f} ms", flush=True)
 
 
+def kernel_ms(fn, kernel):
+    """(mean device ms, launches recorded) of the device kernel whose name
+    holds `kernel` over PROFILED calls of fn under torch.profiler, and the
+    call's largest device kernels (ms a call each)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILED):
+            fn()
+        torch.cuda.synchronize()
+    total, count, by_kernel = 0.0, 0, []
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        if t is None:
+            t = e.cuda_time_total
+        if kernel in e.key:
+            total += t
+            count += e.count
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            by_kernel.append((t / PROFILED / 1e3, e.key[:48]))
+    top = "; ".join(f"{name} {ms:.4f}" for ms, name in sorted(by_kernel)[::-1][:4])
+    return (total / count / 1e3 if count else float("nan")), count, top
+
+
+def setup_backward_case(cs, name, inputs, cfg):
+    import torch
+
+    from nudge_tpu_torch.ops import setup_kernel, solver_kernel
+
+    bodies, man, warm, pwarm, col, order = inputs
+    dev = bodies.pos.device
+    m, n = man.valid.shape[0], bodies.pos.shape[0]
+    live = torch.arange(m, device=dev) < order.offsets[cfg.max_colors]
+    gen = torch.Generator(device=dev).manual_seed(GRAD_SEED)
+    d_rows = torch.randn((solver_kernel.ROWS, m), generator=gen,
+                         device=dev) * live
+    d_rows[solver_kernel.ROW_OFFSET["relax"]:] = 0.0
+    d_work = torch.randn((solver_kernel.WORK_ROWS, m), generator=gen,
+                         device=dev) * live
+    d_work[16:] = 0.0
+    d_frame = torch.randn((2, m, 3), generator=gen, device=dev) \
+        * man.valid[None, :, None]
+    d_velw = torch.randn((n, solver_kernel.VEL_ROW), generator=gen,
+                         device=dev)
+    args = (bodies, man, warm, pwarm, col[2], order, cfg,
+            setup_kernel.uses_pwarm(pwarm, cfg), d_rows, d_work, d_frame,
+            d_velw)
+
+    def call():
+        return setup_kernel.setup_backward_cuda(*args)
+
+    dev_ms = timing().device_ms(call, reps=REPS)
+    ops = cs.fmt_ops(timing().device_ops(call))
+    k_ms, k_n, top = kernel_ms(call, "setup_bwd_kernel")
+    ms = cs.timed(call, reps=REPS)
+    print(f"{name}: setup_bwd awake pile: {int(man.valid.sum())} live "
+          f"manifolds; the call: device {dev_ms:.4f} ms (a call enqueues "
+          f"{ops}), wrapper {ms:.4f} ms; setup_bwd_kernel alone {k_ms:.4f} "
+          f"ms (profiler, {k_n} of {PROFILED} launches recorded); the call's "
+          f"largest kernels, ms a call: {top}", flush=True)
+
+
+def solve_backward_case(cs, name, inputs, cfg, label):
+    import torch
+
+    from nudge_tpu_torch.ops import setup_kernel, solver_kernel
+
+    bodies, man, warm, pwarm, col, order = inputs
+    dev = bodies.pos.device
+    m, n = man.valid.shape[0], bodies.pos.shape[0]
+    tcon, tvelw, tacc = setup_kernel.setup_plain(bodies, man, warm, cfg, col,
+                                                 pwarm)
+    packed, work = setup_kernel.pack_constraints(tcon, tacc, order)
+    tape = torch.empty((cfg.solver_iters, solver_kernel.TAPE_ROWS, m),
+                       dtype=torch.float32, device=dev)
+    solver_kernel._solve_launch(tvelw.clone(), packed, work.clone(), cfg,
+                                tape)
+    gen = torch.Generator(device=dev).manual_seed(GRAD_SEED)
+    g_v = torch.randn((n, solver_kernel.VEL_ROW), generator=gen, device=dev)
+    g_o = torch.randn((4, m, 4), generator=gen, device=dev) \
+        * man.valid[None, :, None]
+
+    def call():
+        return solver_kernel.solve_backward_cuda(packed.rows, tape, packed,
+                                                 cfg, g_v, g_o)
+
+    dev_ms = timing().device_ms(call, reps=REPS)
+    ops = cs.fmt_ops(timing().device_ops(call))
+    k_ms, k_n, top = kernel_ms(call, "solve_bwd_kernel")
+    ms = cs.timed(call, reps=REPS)
+    print(f"{name}: solve_bwd awake pile, {label}: {int(tcon.n_colors)} "
+          f"colors, {int(tcon.spill_count)} spilled, "
+          f"{int(man.valid.sum())} live manifolds, {cfg.solver_iters} sweeps; "
+          f"the call: device {dev_ms:.4f} ms (a call enqueues {ops}), wrapper "
+          f"{ms:.4f} ms; solve_bwd_kernel alone {k_ms:.4f} ms (profiler, "
+          f"{k_n} of {PROFILED} launches recorded); the call's largest "
+          f"kernels, ms a call: {top}", flush=True)
+
+
+def backward_cases(cs, name, st, cfg):
+    from nudge_tpu_torch.ops import solver, solver_kernel
+
+    inputs = cs.step_inputs(st, cfg)
+    setup_backward_case(cs, name, inputs, cfg)
+    solve_backward_case(cs, name, inputs, cfg, "the step's colors")
+    bodies, man, warm, pwarm, _, _ = inputs
+    scfg = cfg.replace(max_colors=cs.SPILL_COLORS)
+    scol = solver.color_manifolds(man, bodies, scfg)
+    sorder = solver_kernel.color_order(man, bodies, scol, scfg)
+    solve_backward_case(cs, name, (bodies, man, warm, pwarm, scol, sorder),
+                        scfg, f"{cs.SPILL_COLORS} colors")
+
+
 def measure(root):
     """Run in a process of its own, with `root`'s copy of the package."""
     sys.path.insert(0, root)
@@ -242,6 +369,7 @@ def measure(root):
     for mc in (24, cs.SPILL_COLORS):
         coloring_case(cs, name, body_a, body_b, valid, dyn, mc)
     setup_case(cs, name, st, cfg)
+    backward_cases(cs, name, st, cfg)
     if not os.path.exists(MIXED_STATE):
         make_mixed_state(cs)
     one_point_case(cs, name, *torch.load(MIXED_STATE, weights_only=False))

@@ -4,7 +4,14 @@ torch.autograd.gradcheck's central differences in float64 on tiny scenes,
 and the fixed-order segment sum that adds the kernels' adjoint rows per
 body and per collider against a plain sum. The kernels themselves are
 held to these plain versions on the card (tests/test_torch_kernels.py,
-chip_smoke.py phase 18)."""
+chip_smoke.py phase 18); the tests marked gpu below hold setup's and the
+solve's backward kernels to them case by case (split impulse on and off,
+pseudo friction off, no warm start, a forced spill color, manifolds with
+fewer than 4 valid points, friction clamps at their bound; a static side
+in every case). They skip without a card; on one, with no JAX installed:
+
+    python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_backward.py
+"""
 
 import pytest
 import torch
@@ -289,3 +296,179 @@ def test_saved_trees_rebuild_and_guard_in_place_writes():
     b.inv_mass.mul_(2.0)
     with pytest.raises(RuntimeError, match="inplace"):
         torch.autograd.grad(y.sum(), x)
+
+
+# --- setup's and the solve's backward kernels on the card ---------------
+# Each case of CARD_CASES: SimConfig overrides, and what the test does to
+# the step's inputs (`fewer_points`: point 3 of every other manifold made
+# invalid; `friction`: the friction coefficients scaled, with `push` added
+# to the warm impulses along x, so that warm starts and solve sweeps meet
+# the friction bound).
+CARD_CASES = {
+    "split_impulse": dict(),
+    "no_split_impulse": dict(cfg=dict(split_impulse=False)),
+    "no_pseudo_friction": dict(cfg=dict(pseudo_friction=False)),
+    "no_warm_start": dict(cfg=dict(warm_start=False)),
+    "spill_color": dict(cfg=dict(max_colors=3)),
+    "fewer_points": dict(fewer_points=True),
+    "friction_bound": dict(cfg=dict(pseudo_friction=False), friction=0.1,
+                           push=0.5),
+}
+# setup's gradients within SETUP_RTOL of their largest element from the
+# twin's autograd (the kernel recomputes the forward's bits; only the
+# order of float sums differs); the solve's within SOLVE_RTOL of the
+# field's largest element from autograd of the float64 twin, or within
+# SOLVE_CORNER of autograd of the float32 twin where the float32 forward
+# itself parts from the float64 one (tests/test_torch_kernels.py's
+# tolerances for the same kernels)
+SETUP_RTOL = 1e-4
+SOLVE_RTOL, SOLVE_CORNER = 4e-5, 4e-6
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def _card_inputs(dev, case, n=150):
+    """What a step of a pressed pile on the card (every box in contact,
+    the ground a static side of the bottom layer's manifolds) hands setup
+    and the solve, changed as CARD_CASES[case] says: (cfg, bodies,
+    manifolds, warm, pwarm, coloring, order)."""
+    spec = CARD_CASES[case]
+    b = scenes.scene_pile(n, seed=4, walls=True)
+    cfg = b.auto_config(broadphase="grid", **spec.get("cfg", {}))
+    st = b.finalize(cfg, device=dev)
+    pos = st.bodies.pos.clone()
+    dyn = st.bodies.inv_mass > 0
+    pos[dyn, 1] = 0.5 + (pos[dyn, 1] - 0.75) * (0.995 / 1.15)
+    st, _ = engine.simulate(st.replace(bodies=st.bodies.replace(pos=pos)),
+                            cfg, 3)
+    bodies = integrate.apply_gravity(st.bodies, st.sleep, cfg)
+    man, _ = contacts.collide(st, cfg)
+    warm, pwarm = cache.read_cached_impulses(st.cache, man, cfg)
+    if spec.get("fewer_points"):
+        pv = man.point_valid.clone()
+        pv[::2, 3] = False
+        man = man.replace(point_valid=pv)
+    if "friction" in spec:
+        man = man.replace(friction=man.friction * spec["friction"])
+        warm = warm + torch.tensor([spec["push"], 0.0, 0.0], device=dev)
+    col = solver.color_manifolds(man, bodies, cfg)
+    order = solver_kernel.color_order(man, bodies, col, cfg)
+    valid = man.valid
+    static = ((bodies.inv_mass[man.body_a] == 0.0)
+              | (bodies.inv_mass[man.body_b] == 0.0)) & valid
+    assert bool(static.any()), "no manifold with a static side"
+    if spec.get("fewer_points"):
+        assert bool((man.point_valid[valid].sum(1) < 4).any())
+    if "max_colors" in spec.get("cfg", {}):
+        assert int(col[3]) > 0, "no manifold in the spill color"
+    return cfg, bodies, man, warm, pwarm, col, order
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(CARD_CASES))
+def test_setup_backward_kernel_matches_plain(cuda, case):
+    """setup's backward kernel and its per-body sums against autograd of
+    the twin (`setup_backward_plain`) on the same inputs and seeded output
+    adjoints, twice bitwise."""
+    cfg, bodies, man, warm, pwarm, col, order = _card_inputs(cuda, case)
+    if case == "friction_bound":   # warm starts clamped to the cone
+        con, _, _ = setup_kernel.setup_plain(bodies, man, warm, cfg, col,
+                                             pwarm)
+        wn = torch.clamp_min((warm * con.n[:, None]).sum(-1), 0.0)
+        wt = (warm * con.t1[:, None]).sum(-1).abs()
+        at = man.point_valid & man.valid[:, None] & (
+            wt > man.friction[:, None] * wn)
+        assert bool(at.any())
+    m, n = man.valid.shape[0], bodies.pos.shape[0]
+    live = torch.arange(m, device=cuda) < order.offsets[cfg.max_colors]
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    d_rows = torch.randn((solver_kernel.ROWS, m), generator=gen,
+                         device=cuda) * live
+    d_rows[solver_kernel.ROW_OFFSET["relax"]:] = 0.0
+    d_work = torch.randn((solver_kernel.WORK_ROWS, m), generator=gen,
+                         device=cuda) * live
+    d_work[16:] = 0.0
+    d_frame = torch.randn((2, m, 3), generator=gen, device=cuda) \
+        * man.valid[None, :, None]
+    d_velw = torch.randn((n, solver_kernel.VEL_ROW), generator=gen,
+                         device=cuda)
+    args = (bodies, man, warm, pwarm, col[2], order, cfg,
+            setup_kernel.uses_pwarm(pwarm, cfg), d_rows, d_work, d_frame,
+            d_velw)
+    kg = setup_kernel.setup_backward_cuda(*args)
+    again = setup_kernel.setup_backward_cuda(*args)
+    tg = setup_kernel.setup_backward_plain(bodies, man, warm, cfg, col,
+                                           pwarm, order, d_rows, d_work,
+                                           d_frame, d_velw)
+    for name, x, y, z in zip(setup_kernel.GRAD_INPUTS, kg, again, tg):
+        assert torch.equal(x, y), name
+        assert bool(torch.isfinite(x).all()), name
+        err = float((x - z).abs().max())
+        assert err <= SETUP_RTOL * float(z.abs().max()), (name, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(CARD_CASES))
+def test_solve_backward_kernel_matches_plain(cuda, case):
+    """The solve's reverse-sweep kernel (through `SolveFn`, from the twin's
+    setup packed into the kernel's layout) against autograd of
+    `solve_plain` in float64, element by element, twice bitwise."""
+    cfg, bodies, man, warm, pwarm, col, order = _card_inputs(cuda, case)
+    con, velw, acc = setup_kernel.setup_plain(bodies, man, warm, cfg, col,
+                                              pwarm)
+    if case == "friction_bound":   # sweeps that end at the friction bound
+        _, (ln, lt1, _), _ = solver_kernel.solve_plain(velw, con, acc, cfg)
+        bound = man.friction[:, None] * ln
+        assert bool(((lt1.abs() >= 0.999 * bound) & (ln > 0.0)
+                     & man.point_valid).any())
+    m, n = man.valid.shape[0], bodies.pos.shape[0]
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    g_v = torch.randn((n, solver_kernel.VEL_ROW), generator=gen, device=cuda)
+    g_o = torch.randn((4, m, 4), generator=gen, device=cuda) \
+        * man.valid[None, :, None]
+    tv, tf, ta = solver_kernel.solve_backward_plain(velw, con, acc, cfg, g_v,
+                                                    g_o)
+    fields = list(tf)
+    qv, qf, qa = solver_kernel.solve_backward_plain(
+        velw.double(), con.replace(**{f: getattr(con, f).double()
+                                      for f in fields}),
+        tuple(x.double() for x in acc), cfg, g_v.double(), g_o.double())
+
+    def kernel():
+        leaves = {f: getattr(con, f).detach().requires_grad_()
+                  for f in fields}
+        v = velw.detach().requires_grad_()
+        a = [x.detach().requires_grad_() for x in acc]
+        packed, work = setup_kernel.pack_constraints(
+            con.replace(**leaves), tuple(a), order)
+        vo, ao, po = solver_kernel.solve_cuda(v, packed, work, cfg)
+        return torch.autograd.grad([vo, *ao, po], [v, *leaves.values(), *a],
+                                   [g_v, *g_o], allow_unused=True)
+
+    kg, again = kernel(), kernel()
+    for x, y in zip(kg, again):
+        assert (x is None and y is None) or torch.equal(x, y)
+    dyn = {"a": con.im_a > 0.0, "b": con.im_b > 0.0}
+    pairs = [("velw", kg[0], tv, qv)]
+    for i, f in enumerate(fields):
+        if f in ("im_a", "im_b", "relax"):
+            continue            # their adjoints end at the inverse masses
+        x, y, z = kg[1 + i], tf[f], qf[f]
+        if x is None:
+            x = torch.zeros_like(y)
+        if f.startswith("j"):   # a static side's j rows: the same
+            x, y, z = x[dyn[f[-1]]], y[dyn[f[-1]]], z[dyn[f[-1]]]
+        pairs.append((f, x, y, z))
+    pairs += [(f"acc{i}", kg[-3 + i], ta[i], qa[i]) for i in range(3)]
+    for name, x, y, z in pairs:
+        assert bool(torch.isfinite(x).all()), name
+        big = float(z.abs().max())
+        far = (x.double() - z).abs() > SOLVE_RTOL * big
+        corner = (x - y).abs() <= SOLVE_CORNER * big
+        assert not bool((far & ~corner).any()), (
+            name, float((x.double() - z).abs().max()), big)
