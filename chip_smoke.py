@@ -267,11 +267,10 @@ SETUP_OPS_PER_MANIFOLD = 2200
 SOLVE_BYTES_PER_MANIFOLD = 556 + 64 + 4
 SOLVE_OPS_PER_MANIFOLD = 750
 # A backward kernel's bound counts the work the gradient needs, not the
-# work of the algorithm that computes it (the narrowphases and setup run
-# one forward-mode dual pass per input tangent, 14 or 61 of them): a
-# vector-Jacobian product needs the forward once and its adjoint, at most
-# a small multiple of the forward's operations (the cheap-gradient
-# principle; Griewank and Walther, Evaluating Derivatives, ch. 4). The
+# work of the algorithm that computes it: a vector-Jacobian product needs
+# the forward once and its adjoint, at most a small multiple of the
+# forward's operations (the cheap-gradient principle; Griewank and
+# Walther, Evaluating Derivatives, ch. 4), for the live items only. The
 # bound takes three times the forward's operations.
 BWD_OPS_FACTOR = 3
 
@@ -328,7 +327,8 @@ DEVICE_KERNELS = ("box_box_kernel", "pairs_1pt_kernel", "setup_kernel",
                   "setup_bwd_kernel", "setup_body_sum_kernel", "solve_bwd_kernel",
                   "segment_sum_kernel")
 # kernels that must keep every value in registers: no stack frame, no spill
-NO_SPILL_KERNELS = ("box_box_kernel", "solve_bwd_kernel", "setup_bwd_kernel")
+NO_SPILL_KERNELS = ("box_box_kernel", "solve_bwd_kernel", "setup_bwd_kernel",
+                    "box_box_bwd_kernel", "pairs_1pt_bwd_kernel")
 
 
 def ptxas_report(build_log):
@@ -2105,7 +2105,7 @@ def compare_np_backward(card, label, st, cfg, kernel):
     time is that backward kernel's alone. Returns the record."""
     import torch
 
-    from nudge_tpu_torch.ops import broadphase, contacts, grid
+    from nudge_tpu_torch.ops import broadphase, contacts, grid, segment
     from nudge_tpu_torch.ops import narrowphase_1pt as p1pt
     from nudge_tpu_torch.ops import narrowphase_kernel as npk
     from nudge_tpu_torch.utils import timing
@@ -2140,20 +2140,23 @@ def compare_np_backward(card, label, st, cfg, kernel):
     plain_ms = timed(lambda: contacts.narrowphase_backward_plain(*args), 1, 1)
     n_live_bb = int(bb.valid.sum())
     n_live_1 = int(live[n_bb:].sum())
+    # the bound counts the gradient's work: per slot its valid flag in; per
+    # live pair two indices, its output adjoints (76 B box-box: four points'
+    # pos and depth and the normal; 28 B one-point: point 0's and the
+    # normal) in and 56 B of pose adjoints out; BWD_OPS_FACTOR times the
+    # forward's operations
     if kernel == "box_box":
         def call():
             return npk.box_box_adjoint_cuda(
                 st.boxes, wc, bb, grads["pos"][:n_bb], grads["depth"][:n_bb],
                 grads["normal"][:n_bb])
         n_edge = int((bb.valid & (p["feat"][:n_bb, 0] >= 1024)).sum())
-        # per slot its valid flag in and 14 adjoints out; per live pair two
-        # indices and 76 B of output adjoints in; BWD_OPS_FACTOR times the
-        # forward's operations
         n_bytes = (sum(t.numel() * t.element_size() for t in wc)
-                   + n_bb * (1 + 56) + n_live_bb * (8 + 76))
+                   + n_bb + n_live_bb * (8 + 76 + 56))
         n_ops = BWD_OPS_FACTOR * ((n_live_bb - n_edge) * BOXBOX_OPS_FACE
                                   + n_edge * BOXBOX_OPS_EDGE)
-        n_item = f"{n_bb} pair slots, {n_live_bb} live"
+        n_item = (f"{n_bb} pair slots, {n_live_bb} live ({n_edge} in the "
+                  "edge case)")
     else:
         def call():
             return p1pt.pairs_1pt_adjoint_cuda(
@@ -2161,16 +2164,32 @@ def compare_np_backward(card, label, st, cfg, kernel):
                 grads["depth"][n_bb:], grads["normal"][n_bb:])
         n_1 = n - n_bb
         n_bytes = (sum(t.numel() * t.element_size() for t in wc)
-                   + n_1 * (1 + 56) + n_live_1 * (8 + 28))
+                   + n_1 + n_live_1 * (8 + 28 + 56))
         n_ops = BWD_OPS_FACTOR * n_live_1 * PAIRS_1PT_OPS_PER_PAIR
         n_item = f"{n_1} one-point slots, {n_live_1} live"
     one_kernel(f"{kernel}_bwd", timing.device_ops(call))
     dev_ms = timing.device_ms(call, BACKWARD_REPS)
+    # the call's other parts: the collider sort and the segment sum
+    nb = st.boxes.half.shape[0]
+    keys, perm = contacts.collider_entries(bb, bs, ss, nb)
+    rows = torch.zeros((2 * n, 7), device=dev)
+    sort_ms = timing.device_ms(
+        lambda: contacts.collider_entries(bb, bs, ss, nb), BACKWARD_REPS)
+    sum_ms = timing.device_ms(
+        lambda: segment.segment_sum(keys, perm, rows,
+                                    nb + st.spheres.radius.shape[0]),
+        BACKWARD_REPS)
+    call_ops = timing.device_ops(
+        lambda: contacts.narrowphase_backward_cuda(*args))
+    call_ms = timing.device_ms(
+        lambda: contacts.narrowphase_backward_cuda(*args), BACKWARD_REPS)
     rec = backward_record(ms, plain_ms, dev_ms, diff, n_bytes, n_ops)
     log(card, f"{kernel}_bwd ({label}): {n_item}, {int(same.sum())} of "
         f"{int(live.sum())} live rows with the twin's integers; {fmt_diff(diff)}; "
-        f"two runs bitwise; one kernel a call; wrapper (with the segment "
-        f"sum) {ms:.4f} ms, kernel device {dev_ms:.4f} ms, twin autograd "
+        f"two runs bitwise; one kernel a call; device: the call {call_ms:.4f} "
+        f"ms ({fmt_ops(call_ops)}) = the kernel {dev_ms:.4f} + the collider "
+        f"sort (segment.entries) {sort_ms:.4f} + the segment sum "
+        f"{sum_ms:.4f} + the rest; wrapper {ms:.4f} ms, twin autograd "
         f"{plain_ms:.3f} ms; bound {rec['bound_ms']:.5f} ms "
         f"({rec['bound_by']})")
     return rec

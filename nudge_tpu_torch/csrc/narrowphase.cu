@@ -34,12 +34,13 @@
 // reductions as shuffle butterflies (every lane repeats the SAT and the
 // face frame).
 //
-// The per-pair math, collide_pair, is a template over its scalar type: the
-// forward kernel runs it on floats, box_box_bwd_kernel (below) on the dual
-// numbers of dual.cuh, one pose input's tangent at a time, for the
-// differentiable mode's backward. Values that only choose (the SAT's
-// scores, the clip's validity tests, the reduction's scores) are taken as
-// floats (val()) in both, so the dual run chooses as the forward did.
+// The per-pair math, collide_pair, is built from parts that its reverse
+// (pair_adjoint, for box_box_bwd_kernel below) calls again: pair_frame (the
+// boxes' frames, R = Raᵀ Rb, t = Raᵀ (pb - pa)), face_frame (the reference
+// face and the incident quad), candidate (one clip candidate at a run-time
+// or compile-time index) and edge_frame (the edge-edge closest points). The
+// same parts on the same inputs give the same bits, so the reverse sees
+// every value, and replays every choice, of the forward.
 //
 // Bitwise equality with the twin: every candidate's own arithmetic is the
 // twin's, in its order, built without FMA contraction. The reductions keep
@@ -52,7 +53,7 @@
 // torch.argmax takes the first NaN, so kernel and twin may then pick
 // different candidates.
 
-#include "dual.cuh"
+#include "adjoint.cuh"
 
 namespace {
 
@@ -64,96 +65,369 @@ constexpr float kBigNeg = -1e30f;
 // rectangle border l at 8 + 4e + l (C)
 constexpr int kCandidates = 24;
 
-template <typename T>
-__device__ __forceinline__ float signf(T x) {
+__device__ __forceinline__ float signf(float x) {
   return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
 }
 
-// a[i] for a run-time i in [0, 3) / [0, 4) / [0, 24), as selects
-template <typename T>
-__device__ __forceinline__ T sel3(const T (&a)[3], int i) {
+// a[i] for a run-time i in [0, 3) / [0, 4) / [0, 24), M[r][c], and the
+// adds a[i] += x, M[r][c] += x, as selects
+__device__ __forceinline__ float sel3(const float (&a)[3], int i) {
   return i == 0 ? a[0] : (i == 1 ? a[1] : a[2]);
 }
-template <typename T>
-__device__ __forceinline__ T sel4(const T (&a)[4], int i) {
+__device__ __forceinline__ float sel4(const float (&a)[4], int i) {
   return i == 0 ? a[0] : (i == 1 ? a[1] : (i == 2 ? a[2] : a[3]));
 }
-template <typename T>
-__device__ __forceinline__ T pick(const T (&x)[kCandidates], int k) {
-  T v = x[0];
+__device__ __forceinline__ float pick(const float (&x)[kCandidates], int k) {
+  float v = x[0];
 #pragma unroll
   for (int s = 1; s < kCandidates; ++s)
     if (s == k) v = x[s];
   return v;
 }
-
-// One pair's outputs.
-// The pose inputs of a pair, in the order of the backward kernel's tangents
-// and of its adjoint rows: box a's world position (0-2) and quaternion
-// (3-6), then box b's (7-13).
-constexpr int kPoseTangents = 14;
-
-template <typename T>
-struct PairOut {
-  T pos[4][3];
-  T depth[4];
-  int feat[4];
-  unsigned valid;  // point k's bool in byte k
-  T normal[3];
-};
-
-// The contact of boxes ia and ib into o. The math is the twin's, over
-// scalars of type T (float, or Dual with one pose input seeded: `seed`
-// indexes the kPoseTangents inputs, -1 for none).
-template <typename T>
-__device__ __forceinline__ void collide_pair(int ia, int ib, const float* __restrict__ half,
-                                             const float* __restrict__ quat,
-                                             const float* __restrict__ wpos, int seed,
-                                             PairOut<T>& o) {
-  float ha[3], hb[3];
-  T pa[3], pb[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    ha[i] = half[3 * ia + i];
-    hb[i] = half[3 * ib + i];
-    pa[i] = seeded<T>(wpos[3 * ia + i], i, seed);
-    pb[i] = seeded<T>(wpos[3 * ib + i], 7 + i, seed);
-  }
-  const Mat3<T> Ra = quat_to_mat(seeded4<T>(quat + 4 * ia, 3, seed));
-  const Mat3<T> Rb = quat_to_mat(seeded4<T>(quat + 4 * ib, 10, seed));
-
-  // R = Raᵀ Rb (B axes in A frame), t = Raᵀ (pb - pa)
-  T R[3][3], absR[3][3], t[3], tB[3];
+__device__ __forceinline__ float selm(const float (&M)[3][3], int r, int c) {
+  float v = M[0][0];
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
     for (int j = 0; j < 3; ++j)
-      R[i][j] = Ra.m[0][i] * Rb.m[0][j] + Ra.m[1][i] * Rb.m[1][j] + Ra.m[2][i] * Rb.m[2][j];
-  {
-    const T d0 = pb[0] - pa[0], d1 = pb[1] - pa[1], d2 = pb[2] - pa[2];
+      if (i == r && j == c) v = M[i][j];
+  return v;
+}
+__device__ __forceinline__ void add3(float (&a)[3], int i, float x) {
 #pragma unroll
-    for (int i = 0; i < 3; ++i) t[i] = Ra.m[0][i] * d0 + Ra.m[1][i] * d1 + Ra.m[2][i] * d2;
+  for (int s = 0; s < 3; ++s)
+    if (s == i) a[s] = a[s] + x;
+}
+__device__ __forceinline__ void add4(float (&a)[4], int i, float x) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+    if (s == i) a[s] = a[s] + x;
+}
+__device__ __forceinline__ void addm(float (&M)[3][3], int r, int c, float x) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      if (i == r && j == c) M[i][j] = M[i][j] + x;
+}
+
+// The pose inputs of a pair, in the order of the backward kernel's adjoint
+// rows: box a's world position (0-2) and quaternion (3-6), then box b's
+// (7-13).
+constexpr int kPoseInputs = 14;
+
+// One pair's outputs.
+struct PairOut {
+  float pos[4][3];
+  float depth[4];
+  int feat[4];
+  unsigned valid;  // point k's bool in byte k
+  float normal[3];
+};
+
+// What the reverse replays of a pair's forward: the case, the winning
+// face or edge axis, and the four candidates the reduction chose.
+struct PairChoice {
+  bool edge_case;
+  int best_face, best_edge;
+  int idx[4];
+};
+
+// Both boxes, and B's axes and centre in A's frame: R = Raᵀ Rb, t = Raᵀ
+// (pb - pa), tB = Rᵀ t.
+struct PairFrame {
+  float ha[3], hb[3], pa[3], pb[3];
+  M3 Ra, Rb;
+  float R[3][3], t[3], tB[3];
+};
+
+__device__ __forceinline__ PairFrame pair_frame(int ia, int ib, const float* __restrict__ half,
+                                                const float* __restrict__ quat,
+                                                const float* __restrict__ wpos) {
+  PairFrame f;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    f.ha[i] = half[3 * ia + i];
+    f.hb[i] = half[3 * ib + i];
+    f.pa[i] = wpos[3 * ia + i];
+    f.pb[i] = wpos[3 * ib + i];
   }
+  f.Ra = quat_to_mat(load4(quat + 4 * ia));
+  f.Rb = quat_to_mat(load4(quat + 4 * ib));
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      f.R[i][j] = f.Ra.m[0][i] * f.Rb.m[0][j] + f.Ra.m[1][i] * f.Rb.m[1][j] +
+                  f.Ra.m[2][i] * f.Rb.m[2][j];
+  {
+    const float d0 = f.pb[0] - f.pa[0], d1 = f.pb[1] - f.pa[1], d2 = f.pb[2] - f.pa[2];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      f.t[i] = f.Ra.m[0][i] * d0 + f.Ra.m[1][i] * d1 + f.Ra.m[2][i] * d2;
+  }
+#pragma unroll
+  for (int j = 0; j < 3; ++j) f.tB[j] = f.R[0][j] * f.t[0] + f.R[1][j] * f.t[1] + f.R[2][j] * f.t[2];
+  return f;
+}
+
+// The face case's frame: the reference box (the winning face axis's) and
+// its axes w (the normal), u, v; the incident axis b_axis of the other box
+// and the incident quad in the reference frame (qu, qv, qw: corner k's u,
+// v, w coordinates), built from the corners' incident-frame components
+// (s_inc hi_b, ±hi_1, ±hi_2); the incident face's plane n_inc · x = d_pl.
+struct FaceFrame {
+  bool ref_is_b;
+  int axis, u, v, w, b_axis, b1;
+  float nsign, s_inc, hi_b, hi_1, hi_2, h_u, h_v, h_w, sgn;
+  float pts00[3], qu[4], qv[4], qw[4], n_inc[3], d_pl, n_w_safe;
+};
+
+// the incident quad's corner signs along b1 and b2
+__device__ __forceinline__ float corner_su(int k) { return k < 2 ? 1.0f : -1.0f; }
+__device__ __forceinline__ float corner_sv(int k) { return k == 0 || k == 3 ? 1.0f : -1.0f; }
+
+__device__ __forceinline__ FaceFrame face_frame(const PairFrame& f, int best_face) {
+  FaceFrame F;
+  F.ref_is_b = best_face >= 3;
+  F.axis = best_face % 3;
+  float R_ri[3][3], t_ri[3], h_ref[3], h_inc[3];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) R_ri[r][c] = F.ref_is_b ? f.R[c][r] : f.R[r][c];
+    t_ri[r] = F.ref_is_b ? -f.tB[r] : f.t[r];
+    h_ref[r] = F.ref_is_b ? f.hb[r] : f.ha[r];
+    h_inc[r] = F.ref_is_b ? f.ha[r] : f.hb[r];
+  }
+  F.nsign = sel3(t_ri, F.axis) >= 0.0f ? 1.0f : -1.0f;
+  F.w = F.axis;
+  F.u = (F.axis + 1) % 3;
+  F.v = (F.axis + 2) % 3;
+
+  // incident face: the incident axis most anti-parallel to the normal
+  float nd[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    nd[c] = (F.w == 0 ? R_ri[0][c] : (F.w == 1 ? R_ri[1][c] : R_ri[2][c])) * F.nsign;
+  int b_axis = 0;
+  float nd_best = nd[0];
+#pragma unroll
+  for (int c = 1; c < 3; ++c)
+    if (fabsf(nd[c]) > fabsf(nd_best)) {
+      b_axis = c;
+      nd_best = nd[c];
+    }
+  F.b_axis = b_axis;
+  F.s_inc = -signf(nd_best);
+  F.b1 = (b_axis + 1) % 3;
+  const int b2 = (b_axis + 2) % 3;
+  F.hi_b = sel3(h_inc, b_axis);
+  F.hi_1 = sel3(h_inc, F.b1);
+  F.hi_2 = sel3(h_inc, b2);
+
+  // the incident quad in the reference frame, as (u, v, w) coordinates
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float cb = F.s_inc * F.hi_b, c1 = corner_su(k) * F.hi_1, c2 = corner_sv(k) * F.hi_2;
+    float cmp[3], pt[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) cmp[c] = b_axis == c ? cb : (F.b1 == c ? c1 : c2);
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+      pt[r] = (cmp[0] * R_ri[r][0] + cmp[1] * R_ri[r][1] + cmp[2] * R_ri[r][2]) + t_ri[r];
+    if (k == 0) {
+#pragma unroll
+      for (int r = 0; r < 3; ++r) F.pts00[r] = pt[r];
+    }
+    F.qu[k] = sel3(pt, F.u);
+    F.qv[k] = sel3(pt, F.v);
+    F.qw[k] = sel3(pt, F.w);
+  }
+  F.h_u = sel3(h_ref, F.u);
+  F.h_v = sel3(h_ref, F.v);
+  F.h_w = sel3(h_ref, F.w);
+  float area2;  // only its sign is read
+  {
+    float ar2[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      ar2[k] = F.qu[k] * F.qv[(k + 1) % 4] - F.qu[(k + 1) % 4] * F.qv[k];
+    area2 = ((ar2[0] + ar2[1]) + ar2[2]) + ar2[3];
+  }
+  F.sgn = area2 >= 0.0f ? 1.0f : -1.0f;
+#pragma unroll
+  for (int r = 0; r < 3; ++r) F.n_inc[r] = sel3(R_ri[r], b_axis) * F.s_inc;
+  F.d_pl = F.n_inc[0] * F.pts00[0] + F.n_inc[1] * F.pts00[1] + F.n_inc[2] * F.pts00[2];
+  const float n_w = sel3(F.n_inc, F.w);
+  F.n_w_safe = absv(n_w) > 1e-3f ? n_w : 1e-3f;
+  return F;
+}
+
+// Clip candidate k in (u, v, w); ok: inside the rectangle (A), inside the
+// quad (B), on its edge within the border (C), the depth test being the
+// caller's. Type C's tt (the crossing's parameter along the edge), den and
+// whether den took the twin's |den| > 1e-9 branch are kept for the reverse.
+struct Cand {
+  float u, v, w, tt, den;
+  bool ok, den_ok;
+};
+
+__device__ __forceinline__ Cand candidate(const FaceFrame& F, int k) {
+  const float eps = 1e-6f;
+  const float one_eps = (float)(1.0 + 1e-6);
+  Cand c;
+  c.tt = 0.0f;
+  c.den = 1.0f;
+  c.den_ok = true;
+  if (k < 4) {
+    // type A: incident verts inside the rect
+    c.u = sel4(F.qu, k);
+    c.v = sel4(F.qv, k);
+    c.w = sel4(F.qw, k);
+    c.ok = (fabsf(c.u) <= F.h_u + eps) && (fabsf(c.v) <= F.h_v + eps);
+  } else if (k < 8) {
+    // type B: rect corners inside the incident quad
+    const int q = k & 3;
+    const float ru = (q < 2 ? 1.0f : -1.0f) * F.h_u;
+    const float rv = (q == 0 || q == 3 ? 1.0f : -1.0f) * F.h_v;
+    c.ok = true;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float eu = F.qu[(e + 1) % 4] - F.qu[e];
+      const float ev = F.qv[(e + 1) % 4] - F.qv[e];
+      const float crossc = eu * (rv - F.qv[e]) - ev * (ru - F.qu[e]);
+      c.ok = c.ok && (F.sgn * crossc >= -eps);
+    }
+    const float n_u = sel3(F.n_inc, F.u), n_v = sel3(F.n_inc, F.v), n_w = sel3(F.n_inc, F.w);
+    c.u = ru;
+    c.v = rv;
+    c.w = ((F.d_pl - n_u * ru) - n_v * rv) / F.n_w_safe;
+    c.ok = c.ok && (fabsf(n_w) > 1e-3f);
+  } else {
+    // type C: incident edge e against rect border line l
+    const int q = k - 8, e = q >> 2, l = q & 3, en = (e + 1) & 3;
+    const bool is_u = l < 2;
+    const float qu_e = sel4(F.qu, e), qv_e = sel4(F.qv, e), qw_e = sel4(F.qw, e);
+    const float qu_f = sel4(F.qu, en), qv_f = sel4(F.qv, en), qw_f = sel4(F.qw, en);
+    const float line = is_u ? (l == 0 ? F.h_u : -F.h_u) : (l == 2 ? F.h_v : -F.h_v);
+    const float src = is_u ? qu_e : qv_e;
+    const float dst = is_u ? qu_f : qv_f;
+    const float den = dst - src;
+    c.den_ok = absv(den) > 1e-9f;
+    c.den = c.den_ok ? den : 1e-9f;
+    c.tt = (line - src) / c.den;
+    const float other = is_u ? qv_e : qu_e;
+    const float other_n = is_u ? qv_f : qu_f;
+    const float oth = other + c.tt * (other_n - other);
+    const float oth_h = is_u ? F.h_v : F.h_u;
+    c.ok = (c.tt >= -eps) && (c.tt <= one_eps) && (fabsf(oth) <= oth_h + eps);
+    c.u = qu_e + c.tt * (qu_f - qu_e);
+    c.v = qv_e + c.tt * (qv_f - qv_e);
+    c.w = qw_e + c.tt * (qw_f - qw_e);
+  }
+  return c;
+}
+
+// The edge case's closest points of A's edge along e_i (through c1) and
+// B's edge along Rj (through c2), in A's frame: axr = e_i × Rj, ax = axr /
+// nn, axf = ax · flip (the contact normal in A's frame); the parameters
+// s_par, u_par are xs, xu clamped to the edges' half lengths; mid is the
+// contact point.
+struct EdgeFrame {
+  int ei, ej;
+  float e_i[3], Rj[3], axr[3], nn, ax[3], flip, axf[3], sa[3], sb[3];
+  float c1[3], c2l[3], c2[3], r12[3];
+  float b_dd, denom, d1r, d2r, ha_i, hb_j, xs, xu, s_par, u_par, mid[3];
+};
+
+__device__ __forceinline__ EdgeFrame edge_frame(const PairFrame& f, int best_edge) {
+  EdgeFrame E;
+  E.ei = best_edge / 3;
+  E.ej = best_edge % 3;
+  float e_j[3];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    E.e_i[r] = r == E.ei ? 1.0f : 0.0f;
+    e_j[r] = r == E.ej ? 1.0f : 0.0f;
+    E.Rj[r] = sel3(f.R[r], E.ej);
+  }
+  E.axr[0] = E.e_i[1] * E.Rj[2] - E.e_i[2] * E.Rj[1];
+  E.axr[1] = E.e_i[2] * E.Rj[0] - E.e_i[0] * E.Rj[2];
+  E.axr[2] = E.e_i[0] * E.Rj[1] - E.e_i[1] * E.Rj[0];
+  E.nn = sqrtv(clamp_min(E.axr[0] * E.axr[0] + E.axr[1] * E.axr[1] + E.axr[2] * E.axr[2], 1e-24f));
+#pragma unroll
+  for (int r = 0; r < 3; ++r) E.ax[r] = E.axr[r] / E.nn;
+  const float dat = E.ax[0] * f.t[0] + E.ax[1] * f.t[1] + E.ax[2] * f.t[2];
+  E.flip = dat >= 0.0f ? 1.0f : -1.0f;
+#pragma unroll
+  for (int r = 0; r < 3; ++r) E.axf[r] = E.ax[r] * E.flip;
+
+  float axb[3];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    E.sa[r] = signf(E.axf[r]) + (E.axf[r] == 0.0f ? 1.0f : 0.0f);
+    E.c1[r] = E.sa[r] * f.ha[r] * (1.0f - E.e_i[r]);
+  }
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+    axb[j] = -(f.R[0][j] * E.axf[0] + f.R[1][j] * E.axf[1] + f.R[2][j] * E.axf[2]);
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    E.sb[j] = signf(axb[j]) + (axb[j] == 0.0f ? 1.0f : 0.0f);
+    E.c2l[j] = E.sb[j] * f.hb[j] * (1.0f - e_j[j]);
+  }
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+    E.c2[r] = (f.R[r][0] * E.c2l[0] + f.R[r][1] * E.c2l[1] + f.R[r][2] * E.c2l[2]) + f.t[r];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) E.r12[r] = E.c2[r] - E.c1[r];
+  E.b_dd = E.e_i[0] * E.Rj[0] + E.e_i[1] * E.Rj[1] + E.e_i[2] * E.Rj[2];
+  E.denom = clamp_min(1.0f - E.b_dd * E.b_dd, 1e-9f);
+  E.d1r = E.e_i[0] * E.r12[0] + E.e_i[1] * E.r12[1] + E.e_i[2] * E.r12[2];
+  E.d2r = E.Rj[0] * E.r12[0] + E.Rj[1] * E.r12[1] + E.Rj[2] * E.r12[2];
+  E.ha_i = sel3(f.ha, E.ei);
+  E.hb_j = sel3(f.hb, E.ej);
+  E.xs = (E.d1r - E.b_dd * E.d2r) / E.denom;
+  E.xu = (E.b_dd * E.d1r - E.d2r) / E.denom;
+  E.s_par = minimum(maximum(E.xs, -E.ha_i), E.ha_i);
+  E.u_par = minimum(maximum(E.xu, -E.hb_j), E.hb_j);
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+    E.mid[r] = 0.5f * ((E.c1[r] + E.s_par * E.e_i[r]) + (E.c2[r] + E.u_par * E.Rj[r]));
+  return E;
+}
+
+// The contact of boxes ia and ib into o (the twin's math), and into ch
+// what the reverse replays (the forward kernel drops it).
+__device__ __forceinline__ void collide_pair(int ia, int ib, const float* __restrict__ half,
+                                             const float* __restrict__ quat,
+                                             const float* __restrict__ wpos, PairOut& o,
+                                             PairChoice& ch) {
+  const PairFrame f = pair_frame(ia, ib, half, quat, wpos);
+  const float(&ha)[3] = f.ha;
+  const float(&hb)[3] = f.hb;
+  const float(&R)[3][3] = f.R;
+  const float(&t)[3] = f.t;
+  float absR[3][3];
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
     for (int j = 0; j < 3; ++j) absR[i][j] = absv(R[i][j]) + kAbsEps;
-#pragma unroll
-  for (int j = 0; j < 3; ++j) tB[j] = R[0][j] * t[0] + R[1][j] * t[1] + R[2][j] * t[2];
 
   // --- 6 face axes, first maximum ---
   int best_face = 0;
-  T s_face_best = 0.0f;
+  float s_face_best = 0.0f;
 #pragma unroll
   for (int k = 0; k < 6; ++k) {
-    T s;
+    float s;
     if (k < 3) {
-      const T ab = absR[k][0] * hb[0] + absR[k][1] * hb[1] + absR[k][2] * hb[2];
+      const float ab = absR[k][0] * hb[0] + absR[k][1] * hb[1] + absR[k][2] * hb[2];
       s = absv(t[k]) - (ha[k] + ab);
     } else {
       const int j = k - 3;
-      const T aa = absR[0][j] * ha[0] + absR[1][j] * ha[1] + absR[2][j] * ha[2];
-      s = absv(tB[j]) - (aa + hb[j]);
+      const float aa = absR[0][j] * ha[0] + absR[1][j] * ha[1] + absR[2][j] * ha[2];
+      s = absv(f.tB[j]) - (aa + hb[j]);
     }
     if (k == 0 || s > s_face_best) {
       s_face_best = s;
@@ -162,7 +436,7 @@ __device__ __forceinline__ void collide_pair(int ia, int ib, const float* __rest
   }
 
   // --- 9 edge axes, first maximum ---
-  T s_edge_best = 0.0f;
+  float s_edge_best = 0.0f;
   int best_edge = 0;
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
@@ -170,12 +444,12 @@ __device__ __forceinline__ void collide_pair(int ia, int ib, const float* __rest
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
       const int j1 = (j + 1) % 3, j2 = (j + 2) % 3;
-      const T bt = hb[j1] * absR[i][j2] + hb[j2] * absR[i][j1];
-      const T num = absv(t[a2] * R[a1][j] - t[a1] * R[a2][j]) - ha[a1] * absR[a2][j] -
-                    ha[a2] * absR[a1][j] - bt;
-      const T L2 = R[a1][j] * R[a1][j] + R[a2][j] * R[a2][j];
-      const T L = sqrtv(clamp_min(L2, 1e-12f));
-      const T s = L2 > 1e-6f ? num / L : T(-INFINITY);
+      const float bt = hb[j1] * absR[i][j2] + hb[j2] * absR[i][j1];
+      const float num = absv(t[a2] * R[a1][j] - t[a1] * R[a2][j]) - ha[a1] * absR[a2][j] -
+                        ha[a2] * absR[a1][j] - bt;
+      const float L2 = R[a1][j] * R[a1][j] + R[a2][j] * R[a2][j];
+      const float L = sqrtv(clamp_min(L2, 1e-12f));
+      const float s = L2 > 1e-6f ? num / L : -INFINITY;
       const int k = i * 3 + j;
       if (k == 0 || s > s_edge_best) {
         s_edge_best = s;
@@ -184,153 +458,35 @@ __device__ __forceinline__ void collide_pair(int ia, int ib, const float* __rest
     }
   }
 
-  const bool separated = fmaxf(val(s_face_best), val(s_edge_best)) > 0.0f;
-  const T pen_face = -s_face_best;
-  const T pen_edge = -s_edge_best;
+  const bool separated = fmaxf(s_face_best, s_edge_best) > 0.0f;
+  const float pen_face = -s_face_best;
+  const float pen_edge = -s_edge_best;
   const bool edge_case = (pen_edge < pen_face * kFaceEdgeBias) && finite(pen_edge);
+  ch.edge_case = edge_case;
+  ch.best_face = best_face;
+  ch.best_edge = best_edge;
 
-  T(&out_p)[4][3] = o.pos;
-  T(&out_d)[4] = o.depth;
+  float(&out_p)[4][3] = o.pos;
+  float(&out_d)[4] = o.depth;
   int(&out_f)[4] = o.feat;
   bool out_v[4];
-  T(&nrm)[3] = o.normal;
+  float(&nrm)[3] = o.normal;
 
   if (!edge_case) {
     // ---------------- FACE CASE ----------------
-    const bool ref_is_b = best_face >= 3;
-    const int axis = best_face % 3;
-    T R_ri[3][3], t_ri[3];
-    float h_ref[3], h_inc[3];
-#pragma unroll
-    for (int r = 0; r < 3; ++r) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) R_ri[r][c] = ref_is_b ? R[c][r] : R[r][c];
-      t_ri[r] = ref_is_b ? -tB[r] : t[r];
-      h_ref[r] = ref_is_b ? hb[r] : ha[r];
-      h_inc[r] = ref_is_b ? ha[r] : hb[r];
-    }
-    const float nsign = sel3(t_ri, axis) >= 0.0f ? 1.0f : -1.0f;
-    const int w = axis, u = (axis + 1) % 3, v = (axis + 2) % 3;
-
-    // incident face: the incident axis most anti-parallel to the normal
-    float nd[3];  // only its order and signs are read: values
-#pragma unroll
-    for (int c = 0; c < 3; ++c)
-      nd[c] = val(w == 0 ? R_ri[0][c] : (w == 1 ? R_ri[1][c] : R_ri[2][c])) * nsign;
-    int b_axis = 0;
-    float nd_best = nd[0];
-#pragma unroll
-    for (int c = 1; c < 3; ++c)
-      if (fabsf(nd[c]) > fabsf(nd_best)) {
-        b_axis = c;
-        nd_best = nd[c];
-      }
-    const float s_inc = -signf(nd_best);
-    const int b1 = (b_axis + 1) % 3, b2 = (b_axis + 2) % 3;
-    const float hi_b = sel3(h_inc, b_axis), hi_1 = sel3(h_inc, b1), hi_2 = sel3(h_inc, b2);
-
-    // the incident quad in the reference frame, as (u, v, w) coordinates
-    const float su[4] = {1.0f, 1.0f, -1.0f, -1.0f};
-    const float sv[4] = {1.0f, -1.0f, -1.0f, 1.0f};
-    T pts00[3];  // corner 0 in x, y, z (the plane offset below)
-    T qu[4], qv[4], qw[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float cb = s_inc * hi_b, c1 = su[k] * hi_1, c2 = sv[k] * hi_2;
-      float cmp[3];
-      T pt[3];
-#pragma unroll
-      for (int c = 0; c < 3; ++c) cmp[c] = b_axis == c ? cb : (b1 == c ? c1 : c2);
-#pragma unroll
-      for (int r = 0; r < 3; ++r)
-        pt[r] = (cmp[0] * R_ri[r][0] + cmp[1] * R_ri[r][1] + cmp[2] * R_ri[r][2]) + t_ri[r];
-      if (k == 0) {
-#pragma unroll
-        for (int r = 0; r < 3; ++r) pts00[r] = pt[r];
-      }
-      qu[k] = sel3(pt, u);
-      qv[k] = sel3(pt, v);
-      qw[k] = sel3(pt, w);
-    }
-
-    const float eps = 1e-6f;
-    const float one_eps = (float)(1.0 + 1e-6);
-    const float h_u = sel3(h_ref, u), h_v = sel3(h_ref, v), h_w = sel3(h_ref, w);
-    T qu_n[4], qv_n[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      qu_n[k] = qu[(k + 1) % 4];
-      qv_n[k] = qv[(k + 1) % 4];
-    }
-    float area2;  // only its sign is read: values
-    {
-      float ar2[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) ar2[k] = val(qu[k] * qv_n[k] - qu_n[k] * qv[k]);
-      area2 = ((ar2[0] + ar2[1]) + ar2[2]) + ar2[3];
-    }
-    const float sgn = area2 >= 0.0f ? 1.0f : -1.0f;
-    T n_inc[3];
-#pragma unroll
-    for (int r = 0; r < 3; ++r) n_inc[r] = sel3(R_ri[r], b_axis) * s_inc;
-    const T d_pl = n_inc[0] * pts00[0] + n_inc[1] * pts00[1] + n_inc[2] * pts00[2];
-    const T n_u = sel3(n_inc, u), n_v = sel3(n_inc, v), n_w = sel3(n_inc, w);
-    const T n_w_safe = absv(n_w) > 1e-3f ? n_w : T(1e-3f);
+    const FaceFrame F = face_frame(f, best_face);
 
     // --- the candidates, (u, v, w) and validity ---
-    T cu[kCandidates], cv[kCandidates], cw[kCandidates];
+    float cu[kCandidates], cv[kCandidates], cw[kCandidates];
     unsigned vmask = 0;  // bit k: candidate k valid and below the reference face
 #pragma unroll
     for (int k = 0; k < kCandidates; ++k) {
-      bool ok;
-      if (k < 8) {
-        const int c = k & 3;
-        if (k < 4) {
-          // type A: incident verts inside the rect
-          cu[k] = qu[c];
-          cv[k] = qv[c];
-          cw[k] = qw[c];
-          ok = (fabsf(val(cu[k])) <= h_u + eps) && (fabsf(val(cv[k])) <= h_v + eps);
-        } else {
-          // type B: rect corners inside the incident quad
-          const float ru = (c < 2 ? 1.0f : -1.0f) * h_u;
-          const float rv = (c == 0 || c == 3 ? 1.0f : -1.0f) * h_v;
-          ok = true;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float eu = val(qu_n[e] - qu[e]);
-            const float ev = val(qv_n[e] - qv[e]);
-            const float crossc = eu * (rv - val(qv[e])) - ev * (ru - val(qu[e]));
-            ok = ok && (sgn * crossc >= -eps);
-          }
-          cu[k] = ru;
-          cv[k] = rv;
-          cw[k] = ((d_pl - n_u * ru) - n_v * rv) / n_w_safe;
-          ok = ok && (fabsf(val(n_w)) > 1e-3f);
-        }
-      } else {
-        // type C: incident edge e against rect border line l
-        const int c = k - 8, e = c >> 2, l = c & 3, en = (e + 1) & 3;
-        const bool is_u = l < 2;
-        const T qu_e = qu[e], qv_e = qv[e], qw_e = qw[e];
-        const T qu_f = qu[en], qv_f = qv[en], qw_f = qw[en];
-        const float line = is_u ? (l == 0 ? h_u : -h_u) : (l == 2 ? h_v : -h_v);
-        const T src = is_u ? qu_e : qv_e;
-        const T dst = is_u ? qu_f : qv_f;
-        T den = dst - src;
-        den = absv(den) > 1e-9f ? den : T(1e-9f);
-        const T tt = (line - src) / den;
-        const T other = is_u ? qv_e : qu_e;
-        const T other_n = is_u ? qv_f : qu_f;
-        const float oth = val(other + tt * (other_n - other));
-        const float oth_h = is_u ? h_v : h_u;
-        ok = (tt >= -eps) && (tt <= one_eps) && (fabsf(oth) <= oth_h + eps);
-        cu[k] = qu_e + tt * (qu_f - qu_e);
-        cv[k] = qv_e + tt * (qv_f - qv_e);
-        cw[k] = qw_e + tt * (qw_f - qw_e);
-      }
-      const float depth = val(h_w - nsign * cw[k]);
-      if (ok && depth > 0.0f) vmask |= 1u << k;
+      const Cand c = candidate(F, k);
+      cu[k] = c.u;
+      cv[k] = c.v;
+      cw[k] = c.w;
+      const float depth = F.h_w - F.nsign * cw[k];
+      if (c.ok && depth > 0.0f) vmask |= 1u << k;
     }
 
     // --- reduce to <= 4: deepest, farthest, max |area|, opposite side ---
@@ -341,7 +497,7 @@ __device__ __forceinline__ void collide_pair(int ia, int ib, const float* __rest
       int bi = 0;
 #pragma unroll
       for (int k = 0; k < kCandidates; ++k) {
-        const float x = (vmask >> k) & 1u ? val(h_w - nsign * cw[k]) : kBigNeg;
+        const float x = (vmask >> k) & 1u ? F.h_w - F.nsign * cw[k] : kBigNeg;
         if (k == 0 || x > best) {
           best = x;
           bi = k;
@@ -350,13 +506,13 @@ __device__ __forceinline__ void collide_pair(int ia, int ib, const float* __rest
       idx[0] = bi;
     }
     rem &= ~(1u << idx[0]);
-    const float u0 = val(pick(cu, idx[0])), w0 = val(pick(cv, idx[0]));
+    const float u0 = pick(cu, idx[0]), w0 = pick(cv, idx[0]);
     {
       float best = 0.0f;
       int bi = 0;
 #pragma unroll
       for (int k = 0; k < kCandidates; ++k) {
-        const float du = val(cu[k]) - u0, dv = val(cv[k]) - w0;
+        const float du = cu[k] - u0, dv = cv[k] - w0;
         const float x = (rem >> k) & 1u ? du * du + dv * dv : kBigNeg;
         if (k == 0 || x > best) {
           best = x;
@@ -367,13 +523,13 @@ __device__ __forceinline__ void collide_pair(int ia, int ib, const float* __rest
     }
     const unsigned rem1 = rem;
     rem &= ~(1u << idx[1]);
-    const float e0 = val(pick(cu, idx[1])) - u0, e1 = val(pick(cv, idx[1])) - w0;
+    const float e0 = pick(cu, idx[1]) - u0, e1 = pick(cv, idx[1]) - w0;
     {
       float best = 0.0f;
       int bi = 0;
 #pragma unroll
       for (int k = 0; k < kCandidates; ++k) {
-        const float du = val(cu[k]) - u0, dv = val(cv[k]) - w0;
+        const float du = cu[k] - u0, dv = cv[k] - w0;
         const float area = e0 * dv - e1 * du;
         const float x = (rem >> k) & 1u ? fabsf(area) : kBigNeg;
         if (k == 0 || x > best) {
@@ -386,7 +542,7 @@ __device__ __forceinline__ void collide_pair(int ia, int ib, const float* __rest
     const unsigned rem2 = rem;
     float a2;
     {
-      const float du = val(pick(cu, idx[2])) - u0, dv = val(pick(cv, idx[2])) - w0;
+      const float du = pick(cu, idx[2]) - u0, dv = pick(cv, idx[2]) - w0;
       a2 = e0 * dv - e1 * du;
     }
     rem &= ~(1u << idx[2]);
@@ -396,7 +552,7 @@ __device__ __forceinline__ void collide_pair(int ia, int ib, const float* __rest
       int bi = 0;
 #pragma unroll
       for (int k = 0; k < kCandidates; ++k) {
-        const float du = val(cu[k]) - u0, dv = val(cv[k]) - w0;
+        const float du = cu[k] - u0, dv = cv[k] - w0;
         const float area = e0 * dv - e1 * du;
         const float x = (rem >> k) & 1u ? ms * area : kBigNeg;
         if (k == 0 || x > best) {
@@ -407,103 +563,56 @@ __device__ __forceinline__ void collide_pair(int ia, int ib, const float* __rest
       idx[3] = bi;
     }
     const bool kv[4] = {vmask != 0u, rem1 != 0u, rem2 != 0u, rem != 0u};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) ch.idx[k] = idx[k];
 
-    const int fbits = ((ref_is_b ? 1 : 0) << 5) + (axis << 6) + ((nsign > 0.0f ? 1 : 0) << 8);
+    const int fbits =
+        ((F.ref_is_b ? 1 : 0) << 5) + (F.axis << 6) + ((F.nsign > 0.0f ? 1 : 0) << 8);
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const int ci = idx[k];
-      const T pu = pick(cu, ci), pv = pick(cv, ci), pw = pick(cw, ci);
-      T c[3];  // the candidate in the reference box's x, y, z
+      const float pu = pick(cu, ci), pv = pick(cv, ci), pw = pick(cw, ci);
+      float c[3];  // the candidate in the reference box's x, y, z
 #pragma unroll
-      for (int r = 0; r < 3; ++r) c[r] = w == r ? pw : (u == r ? pu : pv);
+      for (int r = 0; r < 3; ++r) c[r] = F.w == r ? pw : (F.u == r ? pu : pv);
 #pragma unroll
       for (int r = 0; r < 3; ++r) {
-        T Rr[3];
+        float Rr[3];
 #pragma unroll
-        for (int c2 = 0; c2 < 3; ++c2) Rr[c2] = ref_is_b ? Rb.m[r][c2] : Ra.m[r][c2];
-        out_p[k][r] = (c[0] * Rr[0] + c[1] * Rr[1] + c[2] * Rr[2]) + (ref_is_b ? pb[r] : pa[r]);
+        for (int c2 = 0; c2 < 3; ++c2) Rr[c2] = F.ref_is_b ? f.Rb.m[r][c2] : f.Ra.m[r][c2];
+        out_p[k][r] = (c[0] * Rr[0] + c[1] * Rr[1] + c[2] * Rr[2]) + (F.ref_is_b ? f.pb[r] : f.pa[r]);
       }
-      out_d[k] = h_w - nsign * pw;
+      out_d[k] = F.h_w - F.nsign * pw;
       out_v[k] = kv[k] && ((vmask >> ci) & 1u);
       out_f[k] = ci + fbits;
     }
 #pragma unroll
     for (int r = 0; r < 3; ++r) {
-      const T nw = (ref_is_b ? sel3(Rb.m[r], axis) : sel3(Ra.m[r], axis)) * nsign;
-      nrm[r] = ref_is_b ? -nw : nw;
+      const float nw = (F.ref_is_b ? sel3(f.Rb.m[r], F.axis) : sel3(f.Ra.m[r], F.axis)) * F.nsign;
+      nrm[r] = F.ref_is_b ? -nw : nw;
     }
   } else {
     // ---------------- EDGE CASE ----------------
-    const int ei = best_edge / 3, ej = best_edge % 3;
-    float e_i[3], e_j[3];
-    T Rj[3];
-#pragma unroll
-    for (int r = 0; r < 3; ++r) {
-      e_i[r] = r == ei ? 1.0f : 0.0f;
-      e_j[r] = r == ej ? 1.0f : 0.0f;
-      Rj[r] = sel3(R[r], ej);
-    }
-    T ax[3];
-    ax[0] = e_i[1] * Rj[2] - e_i[2] * Rj[1];
-    ax[1] = e_i[2] * Rj[0] - e_i[0] * Rj[2];
-    ax[2] = e_i[0] * Rj[1] - e_i[1] * Rj[0];
-    const T nn = sqrtv(clamp_min(ax[0] * ax[0] + ax[1] * ax[1] + ax[2] * ax[2], 1e-24f));
-#pragma unroll
-    for (int r = 0; r < 3; ++r) ax[r] = ax[r] / nn;
-    const T dat = ax[0] * t[0] + ax[1] * t[1] + ax[2] * t[2];
-    const float flip = dat >= 0.0f ? 1.0f : -1.0f;
-#pragma unroll
-    for (int r = 0; r < 3; ++r) ax[r] = ax[r] * flip;
-
-    float sa[3], sb[3], c1[3], c2l[3];
-    T axb[3], c2[3], r12[3];
-#pragma unroll
-    for (int r = 0; r < 3; ++r) {
-      sa[r] = signf(ax[r]) + (ax[r] == 0.0f ? 1.0f : 0.0f);
-      c1[r] = sa[r] * ha[r] * (1.0f - e_i[r]);
-    }
-#pragma unroll
-    for (int j = 0; j < 3; ++j) axb[j] = -(R[0][j] * ax[0] + R[1][j] * ax[1] + R[2][j] * ax[2]);
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      sb[j] = signf(axb[j]) + (axb[j] == 0.0f ? 1.0f : 0.0f);
-      c2l[j] = sb[j] * hb[j] * (1.0f - e_j[j]);
-    }
-#pragma unroll
-    for (int r = 0; r < 3; ++r)
-      c2[r] = (R[r][0] * c2l[0] + R[r][1] * c2l[1] + R[r][2] * c2l[2]) + t[r];
-#pragma unroll
-    for (int r = 0; r < 3; ++r) r12[r] = c2[r] - c1[r];
-    const T b_dd = e_i[0] * Rj[0] + e_i[1] * Rj[1] + e_i[2] * Rj[2];
-    const T denom = clamp_min(1.0f - b_dd * b_dd, 1e-9f);
-    const T d1r = e_i[0] * r12[0] + e_i[1] * r12[1] + e_i[2] * r12[2];
-    const T d2r = Rj[0] * r12[0] + Rj[1] * r12[1] + Rj[2] * r12[2];
-    const float ha_i = sel3(ha, ei), hb_j = sel3(hb, ej);
-    const T s_par = minimum(maximum((d1r - b_dd * d2r) / denom, T(-ha_i)), T(ha_i));
-    const T u_par = minimum(maximum((b_dd * d1r - d2r) / denom, T(-hb_j)), T(hb_j));
-    T mid[3];
-#pragma unroll
-    for (int r = 0; r < 3; ++r)
-      mid[r] = 0.5f * ((c1[r] + s_par * e_i[r]) + (c2[r] + u_par * Rj[r]));
-    const Vec3<T> pe = mv(Ra, v3(mid[0], mid[1], mid[2]));
-    const Vec3<T> ne = mv(Ra, v3(ax[0], ax[1], ax[2]));
-    const int sign_bits = (sel3(sa, (ei + 1) % 3) > 0.0f ? 1 : 0) +
-                          2 * (sel3(sa, (ei + 2) % 3) > 0.0f ? 1 : 0) +
-                          4 * (sel3(sb, (ej + 1) % 3) > 0.0f ? 1 : 0) +
-                          8 * (sel3(sb, (ej + 2) % 3) > 0.0f ? 1 : 0);
+    const EdgeFrame E = edge_frame(f, best_edge);
+    const V3 pe = mv(f.Ra, v3(E.mid[0], E.mid[1], E.mid[2]));
+    const V3 ne = mv(f.Ra, v3(E.axf[0], E.axf[1], E.axf[2]));
+    const int sign_bits = (sel3(E.sa, (E.ei + 1) % 3) > 0.0f ? 1 : 0) +
+                          2 * (sel3(E.sa, (E.ei + 2) % 3) > 0.0f ? 1 : 0) +
+                          4 * (sel3(E.sb, (E.ej + 1) % 3) > 0.0f ? 1 : 0) +
+                          8 * (sel3(E.sb, (E.ej + 2) % 3) > 0.0f ? 1 : 0);
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
 #pragma unroll
-      for (int r = 0; r < 3; ++r) out_p[k][r] = T(0.0f);
-      out_d[k] = T(0.0f);
+      for (int r = 0; r < 3; ++r) out_p[k][r] = 0.0f;
+      out_d[k] = 0.0f;
       out_f[k] = 0;
       out_v[k] = false;
     }
-    out_p[0][0] = pe.x + pa[0];
-    out_p[0][1] = pe.y + pa[1];
-    out_p[0][2] = pe.z + pa[2];
+    out_p[0][0] = pe.x + f.pa[0];
+    out_p[0][1] = pe.y + f.pa[1];
+    out_p[0][2] = pe.z + f.pa[2];
     out_d[0] = pen_edge;
-    out_f[0] = 1024 + (ei * 3 + ej) * 16 + sign_bits;
+    out_f[0] = 1024 + (E.ei * 3 + E.ej) * 16 + sign_bits;
     out_v[0] = pen_edge > 0.0f;
     nrm[0] = ne.x;
     nrm[1] = ne.y;
@@ -513,6 +622,299 @@ __device__ __forceinline__ void collide_pair(int ia, int ib, const float* __rest
   o.valid = 0;
 #pragma unroll
   for (int k = 0; k < 4; ++k) o.valid |= (out_v[k] && !separated ? 1u : 0u) << (8 * k);
+}
+
+// The adjoints one pair's outputs hand back, accumulated per box: of Ra,
+// Rb, pa, pb, and of R = Raᵀ Rb and t = Raᵀ (pb - pa) (which
+// pair_adjoint takes back into the four).
+struct PairAdj {
+  M3 Ra, Rb;
+  float pa[3], pb[3], R[3][3], t[3];
+};
+
+// The reverse of candidate k (face_frame's F, the forward's c): the
+// adjoints (g_u, g_v, g_w) of its coordinates into those of the quad's
+// corners (g_qu, g_qv, g_qw), the plane's normal g_n and offset *g_dpl.
+__device__ __forceinline__ void candidate_adjoint(const FaceFrame& F, int k, const Cand& c,
+                                                  float g_u, float g_v, float g_w,
+                                                  float (&g_qu)[4], float (&g_qv)[4],
+                                                  float (&g_qw)[4], float (&g_n)[3],
+                                                  float* g_dpl) {
+  if (k < 4) {
+    // type A: the corner itself
+    add4(g_qu, k, g_u);
+    add4(g_qv, k, g_v);
+    add4(g_qw, k, g_w);
+  } else if (k < 8) {
+    // type B: u, v constants; w = ((d_pl - n_u ru) - n_v rv) / n_w_safe
+    const int q = k & 3;
+    const float ru = (q < 2 ? 1.0f : -1.0f) * F.h_u;
+    const float rv = (q == 0 || q == 3 ? 1.0f : -1.0f) * F.h_v;
+    const float g_num = g_w / F.n_w_safe;
+    *g_dpl = *g_dpl + g_num;
+    add3(g_n, F.u, -(g_num * ru));
+    add3(g_n, F.v, -(g_num * rv));
+    if (fabsf(sel3(F.n_inc, F.w)) > 1e-3f) add3(g_n, F.w, -(g_w * (c.w / F.n_w_safe)));
+  } else {
+    // type C: q_e + tt (q_f - q_e), tt = (line - src) / den
+    const int q = k - 8, e = q >> 2, l = q & 3, en = (e + 1) & 3;
+    const bool is_u = l < 2;
+    const float g_tt = g_u * (sel4(F.qu, en) - sel4(F.qu, e)) +
+                       g_v * (sel4(F.qv, en) - sel4(F.qv, e)) +
+                       g_w * (sel4(F.qw, en) - sel4(F.qw, e));
+    add4(g_qu, e, g_u - g_u * c.tt);
+    add4(g_qu, en, g_u * c.tt);
+    add4(g_qv, e, g_v - g_v * c.tt);
+    add4(g_qv, en, g_v * c.tt);
+    add4(g_qw, e, g_w - g_w * c.tt);
+    add4(g_qw, en, g_w * c.tt);
+    const float g_den = c.den_ok ? -(g_tt * (c.tt / c.den)) : 0.0f;
+    const float g_src = -(g_tt / c.den) - g_den;
+    if (is_u) {
+      add4(g_qu, e, g_src);
+      add4(g_qu, en, g_den);
+    } else {
+      add4(g_qv, e, g_src);
+      add4(g_qv, en, g_den);
+    }
+  }
+}
+
+// The face case's reverse: from the adjoints of the four points' pos (gp)
+// and depth (gd) and of the normal (gn) into A.
+__device__ __forceinline__ void face_adjoint(const PairFrame& f, const PairChoice& ch,
+                                             const float (&gp)[4][3], const float (&gd)[4],
+                                             const float (&gn)[3], PairAdj& A) {
+  const FaceFrame F = face_frame(f, ch.best_face);
+  const bool rb = F.ref_is_b;
+  float g_Rref[3][3] = {}, g_pref[3] = {};
+  float g_qu[4] = {}, g_qv[4] = {}, g_qw[4] = {}, g_n[3] = {}, g_dpl = 0.0f;
+  // every point, valid or not: pos[k] = Rref c + pref, depth[k] = h_w -
+  // nsign c_w, c the chosen candidate in the reference box's x, y, z (a
+  // candidate chosen twice takes both adjoints)
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int ci = ch.idx[k];
+    const Cand c = candidate(F, ci);
+    float cx[3], g_c[3];
+#pragma unroll
+    for (int r = 0; r < 3; ++r) cx[r] = F.w == r ? c.w : (F.u == r ? c.u : c.v);
+#pragma unroll
+    for (int cc = 0; cc < 3; ++cc) {
+      const float r0 = rb ? f.Rb.m[0][cc] : f.Ra.m[0][cc];
+      const float r1 = rb ? f.Rb.m[1][cc] : f.Ra.m[1][cc];
+      const float r2 = rb ? f.Rb.m[2][cc] : f.Ra.m[2][cc];
+      g_c[cc] = (r0 * gp[k][0] + r1 * gp[k][1]) + r2 * gp[k][2];
+    }
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      g_pref[r] = g_pref[r] + gp[k][r];
+#pragma unroll
+      for (int cc = 0; cc < 3; ++cc) g_Rref[r][cc] = g_Rref[r][cc] + gp[k][r] * cx[cc];
+    }
+    candidate_adjoint(F, ci, c, sel3(g_c, F.u), sel3(g_c, F.v),
+                      sel3(g_c, F.w) - F.nsign * gd[k], g_qu, g_qv, g_qw, g_n, &g_dpl);
+  }
+  // normal = ±Rref[:, axis] nsign
+#pragma unroll
+  for (int r = 0; r < 3; ++r) addm(g_Rref, r, F.axis, (rb ? -gn[r] : gn[r]) * F.nsign);
+
+  // the quad: corner k = R_ri cmp_k + t_ri, (qu, qv, qw) its (u, v, w);
+  // d_pl = n_inc · corner 0, n_inc = R_ri[:, b_axis] s_inc
+  float g_Rri[3][3] = {}, g_tri[3] = {};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float cb = F.s_inc * F.hi_b, c1 = corner_su(k) * F.hi_1, c2 = corner_sv(k) * F.hi_2;
+    float cmp[3], g_pt[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) cmp[c] = F.b_axis == c ? cb : (F.b1 == c ? c1 : c2);
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      g_pt[r] = F.w == r ? g_qw[k] : (F.u == r ? g_qu[k] : g_qv[k]);
+      if (k == 0) g_pt[r] = g_pt[r] + g_dpl * F.n_inc[r];
+      g_tri[r] = g_tri[r] + g_pt[r];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) g_Rri[r][c] = g_Rri[r][c] + g_pt[r] * cmp[c];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+    addm(g_Rri, r, F.b_axis, (g_n[r] + g_dpl * F.pts00[r]) * F.s_inc);
+
+  // R_ri = rb ? Rᵀ : R, t_ri = rb ? -tB : t with tB = Rᵀ t
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) A.R[r][c] = A.R[r][c] + (rb ? g_Rri[c][r] : g_Rri[r][c]);
+  if (rb) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) A.R[i][j] = A.R[i][j] - g_tri[j] * f.t[i];
+      A.t[i] = A.t[i] - ((f.R[i][0] * g_tri[0] + f.R[i][1] * g_tri[1]) + f.R[i][2] * g_tri[2]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) A.t[i] = A.t[i] + g_tri[i];
+  }
+  // Rref, pref: the reference box's
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      A.Ra.m[r][c] = A.Ra.m[r][c] + (rb ? 0.0f : g_Rref[r][c]);
+      A.Rb.m[r][c] = A.Rb.m[r][c] + (rb ? g_Rref[r][c] : 0.0f);
+    }
+    A.pa[r] = A.pa[r] + (rb ? 0.0f : g_pref[r]);
+    A.pb[r] = A.pb[r] + (rb ? g_pref[r] : 0.0f);
+  }
+}
+
+// The edge case's reverse: from the adjoints of point 0's pos (gp0) and
+// depth (gd0) and of the normal (gn) into A (points 1-3 are constants).
+__device__ __forceinline__ void edge_adjoint(const PairFrame& f, int best_edge,
+                                             const float (&gp0)[3], float gd0,
+                                             const float (&gn)[3], PairAdj& A) {
+  const EdgeFrame E = edge_frame(f, best_edge);
+  // pos[0] = Ra mid + pa, normal = Ra axf
+  float g_mid[3], g_ax[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    g_mid[c] = (f.Ra.m[0][c] * gp0[0] + f.Ra.m[1][c] * gp0[1]) + f.Ra.m[2][c] * gp0[2];
+    g_ax[c] = (f.Ra.m[0][c] * gn[0] + f.Ra.m[1][c] * gn[1]) + f.Ra.m[2][c] * gn[2];
+  }
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    A.pa[r] = A.pa[r] + gp0[r];
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      A.Ra.m[r][c] = A.Ra.m[r][c] + (gp0[r] * E.mid[c] + gn[r] * E.axf[c]);
+  }
+  // mid = 0.5 ((c1 + s_par e_i) + (c2 + u_par Rj)), c1 a constant
+  float g_c2[3], g_Rj[3], g_s = 0.0f, g_u = 0.0f;
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    const float h = 0.5f * g_mid[r];
+    g_c2[r] = h;
+    g_s = g_s + h * E.e_i[r];
+    g_u = g_u + h * E.Rj[r];
+    g_Rj[r] = h * E.u_par;
+  }
+  // s_par, u_par: xs, xu clamped to the constants ±ha_i, ±hb_j
+  const float g_xs = clamp2_adjoint(g_s, E.xs, E.ha_i);
+  const float g_xu = clamp2_adjoint(g_u, E.xu, E.hb_j);
+  // xs = (d1r - b_dd d2r) / denom, xu = (b_dd d1r - d2r) / denom
+  const float g_ns = g_xs / E.denom, g_nu = g_xu / E.denom;
+  const float g_denom = -(g_xs * (E.xs / E.denom)) - g_xu * (E.xu / E.denom);
+  const float g_d1r = g_ns + g_nu * E.b_dd;
+  const float g_d2r = -(g_ns * E.b_dd) - g_nu;
+  // and denom = clamp_min(1 - b_dd², 1e-9)
+  const float g_bdd = (-(g_ns * E.d2r) + g_nu * E.d1r) -
+                      2.0f * E.b_dd *
+                          clamp_min_adjoint(g_denom, 1.0f - E.b_dd * E.b_dd, 1e-9f);
+  // d1r = e_i · r12, d2r = Rj · r12, b_dd = e_i · Rj, r12 = c2 - c1
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    g_c2[r] = g_c2[r] + (g_d1r * E.e_i[r] + g_d2r * E.Rj[r]);
+    g_Rj[r] = g_Rj[r] + (g_d2r * E.r12[r] + g_bdd * E.e_i[r]);
+  }
+  // c2 = R c2l + t
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    A.t[r] = A.t[r] + g_c2[r];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) A.R[r][j] = A.R[r][j] + g_c2[r] * E.c2l[j];
+  }
+  // axf = ax flip, ax = axr / nn, nn = sqrt(clamp_min(|axr|², 1e-24))
+  float g_axr[3], g_nn = 0.0f;
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    const float g = g_ax[r] * E.flip;
+    g_axr[r] = g / E.nn;
+    g_nn = g_nn - g * (E.ax[r] / E.nn);
+  }
+  const float s2 = E.axr[0] * E.axr[0] + E.axr[1] * E.axr[1] + E.axr[2] * E.axr[2];
+  const float g_s2 = clamp_min_adjoint(g_nn / (2.0f * E.nn), s2, 1e-24f);
+#pragma unroll
+  for (int r = 0; r < 3; ++r) g_axr[r] = g_axr[r] + 2.0f * E.axr[r] * g_s2;
+  // axr = e_i × Rj: Rj's adjoint is g_axr × e_i
+  g_Rj[0] = g_Rj[0] + (g_axr[1] * E.e_i[2] - g_axr[2] * E.e_i[1]);
+  g_Rj[1] = g_Rj[1] + (g_axr[2] * E.e_i[0] - g_axr[0] * E.e_i[2]);
+  g_Rj[2] = g_Rj[2] + (g_axr[0] * E.e_i[1] - g_axr[1] * E.e_i[0]);
+  // Rj = R[:, ej]
+#pragma unroll
+  for (int r = 0; r < 3; ++r) addm(A.R, r, E.ej, g_Rj[r]);
+
+  // depth[0] = pen_edge = -(num / L) of edge axis (i, j): num = |t[a2]
+  // R[a1][j] - t[a1] R[a2][j]| - ha[a1] absR[a2][j] - ha[a2] absR[a1][j] -
+  // (hb[j1] absR[i][j2] + hb[j2] absR[i][j1]), absR = |R| + eps, L =
+  // sqrt(clamp_min(R[a1][j]² + R[a2][j]², 1e-12))
+  const int i = E.ei, j = E.ej, a1 = (i + 1) % 3, a2 = (i + 2) % 3;
+  const int j1 = (j + 1) % 3, j2 = (j + 2) % 3;
+  const float r1 = selm(f.R, a1, j), r2 = selm(f.R, a2, j);
+  const float rj2 = selm(f.R, i, j2), rj1 = selm(f.R, i, j1);
+  const float t1 = sel3(f.t, a1), t2 = sel3(f.t, a2);
+  const float ha1 = sel3(f.ha, a1), ha2 = sel3(f.ha, a2);
+  const float hb1 = sel3(f.hb, j1), hb2 = sel3(f.hb, j2);
+  const float X = t2 * r1 - t1 * r2;
+  const float num = absv(X) - ha1 * (absv(r2) + kAbsEps) - ha2 * (absv(r1) + kAbsEps) -
+                    (hb1 * (absv(rj2) + kAbsEps) + hb2 * (absv(rj1) + kAbsEps));
+  const float L2 = r1 * r1 + r2 * r2;
+  const float L = sqrtv(clamp_min(L2, 1e-12f));
+  const float s = num / L;
+  const float g_sv = -gd0;
+  const float g_num = g_sv / L;
+  const float g_L2 = clamp_min_adjoint(-(g_sv * (s / L)) / (2.0f * L), L2, 1e-12f);
+  const float g_X = abs_adjoint(g_num, X);
+  add3(A.t, a2, g_X * r1);
+  add3(A.t, a1, -(g_X * r2));
+  addm(A.R, a1, j, (g_X * t2 + 2.0f * r1 * g_L2) + abs_adjoint(-(ha2 * g_num), r1));
+  addm(A.R, a2, j, (-(g_X * t1) + 2.0f * r2 * g_L2) + abs_adjoint(-(ha1 * g_num), r2));
+  addm(A.R, i, j2, abs_adjoint(-(hb1 * g_num), rj2));
+  addm(A.R, i, j1, abs_adjoint(-(hb2 * g_num), rj1));
+}
+
+// The reverse of collide_pair for pair (ia, ib), replaying its forward's
+// choices ch: the adjoints of the pose inputs (kPoseInputs order) from
+// those of the outputs pos (gp), depth (gd) and normal (gn).
+__device__ __forceinline__ void pair_adjoint(int ia, int ib, const float* __restrict__ half,
+                                             const float* __restrict__ quat,
+                                             const float* __restrict__ wpos,
+                                             const PairChoice& ch, const float (&gp)[4][3],
+                                             const float (&gd)[4], const float (&gn)[3],
+                                             float (&adj)[kPoseInputs]) {
+  const PairFrame f = pair_frame(ia, ib, half, quat, wpos);
+  PairAdj A = {};
+  if (!ch.edge_case)
+    face_adjoint(f, ch, gp, gd, gn, A);
+  else
+    edge_adjoint(f, ch.best_edge, gp[0], gd[0], gn, A);
+  // R = Raᵀ Rb, t = Raᵀ d, d = pb - pa
+  const float d[3] = {f.pb[0] - f.pa[0], f.pb[1] - f.pa[1], f.pb[2] - f.pa[2]};
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      A.Ra.m[k][i] = A.Ra.m[k][i] + (((A.R[i][0] * f.Rb.m[k][0] + A.R[i][1] * f.Rb.m[k][1]) +
+                                      A.R[i][2] * f.Rb.m[k][2]) +
+                                     A.t[i] * d[k]);
+      A.Rb.m[k][i] = A.Rb.m[k][i] + ((A.R[0][i] * f.Ra.m[k][0] + A.R[1][i] * f.Ra.m[k][1]) +
+                                     A.R[2][i] * f.Ra.m[k][2]);
+    }
+    const float g_d = (A.t[0] * f.Ra.m[k][0] + A.t[1] * f.Ra.m[k][1]) + A.t[2] * f.Ra.m[k][2];
+    adj[k] = A.pa[k] - g_d;
+    adj[7 + k] = A.pb[k] + g_d;
+  }
+  const Q4 qa = quat_to_mat_adjoint(load4(quat + 4 * ia), A.Ra);
+  const Q4 qb = quat_to_mat_adjoint(load4(quat + 4 * ib), A.Rb);
+  adj[3] = qa.x;
+  adj[4] = qa.y;
+  adj[5] = qa.z;
+  adj[6] = qa.w;
+  adj[10] = qb.x;
+  adj[11] = qb.y;
+  adj[12] = qb.z;
+  adj[13] = qb.w;
 }
 
 struct Outputs {
@@ -541,8 +943,9 @@ __global__ void __launch_bounds__(kThreads)
     return;
   }
   const int ia = pa_idx[p], ib = pb_idx[p];
-  PairOut<float> o;
-  collide_pair(ia, ib, half, quat, wpos, -1, o);
+  PairOut o;
+  PairChoice ch;
+  collide_pair(ia, ib, half, quat, wpos, o, ch);
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
     const int e = 4 * j;
@@ -563,20 +966,22 @@ __global__ void __launch_bounds__(kThreads)
   out.gb[p] = ib;
 }
 
-// The backward: thread (p, j) runs pair p's math once more with pose input
-// j seeded (collide_pair<Dual>, kPoseTangents threads a pair), so that the
-// outputs' tangents are column j of the pair's Jacobian, and writes
-// adj[p][j] = Σ tangent · output adjoint over pos, depth and normal (the
-// outputs with a gradient; feature ids, validity, friction and ids have
-// none). A dead pair slot writes zeros. One thread a (pair, input) and no
-// sum across threads: the per-box sums of these rows are the segment sum
-// of csrc/segment.cu, in a fixed order.
+// The backward: one thread a pair slot. A live pair runs collide_pair once
+// (the forward's bits and choices) and its reverse, pair_adjoint, and
+// writes adj[p][0..13] = d loss / d (pos a, quat a, pos b, quat b) through
+// pos, depth and normal (the outputs with a gradient; feature ids,
+// validity, friction and ids have none) as seven 8-byte words (row p starts
+// at byte 56 p). A dead slot writes nothing: contacts.collider_entries
+// gives its rows the key that the segment sum (csrc/segment.cu, the
+// per-box sums in a fixed order) skips. A null output adjoint is zero.
 //
-// What bounds it on an H100: the same dependent chain as the forward, with
-// a tangent beside each value (about 3x the operations), 14 times a live
-// pair; the 24 candidates as duals do not fit in registers, so the stack
-// frame holds them (the forward keeps its 0 B frame). Reads: the forward's
-// inputs and 76 B of output adjoint a pair; writes 56 B a pair.
+// What bounds it on an H100: the chain of one live pair, the forward's
+// (~1,770 float operations in the face case) and then its reverse, which
+// walks back only through what reaches pos, depth and normal: the four
+// chosen candidates (of the 24), the quad, the frames and the quaternions;
+// most of the clip is selection and carries no gradient. Reads: the
+// forward's inputs and 76 B of output adjoint a live pair; writes 56 B a
+// live pair.
 __global__ void __launch_bounds__(kThreads)
     box_box_bwd_kernel(const float* __restrict__ half, const float* __restrict__ quat,
                        const float* __restrict__ wpos, const int* __restrict__ pa_idx,
@@ -584,25 +989,26 @@ __global__ void __launch_bounds__(kThreads)
                        int n_pairs, const float* __restrict__ g_pos,
                        const float* __restrict__ g_depth, const float* __restrict__ g_normal,
                        float* __restrict__ adj) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)n_pairs * kPoseTangents) return;
-  const int p = (int)(t / kPoseTangents), j = (int)(t % kPoseTangents);
-  if (!pair_valid[p]) {
-    adj[t] = 0.0f;
-    return;
-  }
-  PairOut<Dual> o;
-  collide_pair(pa_idx[p], pb_idx[p], half, quat, wpos, j, o);
-  float g = 0.0f;
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n_pairs || !pair_valid[p]) return;
+  const int ia = pa_idx[p], ib = pb_idx[p];
+  PairOut o;
+  PairChoice ch;
+  collide_pair(ia, ib, half, quat, wpos, o, ch);
+  float gp[4][3], gd[4], gn[3];
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
 #pragma unroll
-    for (int r = 0; r < 3; ++r) g = g + o.pos[k][r].d * g_pos[(4 * p + k) * 3 + r];
-    g = g + o.depth[k].d * g_depth[4 * p + k];
+    for (int r = 0; r < 3; ++r) gp[k][r] = g_pos ? g_pos[12LL * p + 3 * k + r] : 0.0f;
+    gd[k] = g_depth ? g_depth[4LL * p + k] : 0.0f;
   }
 #pragma unroll
-  for (int r = 0; r < 3; ++r) g = g + o.normal[r].d * g_normal[3 * p + r];
-  adj[t] = g;
+  for (int r = 0; r < 3; ++r) gn[r] = g_normal ? g_normal[3LL * p + r] : 0.0f;
+  float a[kPoseInputs];
+  pair_adjoint(ia, ib, half, quat, wpos, ch, gp, gd, gn, a);
+  float2* row = reinterpret_cast<float2*>(adj + (long long)kPoseInputs * p);
+#pragma unroll
+  for (int w = 0; w < kPoseInputs / 2; ++w) row[w] = make_float2(a[2 * w], a[2 * w + 1]);
 }
 
 }  // namespace
@@ -622,18 +1028,18 @@ extern "C" int nudge_box_box(const float* half, const float* quat, const float* 
   return (int)cudaGetLastError();
 }
 
-// The adjoint rows of the box poses, one per pair slot: adj[p][0..13] =
-// d loss / d (pos a, quat a, pos b, quat b) through pair p's pos, depth and
-// normal, given their adjoints g_pos[P,4,3], g_depth[P,4], g_normal[P,3].
+// The adjoint rows of the box poses, one per live pair slot: adj[p][0..13]
+// = d loss / d (pos a, quat a, pos b, quat b) through pair p's pos, depth
+// and normal, given their adjoints g_pos[P,4,3], g_depth[P,4],
+// g_normal[P,3] (each may be null: zero). A dead slot's row is not
+// written. adj must be 8-byte aligned.
 extern "C" int nudge_box_box_bwd(const float* half, const float* quat, const float* wpos,
                                  const int* pa, const int* pb, const bool* pair_valid,
                                  int n_pairs, const float* g_pos, const float* g_depth,
                                  const float* g_normal, float* adj, void* stream) {
-  const long long threads = (long long)n_pairs * kPoseTangents;
-  if (threads > 0) {
-    box_box_bwd_kernel<<<(unsigned)((threads + kThreads - 1) / kThreads), kThreads, 0,
-                         (cudaStream_t)stream>>>(half, quat, wpos, pa, pb, pair_valid, n_pairs,
-                                                 g_pos, g_depth, g_normal, adj);
+  if (n_pairs > 0) {
+    box_box_bwd_kernel<<<blocks_for(n_pairs), kThreads, 0, (cudaStream_t)stream>>>(
+        half, quat, wpos, pa, pb, pair_valid, n_pairs, g_pos, g_depth, g_normal, adj);
   }
   return (int)cudaGetLastError();
 }

@@ -26,9 +26,10 @@
 // row 0 of this launch's rows: contacts.narrowphase_all passes the rows
 // after box-box's of its joined buffers.
 //
-// The per-pair math, one_point, is a template over its scalar type: floats
-// in the forward, the dual numbers of dual.cuh in pairs_1pt_bwd_kernel
-// (the differentiable mode's backward).
+// The per-pair math, one_point, hands back its intermediate values beside
+// the contact: the forward kernel stores the contact, and the backward
+// kernel (pairs_1pt_bwd_kernel) runs the reverse, one_point_adjoint, from
+// them, so it replays every branch of the forward on the forward's bits.
 //
 // What bounds it on an H100: latency, not bytes or operations. A live pair
 // reads two collider records (at most 48 + 24 bytes) by scattered index,
@@ -40,7 +41,7 @@
 // point_valid one 32-bit word; a slot's rows are 48, 16, 16 and 4 bytes, so
 // every row is aligned where row 0 is: the wrapper checks each base).
 
-#include "dual.cuh"
+#include "adjoint.cuh"
 
 namespace {
 
@@ -78,77 +79,170 @@ struct Slots {
   int* gb;        // [P]
 };
 
-// The pose inputs of a pair, in the order of the backward kernel's tangents
-// and of its adjoint rows (the box-box kernel's): side a's world position
-// (0-2) and, for a box, quaternion (3-6); side b's (a sphere) position
-// (7-9); 10-13 are always zero.
-constexpr int kPoseTangents = 14;
+// The pose inputs of a pair, in the order of the backward kernel's adjoint
+// rows (the box-box kernel's): side a's world position (0-2) and, for a
+// box, quaternion (3-6); side b's (a sphere) position (7-9); 10-13 are
+// always zero.
+constexpr int kPoseInputs = 14;
 
-template <typename T>
+// A pair's contact (pos, nrm, depth) and the values its reverse reads:
+// both centres, side a's rotation (a box), and the intermediates of the
+// branch that ran.
 struct OnePoint {
-  Vec3<T> pos, nrm;
-  T depth;
+  V3 pos, nrm, pa, pb;
+  float depth;
+  M3 Ra;
+  float h[3];
+  float d[3];   // sphere-sphere pb - pa; box-sphere the centre in the box frame
+  float cl[3];  // box-sphere: the centre clamped to the box, dl = d - cl
+  float dl[3], nl[3], pl[3];  // and the normal and point in the box frame
+  float d2, dist, s;          // |dl|² (sphere-sphere |d|²), its sqrt; s = ra - depth/2
+  int k;                      // box-sphere: the least-penetrated face
+  bool apart;                 // d2 > 1e-12: the centres apart, or outside the box
 };
 
 // The contact of pair (a, b) (sphere_a: sphere-sphere, else box-sphere),
-// the twins' math over scalars of type T (float, or Dual with the pose
-// input `seed` seeded; -1 for none).
-template <typename T>
-__device__ __forceinline__ OnePoint<T> one_point(const Colliders& c, bool sphere_a, int a, int b,
-                                                 int seed) {
+// the twins' math.
+__device__ __forceinline__ OnePoint one_point(const Colliders& c, bool sphere_a, int a, int b) {
   const float rb = c.radius[b];
-  const Vec3<T> pb = seeded3<T>(c.sph_pos + 3 * b, 7, seed);
-  OnePoint<T> o;
+  OnePoint o;
+  o.pb = load3(c.sph_pos + 3 * b);
   if (sphere_a) {
     // sphere-sphere (narrowphase.sphere_sphere)
     const float ra = c.radius[a];
-    const Vec3<T> pa = seeded3<T>(c.sph_pos + 3 * a, 0, seed);
-    const Vec3<T> d = sub(pb, pa);
-    const T d2 = d.x * d.x + d.y * d.y + d.z * d.z;
-    const T dist = sqrtv(clamp_min(d2, 1e-12f));
-    o.nrm = d2 > 1e-12f ? v3(d.x / dist, d.y / dist, d.z / dist) : v3(T(0.0f), T(1.0f), T(0.0f));
-    o.depth = (ra + rb) - dist;
-    const T s = ra - 0.5f * o.depth;
-    o.pos = v3(pa.x + o.nrm.x * s, pa.y + o.nrm.y * s, pa.z + o.nrm.z * s);
+    o.pa = load3(c.sph_pos + 3 * a);
+    const V3 d = sub(o.pb, o.pa);
+    o.d[0] = d.x;
+    o.d[1] = d.y;
+    o.d[2] = d.z;
+    o.d2 = d.x * d.x + d.y * d.y + d.z * d.z;
+    o.dist = sqrtv(clamp_min(o.d2, 1e-12f));
+    o.apart = o.d2 > 1e-12f;
+    o.nrm = o.apart ? v3(d.x / o.dist, d.y / o.dist, d.z / o.dist) : v3(0.0f, 1.0f, 0.0f);
+    o.depth = (ra + rb) - o.dist;
+    o.s = ra - 0.5f * o.depth;
+    o.pos = v3(o.pa.x + o.nrm.x * o.s, o.pa.y + o.nrm.y * o.s, o.pa.z + o.nrm.z * o.s);
   } else {
     // box-sphere (narrowphase.box_sphere)
-    const float h[3] = {c.half[3 * a], c.half[3 * a + 1], c.half[3 * a + 2]};
-    const Vec3<T> pa = seeded3<T>(c.box_pos + 3 * a, 0, seed);
-    const Mat3<T> Ra = quat_to_mat(seeded4<T>(c.box_quat + 4 * a, 3, seed));
-    const Vec3<T> cc = mtv(Ra, sub(pb, pa));  // sphere centre in the box frame
-    const T ctr[3] = {cc.x, cc.y, cc.z};
-    T cl[3], dl[3], fp[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) o.h[i] = c.half[3 * a + i];
+    o.pa = load3(c.box_pos + 3 * a);
+    o.Ra = quat_to_mat(load4(c.box_quat + 4 * a));
+    const V3 cc = mtv(o.Ra, sub(o.pb, o.pa));  // sphere centre in the box frame
+    o.d[0] = cc.x;
+    o.d[1] = cc.y;
+    o.d[2] = cc.z;
+    float fp[3];
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
-      cl[i] = minimum(maximum(ctr[i], T(-h[i])), T(h[i]));
-      dl[i] = ctr[i] - cl[i];
-      fp[i] = h[i] - absv(ctr[i]);
+      o.cl[i] = minimum(maximum(o.d[i], -o.h[i]), o.h[i]);
+      o.dl[i] = o.d[i] - o.cl[i];
+      fp[i] = o.h[i] - absv(o.d[i]);
     }
-    const T d2 = dl[0] * dl[0] + dl[1] * dl[1] + dl[2] * dl[2];
-    const bool outside = d2 > 1e-12f;
-    const T dist = sqrtv(clamp_min(d2, 1e-12f));
+    o.d2 = o.dl[0] * o.dl[0] + o.dl[1] * o.dl[1] + o.dl[2] * o.dl[2];
+    o.apart = o.d2 > 1e-12f;
+    o.dist = sqrtv(clamp_min(o.d2, 1e-12f));
     // least-penetrated face, first minimum
     int k = 0;
     if (fp[1] < fp[k]) k = 1;
     if (fp[2] < fp[k]) k = 2;
-    const T fk = k == 0 ? fp[0] : (k == 1 ? fp[1] : fp[2]);
-    const float sgn = (k == 0 ? ctr[0] : (k == 1 ? ctr[1] : ctr[2])) >= 0.0f ? 1.0f : -1.0f;
-    T nl[3], pl[3];
+    o.k = k;
+    const float fk = k == 0 ? fp[0] : (k == 1 ? fp[1] : fp[2]);
+    const float sgn = (k == 0 ? o.d[0] : (k == 1 ? o.d[1] : o.d[2])) >= 0.0f ? 1.0f : -1.0f;
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
-      if (outside) {
-        nl[i] = dl[i] / dist;
-        pl[i] = cl[i];
+      if (o.apart) {
+        o.nl[i] = o.dl[i] / o.dist;
+        o.pl[i] = o.cl[i];
       } else {
-        nl[i] = T(i == k ? sgn : 0.0f);
-        pl[i] = i == k ? T(sgn * h[i]) : ctr[i];
+        o.nl[i] = i == k ? sgn : 0.0f;
+        o.pl[i] = i == k ? sgn * o.h[i] : o.d[i];
       }
     }
-    o.depth = outside ? rb - dist : rb + fk;
-    o.pos = add(mv(Ra, v3(pl[0], pl[1], pl[2])), pa);
-    o.nrm = mv(Ra, v3(nl[0], nl[1], nl[2]));
+    o.depth = o.apart ? rb - o.dist : rb + fk;
+    o.pos = add(mv(o.Ra, v3(o.pl[0], o.pl[1], o.pl[2])), o.pa);
+    o.nrm = mv(o.Ra, v3(o.nl[0], o.nl[1], o.nl[2]));
   }
   return o;
+}
+
+// The reverse of one_point (its forward values o): the adjoints of the
+// pose inputs (kPoseInputs order) from those of point 0's pos (gp) and
+// depth (gd) and of the normal (gn); box a's quaternion is read again.
+__device__ __forceinline__ void one_point_adjoint(const Colliders& c, const OnePoint& o,
+                                                  bool sphere_a, int a, V3 gp, float gd, V3 gn,
+                                                  float (&adj)[kPoseInputs]) {
+#pragma unroll
+  for (int i = 0; i < kPoseInputs; ++i) adj[i] = 0.0f;
+  float g_d[3];
+  if (sphere_a) {
+    // pos = pa + nrm s, s = ra - 0.5 depth, depth = (ra + rb) - dist,
+    // nrm = d2 > 1e-12 ? d / dist : (0, 1, 0), dist = sqrt(clamp_min(d2, 1e-12))
+    const float gn3[3] = {gn.x + gp.x * o.s, gn.y + gp.y * o.s, gn.z + gp.z * o.s};
+    const float nrm[3] = {o.nrm.x, o.nrm.y, o.nrm.z};
+    const float g_s = (gp.x * o.nrm.x + gp.y * o.nrm.y) + gp.z * o.nrm.z;
+    float g_dist = -(gd - 0.5f * g_s);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      g_d[i] = o.apart ? gn3[i] / o.dist : 0.0f;
+      if (o.apart) g_dist = g_dist - gn3[i] * (nrm[i] / o.dist);
+    }
+    const float g_d2 = clamp_min_adjoint(g_dist / (2.0f * o.dist), o.d2, 1e-12f);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) g_d[i] = g_d[i] + 2.0f * o.d[i] * g_d2;
+    adj[0] = gp.x - g_d[0];
+    adj[1] = gp.y - g_d[1];
+    adj[2] = gp.z - g_d[2];
+  } else {
+    // pos = Ra pl + pa, nrm = Ra nl
+    M3 g_Ra = {};
+    mv_adjoint_m(&g_Ra, gp, v3(o.pl[0], o.pl[1], o.pl[2]));
+    mv_adjoint_m(&g_Ra, gn, v3(o.nl[0], o.nl[1], o.nl[2]));
+    const V3 gpl = mtv(o.Ra, gp), gnl = mtv(o.Ra, gn);
+    const float g_pl[3] = {gpl.x, gpl.y, gpl.z}, g_nl[3] = {gnl.x, gnl.y, gnl.z};
+    float g_ctr[3];
+    if (o.apart) {
+      // outside: depth = rb - dist, nl = dl / dist, pl = cl, dl = ctr - cl,
+      // cl = minimum(maximum(ctr, -h), h), whose derivative w is 1 inside,
+      // 0 clamped, 1/2 at a tie: ctr's adjoint g_dl (1 - w) + g_pl w, so
+      // that g_dl (~1 / dist near the surface) cancels exactly where w = 1
+      float g_dl[3], g_dist = -gd;
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        g_dl[i] = g_nl[i] / o.dist;
+        g_dist = g_dist - g_nl[i] * (o.nl[i] / o.dist);
+      }
+      const float g_d2 = clamp_min_adjoint(g_dist / (2.0f * o.dist), o.d2, 1e-12f);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        g_dl[i] = g_dl[i] + 2.0f * o.dl[i] * g_d2;
+        const float w = clamp2_adjoint(1.0f, o.d[i], o.h[i]);
+        g_ctr[i] = g_dl[i] * (1.0f - w) + g_pl[i] * w;
+      }
+    } else {
+      // inside: depth = rb + (h - |ctr|)[k]; pl = ctr off face k; nl a constant
+#pragma unroll
+      for (int i = 0; i < 3; ++i) g_ctr[i] = i == o.k ? -abs_adjoint(gd, o.d[i]) : g_pl[i];
+    }
+    // ctr = Raᵀ (pb - pa)
+    const V3 gc = v3(g_ctr[0], g_ctr[1], g_ctr[2]);
+    mtv_adjoint_m(&g_Ra, gc, sub(o.pb, o.pa));
+    const V3 gdd = mv(o.Ra, gc);
+    g_d[0] = gdd.x;
+    g_d[1] = gdd.y;
+    g_d[2] = gdd.z;
+    adj[0] = gp.x - g_d[0];
+    adj[1] = gp.y - g_d[1];
+    adj[2] = gp.z - g_d[2];
+    const Q4 gq = quat_to_mat_adjoint(load4(c.box_quat + 4 * a), g_Ra);
+    adj[3] = gq.x;
+    adj[4] = gq.y;
+    adj[5] = gq.z;
+    adj[6] = gq.w;
+  }
+  adj[7] = g_d[0];
+  adj[8] = g_d[1];
+  adj[9] = g_d[2];
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -163,7 +257,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   const int a = sphere_a ? in.ss_a[q] : in.bs_a[q];
   const int b = sphere_a ? in.ss_b[q] : in.bs_b[q];
-  const OnePoint<float> o = one_point<float>(c, sphere_a, a, b, -1);
+  const OnePoint o = one_point(c, sphere_a, a, b);
   const V3 pos = o.pos, nrm = o.nrm;
   const float depth = o.depth;
   const float fa = sphere_a ? c.sph_fric[a] : c.box_fric[a];
@@ -184,37 +278,37 @@ __global__ void __launch_bounds__(kThreads)
   out.gb[r] = nb + b;
 }
 
-// The backward: thread (r, j) runs pair r's math with pose input j seeded
-// (one_point<Dual>) and writes adj[r][j] = Σ tangent · output adjoint over
-// point 0's pos and depth and the normal (points 1-3 are constants). Inputs
-// a pair does not have (a sphere's quaternion, side b's 10-13) and dead
-// pair slots write zeros. The per-collider sums are csrc/segment.cu's.
+// The backward: one thread a pair row, over both ranges as the forward. A
+// live pair runs one_point (the forward's bits) and its reverse and writes
+// adj[r][0..13] through point 0's pos and depth and the normal (points 1-3
+// are constants) as seven 8-byte words: box-sphere rows columns 0-9 (box
+// pos and quat, sphere pos), sphere-sphere rows 0-2 and 7-9, zeros in the
+// rest, which the per-collider segment sum (csrc/segment.cu) reads as a
+// live row's. A dead pair slot writes nothing (contacts.collider_entries
+// gives its rows the key the sum skips). A null output adjoint is zero.
 //
-// What bounds it on an H100: latency, as the forward: ~3x the forward's
-// ~200 operations a live pair (the tangents), 14 threads a pair.
+// What bounds it on an H100: latency, as the forward: ~200 operations a
+// live pair forward and about as many back, 36 B read and 56 B written.
 __global__ void __launch_bounds__(kThreads)
     pairs_1pt_bwd_kernel(Colliders c, Pairs in, int n_bs, int n_ss,
                          const float* __restrict__ g_pos, const float* __restrict__ g_depth,
                          const float* __restrict__ g_normal, float* __restrict__ adj) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)(n_bs + n_ss) * kPoseTangents) return;
-  const int r = (int)(t / kPoseTangents), j = (int)(t % kPoseTangents);
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n_bs + n_ss) return;
   const bool sphere_a = r >= n_bs;
   const int q = sphere_a ? r - n_bs : r;
-  const bool live = sphere_a ? in.ss_valid[q] : in.bs_valid[q];
-  if (!live || j >= 10 || (sphere_a && j >= 3 && j < 7)) {
-    adj[t] = 0.0f;
-    return;
-  }
+  if (!(sphere_a ? in.ss_valid[q] : in.bs_valid[q])) return;
   const int a = sphere_a ? in.ss_a[q] : in.bs_a[q];
   const int b = sphere_a ? in.ss_b[q] : in.bs_b[q];
-  const OnePoint<Dual> o = one_point<Dual>(c, sphere_a, a, b, j);
-  float g = o.pos.x.d * g_pos[12 * r] + o.pos.y.d * g_pos[12 * r + 1] +
-            o.pos.z.d * g_pos[12 * r + 2];
-  g = g + o.depth.d * g_depth[4 * r];
-  g = g + (o.nrm.x.d * g_normal[3 * r] + o.nrm.y.d * g_normal[3 * r + 1] +
-           o.nrm.z.d * g_normal[3 * r + 2]);
-  adj[t] = g;
+  const OnePoint o = one_point(c, sphere_a, a, b);
+  const V3 gp = g_pos ? load3(g_pos + 12LL * r) : v3(0.0f, 0.0f, 0.0f);
+  const float gd = g_depth ? g_depth[4LL * r] : 0.0f;
+  const V3 gn = g_normal ? load3(g_normal + 3LL * r) : v3(0.0f, 0.0f, 0.0f);
+  float g[kPoseInputs];
+  one_point_adjoint(c, o, sphere_a, a, gp, gd, gn, g);
+  float2* row = reinterpret_cast<float2*>(adj + (long long)kPoseInputs * r);
+#pragma unroll
+  for (int w = 0; w < kPoseInputs / 2; ++w) row[w] = make_float2(g[2 * w], g[2 * w + 1]);
 }
 
 }  // namespace
@@ -241,9 +335,11 @@ extern "C" int nudge_pairs_1pt(const float* half, const float* box_quat, const f
   return (int)cudaGetLastError();
 }
 
-// The adjoint rows of the colliders' poses, one per pair row of this launch
-// (the box-sphere rows, then the sphere-sphere rows): adj[r][0..13], from
-// the rows' adjoints g_pos[P,4,3], g_depth[P,4], g_normal[P,3].
+// The adjoint rows of the colliders' poses, one per live pair row of this
+// launch (the box-sphere rows, then the sphere-sphere rows): adj[r][0..13],
+// from the rows' adjoints g_pos[P,4,3], g_depth[P,4], g_normal[P,3] (each
+// may be null: zero). A dead row is not written. adj must be 8-byte
+// aligned.
 extern "C" int nudge_pairs_1pt_bwd(const float* half, const float* box_quat,
                                    const float* box_pos, const float* radius,
                                    const float* sph_pos, const int* bs_a, const int* bs_b,
@@ -251,14 +347,13 @@ extern "C" int nudge_pairs_1pt_bwd(const float* half, const float* box_quat,
                                    const bool* ss_valid, int n_bs, int n_ss, const float* g_pos,
                                    const float* g_depth, const float* g_normal, float* adj,
                                    void* stream) {
-  const long long threads = (long long)(n_bs + n_ss) * kPoseTangents;
-  if (threads > 0) {
+  const int rows = n_bs + n_ss;
+  if (rows > 0) {
     const Colliders c{half, box_quat, box_pos, nullptr, nullptr,
                       radius, sph_pos, nullptr, nullptr};
     const Pairs in{bs_a, bs_b, bs_valid, ss_a, ss_b, ss_valid};
-    pairs_1pt_bwd_kernel<<<(unsigned)((threads + kThreads - 1) / kThreads), kThreads, 0,
-                           (cudaStream_t)stream>>>(c, in, n_bs, n_ss, g_pos, g_depth, g_normal,
-                                                   adj);
+    pairs_1pt_bwd_kernel<<<blocks_for(rows), kThreads, 0, (cudaStream_t)stream>>>(
+        c, in, n_bs, n_ss, g_pos, g_depth, g_normal, adj);
   }
   return (int)cudaGetLastError();
 }

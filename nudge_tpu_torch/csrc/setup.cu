@@ -42,7 +42,7 @@
 // instructions, so at this size the chain's latency, not the bytes, sets
 // the time.
 
-#include "common.cuh"
+#include "adjoint.cuh"
 
 namespace {
 
@@ -318,7 +318,7 @@ __global__ void setup_kernel(SetupIn in, const int* __restrict__ body_a,
 // words, its accumulators and pseudo impulse, and its term of the
 // warm-start velocity changes, which are sums over points and so hand
 // every point's term the same adjoint. The corners
-// are autograd's for the twin's operations (dual.cuh states them):
+// are autograd's for the twin's operations (adjoint.cuh states them):
 // clamp_min / clamp_max pass the adjoint where x >= c / x <= c, maximum /
 // minimum split it in halves at a tie, a select takes its branch's.
 //
@@ -424,43 +424,6 @@ __device__ __forceinline__ void eff_adjoint(const ManifoldIn& M, const Eff& e, V
   *g_ra = add(*g_ra, cross(d, g_rna));
   *g_rb = add(*g_rb, cross(d, g_rnb));
   *g_d = add(add(*g_d, cross(g_rna, ra)), cross(g_rnb, rb));
-}
-
-// The adjoints of torch.minimum(torch.maximum(y, -bound), bound) at the
-// forward's values: of y, and added into *a_bound.
-__device__ __forceinline__ float clamp2_adjoint(float g, float y, float bound, float* a_bound) {
-  const float m = fmaxf(y, -bound);
-  float gm;  // of m = maximum(y, -bound)
-  if (m < bound) {
-    gm = g;
-  } else if (m == bound) {
-    gm = 0.5f * g;
-    *a_bound = *a_bound + 0.5f * g;
-  } else {
-    gm = 0.0f;
-    *a_bound = *a_bound + g;
-  }
-  float gy, gnb;  // of y and of -bound
-  if (y > -bound) {
-    gy = gm;
-    gnb = 0.0f;
-  } else if (y == -bound) {
-    gy = 0.5f * gm;
-    gnb = 0.5f * gm;
-  } else {
-    gy = 0.0f;
-    gnb = gm;
-  }
-  *a_bound = *a_bound - gnb;
-  return gy;
-}
-
-// torch.maximum(a, b)'s adjoints from g: (of a, of b), halves at a tie;
-// torch.minimum's are maximum's with the arguments swapped.
-__device__ __forceinline__ float2 max_adjoint(float g, float a, float b) {
-  if (a > b) return make_float2(g, 0.0f);
-  if (a < b) return make_float2(0.0f, g);
-  return make_float2(0.5f * g, 0.5f * g);
 }
 
 // ramp(bod, depth, c, cap)'s adjoint of depth from g

@@ -83,7 +83,7 @@
 
 #include <cooperative_groups.h>
 
-#include "common.cuh"
+#include "adjoint.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -242,35 +242,6 @@ __device__ __forceinline__ void point_fwd(const Point& P, const Frame& F, float 
     S.pwa = sub(S.pwa, scale(P.jna, dlp));
     S.pwb = add(S.pwb, scale(P.jnb, dlp));
   }
-}
-
-// The adjoints of torch.minimum(torch.maximum(y, -bound), bound) at the
-// forward's values: of y, and added into *a_bound.
-__device__ __forceinline__ float clamp2_adjoint(float g, float y, float bound, float* a_bound) {
-  const float m = fmaxf(y, -bound);
-  float gm;  // of m = maximum(y, -bound)
-  if (m < bound) {
-    gm = g;
-  } else if (m == bound) {
-    gm = 0.5f * g;
-    *a_bound = *a_bound + 0.5f * g;
-  } else {
-    gm = 0.0f;
-    *a_bound = *a_bound + g;
-  }
-  float gy, gnb;  // of y and of -bound
-  if (y > -bound) {
-    gy = gm;
-    gnb = 0.0f;
-  } else if (y == -bound) {
-    gy = 0.5f * gm;
-    gnb = 0.5f * gm;
-  } else {
-    gy = 0.0f;
-    gnb = gm;
-  }
-  *a_bound = *a_bound - gnb;
-  return gy;
 }
 
 // A point's row adjoints: the vector rows ra, rb, jna, jnb, jt1a, jt1b,

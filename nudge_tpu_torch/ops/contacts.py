@@ -22,8 +22,8 @@ from .narrowphase_1pt import (
     pairs_1pt_adjoint_cuda, pairs_1pt_slots_cuda, pairs_1pt_slots_plain,
 )
 from .narrowphase_kernel import (
-    SLOTS, box_box_adjoint_cuda, box_box_slots, box_box_slots_cuda,
-    box_box_slots_plain, empty_slots,
+    POSE_INPUTS, SLOTS, box_box_adjoint_cuda, box_box_slots,
+    box_box_slots_cuda, box_box_slots_plain, empty_slots,
 )
 from .segment import entries, segment_sum
 
@@ -132,10 +132,15 @@ def collider_entries(bb, bs, ss, nb: int):
     """The segment-sum entries of the narrowphase's pose adjoint rows: row
     2r + side of pair row r (box-box, box-sphere, sphere-sphere rows in
     narrowphase_all's order) adds into collider `side ? gb : ga` (global
-    ids: a box keeps its index, sphere i is nb + i), for live pairs."""
-    ga = torch.cat([bb.a, bs.a, nb + ss.a])
-    gb = torch.cat([bb.b, nb + bs.b, nb + ss.b])
-    live = torch.cat([bb.valid, bs.valid, ss.valid])
+    ids: a box keeps its index, sphere i is nb + i), for live pairs. A dead
+    pair's rows get INT32_MAX, which the sum skips: the backward kernels
+    leave them unwritten."""
+    if bs.a.shape[0] + ss.a.shape[0] == 0:
+        ga, gb, live = bb.a, bb.b, bb.valid
+    else:
+        ga = torch.cat([bb.a, bs.a, nb + ss.a])
+        gb = torch.cat([bb.b, nb + bs.b, nb + ss.b])
+        live = torch.cat([bb.valid, bs.valid, ss.valid])
     return entries(torch.stack([ga, gb], 1), live[:, None].expand(-1, 2))
 
 
@@ -150,20 +155,25 @@ def narrowphase_backward_cuda(state: SimState, wc, bb, bs, ss, grads: dict):
 
 
 def _backward_kernels(boxes, spheres, wc, bb, bs, ss, grads: dict):
+    """The two backward kernels write the live pair rows of one adjoint
+    buffer (box-box rows, then the one-point rows; an output adjoint that
+    autograd passed as None goes in as a null pointer, a zero), and one
+    segment sum adds them per collider."""
     nb = boxes.half.shape[0]
     ns = spheres.radius.shape[0]
     n_bb, n_1pt = bb.a.shape[0], bs.a.shape[0] + ss.a.shape[0]
-    dev = boxes.half.device
-    g_pos, g_depth, g_normal = _slot_grads(grads, n_bb + n_1pt, dev)
-    adj = [box_box_adjoint_cuda(boxes, wc, bb, g_pos[:n_bb], g_depth[:n_bb],
-                                g_normal[:n_bb])]
+    g = [None if grads.get(k) is None else grads[k].contiguous()
+         for k in ("pos", "depth", "normal")]
+    adj = torch.empty((n_bb + n_1pt, POSE_INPUTS), dtype=torch.float32,
+                      device=boxes.half.device)
+    box_box_adjoint_cuda(boxes, wc, bb, *[x if x is None else x[:n_bb]
+                                          for x in g], out=adj[:n_bb])
     if n_1pt:
-        adj.append(pairs_1pt_adjoint_cuda(
-            boxes, spheres, wc, bs, ss, g_pos[n_bb:], g_depth[n_bb:],
-            g_normal[n_bb:]))
-    rows = torch.cat(adj).reshape(-1, 7)
+        pairs_1pt_adjoint_cuda(boxes, spheres, wc, bs, ss,
+                               *[x if x is None else x[n_bb:] for x in g],
+                               out=adj[n_bb:])
     keys, perm = collider_entries(bb, bs, ss, nb)
-    pose = segment_sum(keys, perm, rows, nb + ns)
+    pose = segment_sum(keys, perm, adj.reshape(-1, 7), nb + ns)
     return (pose[:nb, 0:3].contiguous(), pose[:nb, 3:7].contiguous(),
             pose[nb:, 0:3].contiguous())
 
@@ -205,6 +215,9 @@ class NarrowphaseFn(torch.autograd.Function):
         saved, ctx.rebuild = flatten((state.boxes, state.spheres, wc, bb, bs,
                                       ss))
         ctx.save_for_backward(*saved)
+        # the seven outputs without a gradient reach the backward as None,
+        # not as zero tensors autograd would fill
+        ctx.set_materialize_grads(False)
         ctx.mark_non_differentiable(*[slots[k] for k in SLOTS
                                       if k not in ("pos", "depth", "normal")])
         return tuple(slots[k] for k in SLOTS)

@@ -34,7 +34,7 @@ from ..state import Boxes, Spheres
 from . import narrowphase as nps
 from .broadphase import CandidatePairs, WorldColliders
 from .narrowphase_kernel import (
-    SLOTS, check_slots, combine_friction, empty_slots,
+    SLOTS, adjoint_ins, check_slots, combine_friction, empty_slots,
 )
 
 POINTS = nps.BOX_BOX_POINTS
@@ -129,11 +129,13 @@ pairs_1pt_slots_cuda.launches = 0
 
 def pairs_1pt_adjoint_cuda(bx: Boxes, sp: Spheres, wc: WorldColliders,
                            bs: CandidatePairs, ss: CandidatePairs, g_pos,
-                           g_depth, g_normal):
+                           g_depth, g_normal, out=None):
     """The backward kernel: the pose adjoint rows f32[P_bs + P_ss, 14] of
-    the box-sphere then the sphere-sphere pair rows (side a's position and,
-    for a box, quaternion; side b's position; zeros elsewhere and for dead
-    rows), from the rows' pos, depth and normal adjoints."""
+    the live box-sphere then sphere-sphere pair rows (side a's position
+    and, for a box, quaternion; side b's position; zeros elsewhere), from
+    the rows' pos, depth and normal adjoints (None: zero), into `out` where
+    given, else into new rows. A dead row is left as it was, as box-box's
+    (`narrowphase_kernel.box_box_adjoint_cuda`)."""
     nb, ns = bx.half.shape[0], sp.radius.shape[0]
     n_bs, n_ss = bs.a.shape[0], ss.a.shape[0]
     rows = n_bs + n_ss
@@ -146,20 +148,18 @@ def pairs_1pt_adjoint_cuda(bx: Boxes, sp: Spheres, wc: WorldColliders,
                bs_a=(bs.a, i32, (n_bs,)), bs_b=(bs.b, i32, (n_bs,)),
                bs_valid=(bs.valid, b8, (n_bs,)),
                ss_a=(ss.a, i32, (n_ss,)), ss_b=(ss.b, i32, (n_ss,)),
-               ss_valid=(ss.valid, b8, (n_ss,)),
-               g_pos=(g_pos, f32, (rows, POINTS, 3)),
-               g_depth=(g_depth, f32, (rows, POINTS)),
-               g_normal=(g_normal, f32, (rows, 3)))
+               ss_valid=(ss.valid, b8, (n_ss,)))
     for name, (t, dt, shape) in ins.items():
         _build.check_cuda("pairs_1pt_bwd", name, t, dt, shape)
-    adj = torch.empty((rows, 14), dtype=f32, device=bx.half.device)
+    g_ptrs, out = adjoint_ins("pairs_1pt_bwd", rows, g_pos, g_depth,
+                              g_normal, out, bx.half.device)
     if rows:
-        ptrs = [_build.ptr(t) for t, _, _ in ins.values()]
-        _build.library().call("nudge_pairs_1pt_bwd", *ptrs[:11], n_bs, n_ss,
-                              *ptrs[11:], _build.ptr(adj),
+        _build.library().call("nudge_pairs_1pt_bwd",
+                              *[_build.ptr(t) for t, _, _ in ins.values()],
+                              n_bs, n_ss, *g_ptrs, _build.ptr(out),
                               _build.stream_of(bx.half))
         pairs_1pt_adjoint_cuda.launches += 1
-    return adj
+    return out
 
 
 pairs_1pt_adjoint_cuda.launches = 0

@@ -1,5 +1,5 @@
 """The box-box, coloring and one-point kernels against their twins, and
-setup's and the backward kernels' times, on the card.
+setup's and the four backward kernels' times, on the card.
 
     python3 scripts/torch_kernel_probe.py [--parent DIR]
 
@@ -38,7 +38,13 @@ For each, in a process of its own:
     device time from torch.profiler over PROFILED calls (CUDA events
     cannot tell one kernel of a call from the others; how many of the
     kernel's launches the profiler recorded is printed beside it) with the
-    call's largest device kernels, and the wrapper's time.
+    call's largest device kernels, and the wrapper's time;
+  - box-box's backward on the pile's step-40 pairs and the one-point's on
+    config 3's step-120 pairs, with a seeded adjoint on every live row:
+    the backward kernel alone (device time and operations a call) and the
+    whole call `contacts.narrowphase_backward_cuda` (the kernels, the
+    collider sort, the segment sum: device time, device operations a call
+    and the wrapper's time).
 
 The pile's and config 3's states are made once by the committed kernels
 and shared by both trees. Needs one NVIDIA GPU; prints the card's name and power limit, then
@@ -290,6 +296,52 @@ def setup_backward_case(cs, name, inputs, cfg):
           f"largest kernels, ms a call: {top}", flush=True)
 
 
+def narrowphase_backward_case(cs, name, label, st, cfg, kernel):
+    """The narrowphase backward on the step's grid pairs of `st`, with a
+    seeded adjoint on every live row: `kernel`'s backward kernel alone
+    (one device kernel a call, so CUDA events time it) and the whole call
+    (`contacts.narrowphase_backward_cuda`: the kernels, the collider sort,
+    the segment sum)."""
+    import torch
+
+    from nudge_tpu_torch.ops import broadphase, contacts, grid
+    from nudge_tpu_torch.ops import narrowphase_1pt as p1pt
+    from nudge_tpu_torch.ops import narrowphase_kernel as npk
+
+    dev = st.bodies.pos.device
+    wc = broadphase.world_colliders(st)
+    bb, bs, ss = grid.grid_broadphase(st, wc, cfg)
+    live = torch.cat([bb.valid, bs.valid, ss.valid])
+    n, n_bb = live.shape[0], bb.a.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(GRAD_SEED)
+    w = live.to(torch.float32)
+    grads = {key: torch.randn(shape, generator=gen, device=dev) * w.reshape(
+        (n,) + (1,) * len(shape[1:])) for key, shape in
+        (("pos", (n, 4, 3)), ("depth", (n, 4)), ("normal", (n, 3)))}
+    rows = slice(0, n_bb) if kernel == "box_box" else slice(n_bb, n)
+    g = [grads[k][rows] for k in ("pos", "depth", "normal")]
+
+    def alone():
+        if kernel == "box_box":
+            return npk.box_box_adjoint_cuda(st.boxes, wc, bb, *g)
+        return p1pt.pairs_1pt_adjoint_cuda(st.boxes, st.spheres, wc, bs, ss,
+                                           *g)
+
+    def call():
+        return contacts.narrowphase_backward_cuda(st, wc, bb, bs, ss, grads)
+
+    k_ms = timing().device_ms(alone, reps=REPS)
+    k_ops = cs.fmt_ops(timing().device_ops(alone))
+    dev_ms = timing().device_ms(call, reps=REPS)
+    ops = cs.fmt_ops(timing().device_ops(call))
+    ms = cs.timed(call, reps=REPS)
+    print(f"{name}: {kernel}_bwd {label}: {rows.stop - rows.start} slots, "
+          f"{int(live[rows].sum())} live; {kernel}_bwd_kernel alone "
+          f"{k_ms:.4f} ms (a call enqueues {k_ops}); the call "
+          f"(narrowphase_backward_cuda): device {dev_ms:.4f} ms (a call "
+          f"enqueues {ops}), wrapper {ms:.4f} ms", flush=True)
+
+
 def solve_backward_case(cs, name, inputs, cfg, label):
     import torch
 
@@ -370,9 +422,13 @@ def measure(root):
         coloring_case(cs, name, body_a, body_b, valid, dyn, mc)
     setup_case(cs, name, st, cfg)
     backward_cases(cs, name, st, cfg)
+    narrowphase_backward_case(cs, name, "awake pile", st, cfg, "box_box")
     if not os.path.exists(MIXED_STATE):
         make_mixed_state(cs)
-    one_point_case(cs, name, *torch.load(MIXED_STATE, weights_only=False))
+    mixed = torch.load(MIXED_STATE, weights_only=False)
+    one_point_case(cs, name, *mixed)
+    narrowphase_backward_case(cs, name, "config 3", mixed[0], mixed[1],
+                              "pairs_1pt")
 
 
 def main():

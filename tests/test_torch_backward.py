@@ -18,7 +18,8 @@ import torch
 
 from nudge_tpu_torch import engine, scenes
 from nudge_tpu_torch.mathx import quat_from_axis_angle
-from nudge_tpu_torch.ops import cache, contacts, integrate, narrowphase
+from nudge_tpu_torch.ops import broadphase, cache, contacts, integrate
+from nudge_tpu_torch.ops import narrowphase, narrowphase_1pt, narrowphase_kernel
 from nudge_tpu_torch.ops import segment, setup_kernel, solver, solver_kernel
 from nudge_tpu_torch.ops.broadphase import CandidatePairs
 from nudge_tpu_torch.state import flatten
@@ -33,6 +34,13 @@ def _gradcheck(fn, inputs):
 
 def _q(axis, angle):
     return quat_from_axis_angle(torch.tensor(axis), torch.tensor(angle))
+
+
+def _pairs(a, b, valid):
+    return CandidatePairs(a=torch.tensor(a, dtype=torch.int32),
+                          b=torch.tensor(b, dtype=torch.int32),
+                          valid=torch.tensor(valid, dtype=torch.bool),
+                          count=torch.tensor(len(a)))
 
 
 def test_segment_sum_is_the_plain_sum():
@@ -64,16 +72,9 @@ def test_collider_entries_sum_each_pairs_sides():
     adds into that side's collider (a box by its index, sphere i as nb +
     i), live pairs only."""
     nb = 3
-
-    def pairs(a, b, valid):
-        return CandidatePairs(
-            a=torch.tensor(a, dtype=torch.int32),
-            b=torch.tensor(b, dtype=torch.int32),
-            valid=torch.tensor(valid), count=torch.tensor(len(a)))
-
-    bb = pairs([0, 1, 2], [1, 2, 0], [True, True, False])
-    bs = pairs([2, 0], [1, 0], [True, True])
-    ss = pairs([0], [1], [True])
+    bb = _pairs([0, 1, 2], [1, 2, 0], [True, True, False])
+    bs = _pairs([2, 0], [1, 0], [True, True])
+    ss = _pairs([0], [1], [True])
     keys, perm = contacts.collider_entries(bb, bs, ss, nb)
     n = 6
     rows = torch.zeros((2 * n, 7))
@@ -90,6 +91,122 @@ def test_collider_entries_sum_each_pairs_sides():
             want[ca] += 2 * r
             want[cb] += 2 * r + 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("spheres", [False, True])
+def test_dead_pair_rows_are_never_read(spheres):
+    """The narrowphase backward kernels write no adjoint row of a dead pair
+    slot: collider_entries gives a dead pair's rows INT32_MAX, so the
+    per-collider sums are the same, bit for bit, whatever such a row holds
+    (NaN, huge values, infinities) as with zeros. Without sphere pairs the
+    entries come from the box-box pairs alone, equal to the joined ones."""
+    nb, ns = 4, 2
+    bb = _pairs([0, 1, 2, 3, 0], [1, 2, 3, 0, 2],
+                [True, False, True, False, True])
+    if spheres:
+        bs = _pairs([2, 3], [0, 1], [False, True])
+        ss = _pairs([0], [1], [False])
+    else:
+        bs = ss = _pairs([], [], [])
+    keys, perm = contacts.collider_entries(bb, bs, ss, nb)
+    joined = segment.entries(
+        torch.stack([torch.cat([bb.a, bs.a, nb + ss.a]),
+                     torch.cat([bb.b, nb + bs.b, nb + ss.b])], 1),
+        torch.cat([bb.valid, bs.valid, ss.valid])[:, None].expand(-1, 2))
+    assert torch.equal(keys, joined[0]) and torch.equal(perm, joined[1])
+    live = torch.cat([bb.valid, bs.valid, ss.valid])
+    rows = torch.randn((live.shape[0], 14),
+                       generator=torch.Generator().manual_seed(1))
+    clean = torch.where(live[:, None], rows, 0.0)
+    want = segment.segment_sum(keys, perm, clean.reshape(-1, 7), nb + ns)
+    for garbage in (float("nan"), 1e30, -float("inf")):
+        dirty = torch.where(live[:, None], rows, garbage)
+        got = segment.segment_sum(keys, perm, dirty.reshape(-1, 7), nb + ns)
+        assert torch.equal(got, want), garbage
+
+
+# Box pairs at the edge case's clamp corner, in float64: box A axis-aligned
+# at the origin, B turned by a quaternion of dyadic components (not unit:
+# its matrix has R[2][2] = 0 exactly, so the edge pair (2, 2) has b_dd = 0
+# and s_par = min(max(r12[2], -ha_2), ha_2)), placed so that r12[2] is
+# exactly -ha_2 or +ha_2 (found by a search over B's z; A's z edge then
+# ends at the closest point).
+EDGE_TIES = {
+    "at -ha": ([0.5, 0.5, 0.25, 0.625], [0.3, 1.0, -0.3875]),
+    "at +ha": ([-0.5, 0.5, -0.25, 0.625], [-0.3, 1.0, 0.3875]),
+}
+
+
+@pytest.mark.parametrize("case", list(EDGE_TIES))
+def test_box_box_twin_gradient_at_the_edge_clamp(case):
+    """The corner rule the box-box backward kernel copies: at s_par =
+    ±ha_i exactly, torch.maximum / torch.minimum give the clamped
+    parameter half of its gradient, so the twin's gradient is the mean of
+    the two one-sided gradients (B moved along z by ±1e-7: clamped on one
+    side, free on the other), which differ."""
+    q, p = EDGE_TIES[case]
+    ha = torch.tensor([[0.5, 0.5, 0.5]], dtype=f64)
+    hb = torch.tensor([[0.4, 0.3, 0.5]], dtype=f64)
+    qa = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=f64)
+    pa = torch.zeros((1, 3), dtype=f64)
+    qb = torch.tensor([q], dtype=f64)
+    g = torch.Generator().manual_seed(3)
+    w = [torch.randn(s, generator=g, dtype=f64) for s in ((1, 4, 3), (1, 4),
+                                                          (1, 3))]
+
+    def grad(dz):
+        pb = torch.tensor([p], dtype=f64)
+        pb[0, 2] += dz
+        xs = [x.clone().requires_grad_() for x in (qa, pa, qb, pb)]
+        o = narrowphase.box_box(ha, xs[0], xs[1], hb, xs[2], xs[3])
+        # the edge case, edge pair (2, 2), touching
+        assert (int(o["feat"][0, 0]) - 1024) // 16 == 2 * 3 + 2
+        assert bool(o["valid"][0, 0])
+        loss = sum((x * y).sum() for x, y in
+                   zip((o["pos"], o["depth"], o["normal"]), w))
+        return torch.cat([t.reshape(-1) for t in
+                          torch.autograd.grad(loss, xs)])
+
+    at, up, down = grad(0.0), grad(1e-7), grad(-1e-7)
+    big = float(at.abs().max())
+    assert float((up - down).abs().max()) > 1e-2 * big
+    assert float((at - 0.5 * (up + down)).abs().max()) < 1e-5 * big
+
+
+def test_box_sphere_twin_gradient_at_its_corners():
+    """The corner rules the one-point backward kernel copies, on the twin
+    in float64 with the box axis-aligned at the origin: a sphere centre on
+    the x face plane (ctr_x = h_x) and outside in y takes half of the
+    clamp's gradient in x (minimum's tie) and none in y (clamped); a
+    centre inside with ctr_k = 0 on the least-penetrated face k gets no
+    depth gradient along k (torch.abs's 0 at 0)."""
+    q = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=f64)
+    pa = torch.zeros((1, 3), dtype=f64)
+
+    def jac(h, r, pb):
+        def fn(pb):
+            o = narrowphase.box_sphere(torch.tensor([h], dtype=f64), q, pa,
+                                       torch.tensor([r], dtype=f64), pb)
+            return o["pos"][0], o["depth"], o["normal"][0]
+        return torch.autograd.functional.jacobian(
+            fn, torch.tensor([pb], dtype=f64))
+
+    # on the face plane: cl = (0.5 [tie], 0.5 [clamped], 0.1), dl = (0,
+    # 0.3, 0), dist 0.3, normal (0, 1, 0)
+    d_pos, d_depth, d_normal = jac([0.5, 0.5, 0.5], 0.4, [0.5, 0.8, 0.1])
+    eye = torch.eye(3, dtype=f64)
+    assert torch.allclose(d_pos[:, 0], torch.diag(torch.tensor(
+        [0.5, 0.0, 1.0], dtype=f64)), atol=1e-12)
+    assert torch.allclose(d_depth[0, 0], -eye[1], atol=1e-12)
+    assert torch.allclose(d_normal[:, 0], torch.diag(torch.tensor(
+        [0.5 / 0.3, 0.0, 0.0], dtype=f64)), atol=1e-12)
+    # inside, on the least-penetrated face's centre plane: fp = (0.2, 0.4,
+    # 0.4), k = 0, ctr_0 = 0
+    d_pos, d_depth, d_normal = jac([0.2, 0.5, 0.5], 0.3, [0.0, 0.1, -0.1])
+    assert torch.equal(d_depth[0, 0], torch.zeros(3, dtype=f64))
+    assert torch.allclose(d_pos[:, 0], torch.diag(torch.tensor(
+        [0.0, 1.0, 1.0], dtype=f64)), atol=1e-12)
+    assert torch.equal(d_normal[:, 0], torch.zeros((3, 3), dtype=f64))
 
 
 def _box_pairs():
@@ -247,6 +364,17 @@ def test_solve_twin_backward_matches_central_differences():
 def test_backward_wrappers_refuse_cpu_tensors():
     """A backward wrapper launches its kernel on CUDA tensors or raises: on
     CPU tensors it raises (the plain versions are autograd of the twins)."""
+    b = scenes.scene_pile(6, sphere_frac=0.5, seed=2)
+    bcfg = b.auto_config()
+    st = b.finalize(bcfg, device="cpu")
+    wc = broadphase.world_colliders(st)
+    bb, bs, ss = broadphase.allpairs_broadphase(st, wc, bcfg)
+    with pytest.raises(ValueError):
+        narrowphase_kernel.box_box_adjoint_cuda(st.boxes, wc, bb, None, None,
+                                                None)
+    with pytest.raises(ValueError):
+        narrowphase_1pt.pairs_1pt_adjoint_cuda(st.boxes, st.spheres, wc, bs,
+                                               ss, None, None, None)
     keys = torch.zeros(3, dtype=torch.int32)
     perm = torch.zeros(3, dtype=torch.int64)
     with pytest.raises(ValueError):

@@ -478,20 +478,54 @@ def _randn(shape, dev, seed):
                        .manual_seed(seed), device=dev)
 
 
-@pytest.mark.parametrize("spheres", [False, True])
-def test_narrowphase_backward_matches_twin(dev, spheres):
-    if spheres:
+def _tumbled_pairs(dev, n=400, seed=6):
+    """n pairs of boxes of random sizes and orientations, each pair
+    overlapping at a random offset (many edge-edge contacts), spaced apart
+    on a grid, above a ground box."""
+    g = np.random.default_rng(seed)
+    b = scenes.SceneBuilder()
+    b.add_static_box((40.0, 0.5, 40.0), (0.0, -0.5, 0.0))
+    for i in range(n):
+        centre = np.array([3.0 * (i % 20) - 30.0, 3.0, 3.0 * (i // 20) - 30.0])
+        for side in range(2):
+            ax = g.normal(size=3)
+            ax /= np.linalg.norm(ax)
+            ang = g.uniform(-np.pi, np.pi)
+            quat = np.append(ax * np.sin(ang / 2), np.cos(ang / 2))
+            off = g.normal(size=3) * 0.45 if side else np.zeros(3)
+            b.add_box(g.uniform(0.25, 0.6, 3), centre + off, quat)
+    cfg = b.auto_config(broadphase="grid")
+    return cfg, b.finalize(cfg, device=dev)
+
+
+# the scenes of the narrowphase backward's cases
+NP_BACKWARD_CASES = ("box_pile", "mixed_pile", "edge_contacts",
+                     "garbage_dead_rows")
+
+
+@pytest.mark.parametrize("case", NP_BACKWARD_CASES)
+def test_narrowphase_backward_matches_twin(dev, case):
+    """Both backward kernels and the per-collider sum against autograd of
+    the joined twins, twice bitwise. `edge_contacts`: tumbled box pairs,
+    some of their live pairs in the edge case; `garbage_dead_rows`: the
+    mixed pile's kernels write into rows filled with NaN beforehand, which
+    stay NaN on dead slots, and the sum over them is the call's bit for
+    bit."""
+    if case == "mixed_pile" or case == "garbage_dead_rows":
         cfg, st = _falling_mixed_pile(400, dev, 60)
+    elif case == "edge_contacts":
+        cfg, st = _tumbled_pairs(dev)
     else:
         cfg, st = _pressed_pile(300, dev, broadphase="grid")
     wc = broadphase.world_colliders(st)
     bb, bs, ss = grid.grid_broadphase(st, wc, cfg)
     k = contacts.narrowphase_all(st, wc, bb, bs, ss, cfg)
     p = contacts.narrowphase_joined_plain(st, wc, bb, bs, ss)
-    same = torch.cat([bb.valid, bs.valid, ss.valid])
+    live = torch.cat([bb.valid, bs.valid, ss.valid])
+    same = live.clone()
     for key in ("point_valid", "feat"):
         same &= (k[key] == p[key]).all(1)
-    n = same.shape[0]
+    n, n_bb = same.shape[0], bb.a.shape[0]
     w = same.float()
     grads = {"pos": _randn((n, 4, 3), dev, 1) * w[:, None, None],
              "depth": _randn((n, 4), dev, 2) * w[:, None],
@@ -504,7 +538,30 @@ def test_narrowphase_backward_matches_twin(dev, spheres):
                              tg):
         assert torch.equal(x, y), name
         _grad_close(x, z, name)
-    assert int(bs.valid.sum() + ss.valid.sum()) > 0 or not spheres
+    if case == "edge_contacts":
+        edge = bb.valid & same[:n_bb] & (p["feat"][:n_bb, 0] >= 1024)
+        assert int(edge.sum()) > 20
+    if case in ("mixed_pile", "garbage_dead_rows"):
+        assert int(bs.valid.sum() + ss.valid.sum()) > 0
+    if case == "garbage_dead_rows":
+        assert not bool(live.all())
+        adj = torch.full((n, npk.POSE_INPUTS), float("nan"), device=dev)
+        npk.box_box_adjoint_cuda(st.boxes, wc, bb, grads["pos"][:n_bb],
+                                 grads["depth"][:n_bb],
+                                 grads["normal"][:n_bb], out=adj[:n_bb])
+        p1pt.pairs_1pt_adjoint_cuda(st.boxes, st.spheres, wc, bs, ss,
+                                    grads["pos"][n_bb:], grads["depth"][n_bb:],
+                                    grads["normal"][n_bb:], out=adj[n_bb:])
+        assert bool(adj[~live].isnan().all())
+        assert bool(adj[live].isfinite().all())
+        keys, perm = contacts.collider_entries(bb, bs, ss, st.boxes.half.shape[0])
+        pose = segment.segment_sum(keys, perm, adj.reshape(-1, 7),
+                                   st.boxes.half.shape[0]
+                                   + st.spheres.radius.shape[0])
+        nb = st.boxes.half.shape[0]
+        assert torch.equal(pose[:nb, 0:3], kg[0])
+        assert torch.equal(pose[:nb, 3:7], kg[1])
+        assert torch.equal(pose[nb:, 0:3], kg[2])
 
 
 def test_setup_backward_matches_twin(dev):
