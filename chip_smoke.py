@@ -8,9 +8,11 @@ no result):
   1. device: a CUDA device must be present; prints the card's name and
      power limit as nvidia-smi reports them;
   2. build: compiles the kernels under nudge_tpu_torch/csrc/ with nvcc and
-     prints each kernel's registers, stack frame and spills from ptxas;
-     the box-box kernel and the solve's and setup's backward kernels must
-     have no stack frame and no spill;
+     prints each kernel's registers, stack frame and spills from ptxas
+     (a template instance apart: the backward kernels' shape and mass
+     instances, the 17-column per-body sum); the box-box kernel and every
+     instance of the four backward kernels must have no stack frame and
+     no spill;
   3. kernel vs twin: on the 20,480-box pile after 40 steps, each CUDA kernel
      (box-box narrowphase, setup, solve, coloring rounds) against its plain
      PyTorch twin on the same CUDA tensors, with both times, the kernel's
@@ -122,16 +124,34 @@ no result):
      and peak memory) and one step against the twins (the solve in
      float64); 3 differentiable steps of config 3; the 4-body gradient of
      tests/test_autodiff.py (central differences, gradient descent, the
-     CPU port's gradient); the ported examples diff_throw and policy_grad,
-     each to its JAX original's gain.
+     CPU port's gradient, and the gradient with respect to the inverse
+     masses, the static ground's too, and the boxes' frictions against
+     the CPU port's); the ported examples diff_throw and policy_grad, each
+     to its JAX original's gain. Each backward kernel's shape or mass
+     instance too, on the same inputs: the narrowphases' half extents',
+     radii's and frictions' adjoints, setup's inverse masses', inertias'
+     and friction's, the solve's im rows and a static side's j rows
+     (against the float64 twin), within the same tolerances, twice
+     bitwise, the columns the instance without also gives bitwise its
+     (the solve's: within the tolerance), with their device times;
+ 19. the mesh: config 5's 16 x 256 layout for 30 steps through
+     megabatch_simulate(mesh=) on a one-rank NCCL mesh (parallel.mesh
+     .scene_mesh) from phase 16's start, stack and metrics placed Shard(0)
+     on the "scenes" mesh and bitwise phase 16's unsharded end state and
+     last metrics; then two gloo ranks on the one
+     card (NCCL refuses two ranks on one device), 4 chunks of 32 scenes
+     for 10 steps, each rank's chunks Shard(0) and bitwise the same chunks
+     stepped alone in its own process;
+ 20. the demo (nudge_tpu_torch.examples.demo --no-render, its first 300
+     steps): its steps/s beside the card.
 
-Phases 5-7, 9-13, 15, 16, 17 and 18 each zero the kernels' launch counts
+Phases 5-7, 9-13, 15-20 each zero the kernels' launch counts
 before they run and read them after, and run with the plain twins (in 18
 also the backward kernels' plain versions) replaced by functions that
 raise: the main paths go through the kernels only. The record line gives
 each kernel's launches on the earlier slices' paths (`launches`; the
 backward kernels': phase 18's pile, and config 3 for the one-point one),
-on each path of phases 16-18 (`launches_by_path`) and its comparison with
+on each path of phases 16-20 (`launches_by_path`) and its comparison with
 its twin on each of those paths (`compare_by_path`; its `max_abs_err` is
 the largest of every comparison). Nothing is cut: every phase runs at the
 size its docstring gives.
@@ -355,6 +375,10 @@ def ptxas_report(build_log):
         m = re.search(r"Used (\d+) registers", ln)
         if m and name:
             short = next((k for k in DEVICE_KERNELS if k in name), name)
+            # a template instance: the backward kernels' shape and mass
+            # instances (bool true), the 17-column per-body sum
+            short += ("<shape/mass>" if "ILb1E" in name else
+                      "<17>" if "ILi17E" in name else "")
             out[short] = (int(m.group(1)), *frame)
             name, frame = None, (0, 0, 0)
     return out
@@ -374,13 +398,17 @@ def phase_build(card):
         "stack frame, spill stores, spill loads in bytes): " + "; ".join(
             f"{k} {r} regs, {fr} B frame, {ss}/{sl} B spill"
             for k, (r, fr, ss, sl) in sorted(report.items())))
-    for k in NO_SPILL_KERNELS:
-        if k not in report:
-            raise AssertionError(f"the build log holds no ptxas report for {k}")
-        _, frame, st, ld = report[k]
-        if frame or st or ld:
-            raise AssertionError(f"{k}: {frame} B stack frame, {st} B spill "
-                                 f"stores, {ld} B spill loads, not 0")
+    for base in NO_SPILL_KERNELS:
+        names = [k for k in report if k.split("<")[0] == base]
+        if base not in report:
+            raise AssertionError(f"the build log holds no ptxas report for "
+                                 f"{base}")
+        for k in names:
+            _, frame, st, ld = report[k]
+            if frame or st or ld:
+                raise AssertionError(f"{k}: {frame} B stack frame, {st} B "
+                                     f"spill stores, {ld} B spill loads, "
+                                     "not 0")
     return dt
 
 
@@ -1697,7 +1725,7 @@ def cached_coloring(st, cfg, inputs):
     return ms, ran
 
 
-def config5_layout(card, dev, spc, steps):
+def config5_layout(card, dev, spc, steps, keep=None):
     """4,096 scenes as chunks of `spc` scenes, `steps` steps through
     parallel.mesh.megabatch_simulate in windows of C5_WINDOW, each window
     held to no overflow, a finite state, max depth < 0.5, no cross-scene
@@ -1706,8 +1734,10 @@ def config5_layout(card, dev, spc, steps):
     chunks bitwise equal to the same chunks stepped alone, chunks 0 and 1
     apart. Then at chunk 0 of the last step: box-box, setup and the solve
     against their twins (compare_step), the cached coloring's time and
-    joins, and one chunk-step under the profiler. Returns (launches, kernel
-    records)."""
+    joins, and one chunk-step under the profiler. With `keep` (a dict),
+    the stack before its first step and after its last go there with the
+    config (phase 19 steps the same stack over a mesh). Returns (launches,
+    kernel records)."""
     import torch
 
     from nudge_tpu_torch import engine, scenes
@@ -1726,6 +1756,8 @@ def config5_layout(card, dev, spc, steps):
                                             seed=C5_SEED, device=dev)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    if keep is not None:
+        keep.update(start=clone_state(batch), cfg=cfg)
     stack_gb = sum(x.numel() * x.element_size() for x in leaves(batch)) / 1e9
     log(card, f"{label}: built in {build_s:.2f} s (two numpy scene "
         f"loops, one template upload, the stack on the card): "
@@ -1784,6 +1816,8 @@ def config5_layout(card, dev, spc, steps):
     log(card, f"{label}: {steps} steps in {t_all:.2f} s: {rate:.4f} steps/s, "
         f"{rate * C5_SCENES * C5_BODIES:.1f} body-steps/s; peak memory "
         f"{peak_gb:.3f} GB; launches {launches}")
+    if keep is not None:
+        keep.update(end=batch, end_metrics=m)
     st0 = mesh.take(batch, 0)
     where = f"{label} chunk 0, step {steps}"
     records, inputs = compare_step(card, where, st0, cfg)
@@ -1795,14 +1829,16 @@ def config5_layout(card, dev, spc, steps):
     return launches, records
 
 
-def phase_config5(card, dev):
+def phase_config5(card, dev, keep=None):
     """Config 5 at full width in both layouts (config5_layout), the
-    kernels against their twins at each layout's chunk 0. Returns
-    (launches by layout, kernel records by layout)."""
+    kernels against their twins at each layout's chunk 0; the MESH_SPC
+    layout's stack before and after into `keep`. Returns (launches by
+    layout, kernel records by layout)."""
     launches, records = {}, {}
     for spc, steps in C5_LAYOUTS:
         path = f"config 5 ({C5_SCENES // spc} x {spc} x {C5_BODIES})"
-        launches[path], records[path] = config5_layout(card, dev, spc, steps)
+        launches[path], records[path] = config5_layout(
+            card, dev, spc, steps, keep if spc == MESH_SPC else None)
     return launches, records
 
 
@@ -2184,6 +2220,9 @@ def compare_np_backward(card, label, st, cfg, kernel):
     call_ms = timing.device_ms(
         lambda: contacts.narrowphase_backward_cuda(*args), BACKWARD_REPS)
     rec = backward_record(ms, plain_ms, dev_ms, diff, n_bytes, n_ops)
+    rec.update(compare_np_shapes(card, label, args, gen, w, kg, kernel,
+                                 call_ms, dev_ms))
+    rec["max_abs_err"] = max(rec["max_abs_err"], rec["shape_max_abs_err"])
     log(card, f"{kernel}_bwd ({label}): {n_item}, {int(same.sum())} of "
         f"{int(live.sum())} live rows with the twin's integers; {fmt_diff(diff)}; "
         f"two runs bitwise; one kernel a call; device: the call {call_ms:.4f} "
@@ -2193,6 +2232,66 @@ def compare_np_backward(card, label, st, cfg, kernel):
         f"{plain_ms:.3f} ms; bound {rec['bound_ms']:.5f} ms "
         f"({rec['bound_by']})")
     return rec
+
+
+def compare_np_shapes(card, label, args, gen, w, kg, kernel, call_ms,
+                      kernel_ms):
+    """The narrowphase backward kernels' shape instances: the colliders'
+    half extents', radii's and frictions' adjoints (`shapes=True`, with a
+    seeded adjoint of the slots' friction too) against autograd of the
+    joined twins, twice bitwise, the pose columns bitwise those of the
+    pose-only call `kg`; the shape instance's call and kernel times beside
+    the pose-only ones. Returns the record's extra keys."""
+    import torch
+
+    from nudge_tpu_torch.ops import contacts
+    from nudge_tpu_torch.ops import narrowphase_1pt as p1pt
+    from nudge_tpu_torch.ops import narrowphase_kernel as npk
+    from nudge_tpu_torch.utils import timing
+
+    st, wc, bb, bs, ss, grads = args
+    n, n_bb = w.shape[0], bb.a.shape[0]
+    dev = w.device
+    sgrads = dict(grads, friction=torch.randn(n, generator=gen, device=dev)
+                  * w)
+    sargs = (st, wc, bb, bs, ss, sgrads)
+    ks = contacts.narrowphase_backward_cuda(*sargs, shapes=True)
+    bitwise_again(f"{label} shape backward", ks,
+                  contacts.narrowphase_backward_cuda(*sargs, shapes=True))
+    for name, x, y in zip(("box_pos", "box_quat", "sph_pos"), ks, kg):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{label}: the shape instance's d{name} is "
+                                 "not the pose-only call's, bit for bit")
+    ts = contacts.narrowphase_backward_plain(*sargs, shapes=True)
+    torch.cuda.synchronize()
+    diff = {"err": 0.0, "share": 0.0}
+    for name, x, y in zip(contacts.SHAPE_LEAVES, ks[3:], ts[3:]):
+        grad_check(f"{label} d{name}", x, y, diff)
+    shp = torch.empty((n, npk.SHAPE_INPUTS), device=dev)
+    if kernel == "box_box":
+        def call():
+            return npk.box_box_adjoint_cuda(
+                st.boxes, wc, bb, grads["pos"][:n_bb], grads["depth"][:n_bb],
+                grads["normal"][:n_bb], g_friction=sgrads["friction"][:n_bb],
+                out_shape=shp[:n_bb])
+    else:
+        def call():
+            return p1pt.pairs_1pt_adjoint_cuda(
+                st.boxes, st.spheres, wc, bs, ss, grads["pos"][n_bb:],
+                grads["depth"][n_bb:], grads["normal"][n_bb:],
+                g_friction=sgrads["friction"][n_bb:], out_shape=shp[n_bb:])
+    one_kernel(f"{kernel}_bwd (shape)", timing.device_ops(call))
+    shape_kernel_ms = timing.device_ms(call, BACKWARD_REPS)
+    shape_call_ms = timing.device_ms(
+        lambda: contacts.narrowphase_backward_cuda(*sargs, shapes=True),
+        BACKWARD_REPS)
+    log(card, f"{kernel}_bwd ({label}) shape instance: half extents, radii "
+        f"and frictions {fmt_diff(diff)}; two runs bitwise; pose columns "
+        f"bitwise the pose-only call's; device: the kernel {shape_kernel_ms:.4f} ms "
+        f"(pose-only {kernel_ms:.4f}), the call {shape_call_ms:.4f} ms "
+        f"(pose-only {call_ms:.4f})")
+    return dict(shape_max_abs_err=diff["err"],
+                shape_device_ms=shape_kernel_ms, shape_call_ms=shape_call_ms)
 
 
 def compare_setup_backward(card, label, inputs, cfg):
@@ -2259,6 +2358,41 @@ def compare_setup_backward(card, label, inputs, cfg):
                           n_live * (156 + 630 + 61 * 4) + n * (48 + 52),
                           n_live * BWD_OPS_FACTOR * SETUP_OPS_PER_MANIFOLD)
     rec["kernel_device_ms"] = kernel_ms
+    # the mass instance: inv_mass', inv_inertia's and friction's adjoints
+    # too, the others bitwise the instance without
+    km = setup_kernel.setup_backward_cuda(*args, mass=True)
+    bitwise_again("setup_bwd mass", km,
+                  setup_kernel.setup_backward_cuda(*args, mass=True))
+    for name, x, y in zip(setup_kernel.GRAD_INPUTS, km, kg):
+        if not torch.equal(x, y):
+            raise AssertionError(f"setup_bwd: the mass instance's d{name} is "
+                                 "not the instance without's, bit for bit")
+    mdiff = {"err": 0.0, "share": 0.0}
+    for name, x, y in zip(setup_kernel.MASS_INPUTS, km[len(kg):],
+                          tg[len(kg):]):
+        grad_check(f"setup_bwd d{name}", x, y, mdiff)
+    static = bodies.inv_mass == 0.0
+    if not float(km[-3][static].abs().max()) > 0.0:
+        raise AssertionError("setup_bwd: no static body's inverse mass "
+                             "takes a gradient")
+
+    def mass_kernel():
+        return setup_kernel._setup_bwd_launch(ins, consts, cfg, use, d_rows,
+                                              d_work, d_frame, d_velw, True)
+
+    one_kernel("setup_bwd (mass)", timing.device_ops(mass_kernel))
+    rec["mass_device_ms"] = timing.device_ms(mass_kernel, BACKWARD_REPS)
+    rec["mass_call_ms"] = timing.device_ms(
+        lambda: setup_kernel.setup_backward_cuda(*args, mass=True),
+        BACKWARD_REPS)
+    rec["mass_max_abs_err"] = mdiff["err"]
+    rec["max_abs_err"] = max(rec["max_abs_err"], mdiff["err"])
+    log(card, f"setup_bwd ({label}) mass instance: inv_mass, inv_inertia "
+        f"and friction {fmt_diff(mdiff)}; the other adjoints bitwise the "
+        f"instance without's; a static body's inverse mass takes one; the "
+        f"kernel alone {rec['mass_device_ms']:.4f} ms (without "
+        f"{kernel_ms:.4f}), the call {rec['mass_call_ms']:.4f} ms (without "
+        f"{dev_ms:.4f})")
     log(card, f"setup_bwd ({label}): {n_live} live manifolds; "
         f"{fmt_diff(diff)}; two runs bitwise; a call enqueues "
         f"{fmt_ops(ops)}; wrapper {ms:.4f} ms (device {dev_ms:.4f} ms; the "
@@ -2287,7 +2421,8 @@ class Deterministic:
         return False
 
 
-def compare_solve_backward(card, label, inputs, cfg, spill=False):
+def compare_solve_backward(card, label, inputs, cfg, spill=False,
+                           mass=False, ref=None):
     """The solve's backward (`solve_backward_cuda`: the reverse-sweep
     kernel, then the static bodies' segment sum) against autograd of
     `solve_plain` in float64, from the twin's setup: the kernel side
@@ -2299,8 +2434,14 @@ def compare_solve_backward(card, label, inputs, cfg, spill=False):
     (no gradient), and the kernel gives them none. Each field within
     SOLVE64_RTOL of its largest element; with `spill` (few colors: the
     spill color's Jacobi adjoint) within SPILL64_RTOL, and autograd of the
-    float32 twin also runs, to tell the corners (grad_check64). Twice
-    bitwise. Returns the record, its error against the float64 twin."""
+    float32 twin also runs, to tell the corners (grad_check64). With
+    `mass` the kernel's mass instance, every row's adjoint held to the
+    float64 twin, the inverse masses' and a static side's j rows too.
+    `ref`, a dict: the float64 twin's adjoints are kept there, or taken
+    from there when a call on the same inputs kept them. Twice bitwise.
+    Returns the record, its error against the float64 twin."""
+    import dataclasses
+
     import torch
 
     from nudge_tpu_torch.ops import setup_kernel, solver_kernel
@@ -2319,15 +2460,21 @@ def compare_solve_backward(card, label, inputs, cfg, spill=False):
     fields = [f for f, _ in solver_kernel.ROW_FIELDS
               if f not in ("body_a", "body_b", "point_valid")]
     with Deterministic():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        # the float64 twin from the same (float32) inputs: the reference
-        qv, qf, qa = solver_kernel.solve_backward_plain(
-            tvelw.double(), tcon.replace(**{f: getattr(tcon, f).double()
-                                            for f in fields}),
-            tuple(x.double() for x in tacc), cfg, g_v.double(), g_o.double())
-        torch.cuda.synchronize()
-        plain_ms = 1e3 * (time.perf_counter() - t0)  # one call: seconds
+        if ref:
+            qv, qf, qa, plain_ms = ref["q"]
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            # the float64 twin from the same (float32) inputs: the reference
+            qv, qf, qa = solver_kernel.solve_backward_plain(
+                tvelw.double(), tcon.replace(**{f: getattr(tcon, f).double()
+                                                for f in fields}),
+                tuple(x.double() for x in tacc), cfg, g_v.double(),
+                g_o.double())
+            torch.cuda.synchronize()
+            plain_ms = 1e3 * (time.perf_counter() - t0)  # one call: seconds
+            if ref is not None:
+                ref["q"] = (qv, qf, qa, plain_ms)
         tv, tf, ta = None, {f: None for f in fields}, (None,) * 3
         if spill:
             tv, tf, ta = solver_kernel.solve_backward_plain(
@@ -2340,6 +2487,7 @@ def compare_solve_backward(card, label, inputs, cfg, spill=False):
         a = [x.detach().requires_grad_() for x in tacc]
         packed, work = setup_kernel.pack_constraints(
             tcon.replace(**leaves), tuple(a), order)
+        packed = dataclasses.replace(packed, mass_grad=mass)
         vo, ao, po = solver_kernel.solve_cuda(v, packed, work, cfg)
         got = torch.autograd.grad([vo, *ao, po], [v, *leaves.values(), *a],
                                   [g_v, *g_o], allow_unused=True)
@@ -2354,10 +2502,10 @@ def compare_solve_backward(card, label, inputs, cfg, spill=False):
     grad_check64("solve_bwd dvelw", kg[0], qv, rtol, diff, tv)
     dyn = {"a": tcon.im_a > 0.0, "b": tcon.im_b > 0.0}
     for i, f in enumerate(fields):
-        if f in ("im_a", "im_b", "relax"):
+        if f == "relax" or (f in ("im_a", "im_b") and not mass):
             continue
         x, y, z = kg[1 + i], tf[f], qf[f]
-        if f.startswith("j"):
+        if f.startswith("j") and not mass:
             keep = dyn[f[-1]]
             x, z = x[keep], z[keep]
             y = None if y is None else y[keep]
@@ -2374,7 +2522,7 @@ def compare_solve_backward(card, label, inputs, cfg, spill=False):
 
     def call():
         return solver_kernel.solve_backward_cuda(packed.rows, tape, packed,
-                                                 cfg, g_v, g_o)
+                                                 cfg, g_v, g_o, mass)
 
     ms = timed(call)
     ops = timing.device_ops(call)
@@ -2388,10 +2536,12 @@ def compare_solve_backward(card, label, inputs, cfg, spill=False):
             torch.zeros((2 * solver_kernel.VEL_ROW, m), dtype=f32, device=dev),
             torch.empty((4 * solver_kernel.VEL_ROW, m), dtype=f32, device=dev))
     optrs = solver_kernel._order_args("solve_bwd", packed, cfg)
+    statics = (solver_kernel.static_entries(packed.rows, order.offsets, n,
+                                            cfg) if mass else None)
 
     def kernel():
         return solver_kernel._solve_bwd_launch(packed.rows, tape, optrs, cfg,
-                                               *bufs)
+                                               *bufs, statics)
 
     one_kernel("solve_bwd", timing.device_ops(kernel))
     kernel_ms = timing.device_ms(kernel, BACKWARD_REPS)
@@ -2692,6 +2842,46 @@ def phase_grad_small(card, dev):
     if not err <= CPU_GRAD_RTOL * big:
         raise AssertionError(f"4-body gradient: card against the CPU port "
                              f"{err:.3g} of {big:.3g}")
+    # the bodies' inverse masses (the static ground's too) and the boxes'
+    # frictions, through the mass and shape instances
+    def param_grads(st0, cfg=cfg):
+        im = st0.bodies.inv_mass.detach().clone().requires_grad_()
+        fr = st0.boxes.friction.detach().clone().requires_grad_()
+        st = st0.replace(bodies=st0.bodies.replace(inv_mass=im),
+                         boxes=st0.boxes.replace(friction=fr))
+        for _ in range(AUTODIFF_STEPS):
+            st, _ = engine.step(st, cfg)
+        target = torch.tensor(AUTODIFF_TARGET, device=im.device)
+        loss = torch.sum((st.bodies.pos[1] - target) ** 2)
+        return torch.autograd.grad(loss, [im, fr])
+
+    with KernelsOnly(backward=True) as prun:
+        pk = param_grads(st0)
+    need_launches("4-body mass gradient", prun.launches,
+                  ("box_box", "setup", "solve", "box_box_bwd", "setup_bwd",
+                   "solve_bwd"))
+    pc = param_grads(cpu0, cfg.replace(differentiable=False))
+    # the same gate on the same loss: CPU_GRAD_RTOL of the rollout's
+    # largest gradient element (d/dv's). Of the inverse masses' own largest
+    # element (0.07) it would be below their float32 rounding: the CPU port
+    # and jax.grad part by 1.5e-8 there too
+    perrs = []
+    for name, x, y in zip(("inv_mass", "friction"), pk, pc):
+        e = float((x.cpu() - y).abs().max())
+        b_ = float(y.abs().max())
+        perrs.append(f"d/d{name} within {e:.3g} of the CPU port's (max |g| "
+                     f"{b_:.4g})")
+        if not (bool(torch.isfinite(x).all()) and e <= CPU_GRAD_RTOL * big):
+            raise AssertionError(f"4-body gradient d/d{name}: card against "
+                                 f"the CPU port {e:.3g}, gate "
+                                 f"{CPU_GRAD_RTOL:g} x {big:.3g}")
+    if not abs(float(pk[0][0])) > 0.0:
+        raise AssertionError("4-body gradient: the static ground's inverse "
+                             "mass takes none")
+    log(card, "4-body gradient with respect to the inverse masses and the "
+        "boxes' frictions: " + "; ".join(perrs) + f" (gate {CPU_GRAD_RTOL:g} "
+        f"x the largest d/dv, {big:.4g}); the ground's "
+        f"d/dinv_mass {float(pk[0][0]):.6g}; launches {prun.launches}")
     log(card, f"4-body gradient (tests/test_autodiff.py): loss {l0:.7g} "
         f"(CPU port {lc:.7g}), |g[1]| {float(torch.linalg.norm(g[1])):.4g}; "
         f"central differences " + ", ".join(
@@ -2701,7 +2891,8 @@ def phase_grad_small(card, dev):
         f"(max |g| {big:.4g}); {t_card:.1f} s on the card "
         f"({2 + 4 + GD_ITERS + 1} gradients), {t_cpu:.1f} s for one on the "
         f"CPU; launches {run.launches}")
-    return {"4-body gradient (test_autodiff)": run.launches}
+    return {"4-body gradient (test_autodiff)": run.launches,
+            "4-body gradient, inverse masses and frictions": prun.launches}
 
 
 def phase_grad_examples(card):
@@ -2760,7 +2951,9 @@ def phase_grad(card, dev, pile_state, mixed_state):
     inputs = step_inputs(pile_state, cfg)
     label = f"awake pile, step {COMPARE_AFTER}"
     records["setup_bwd"] = compare_setup_backward(card, label, inputs, cfg)
-    records["solve_bwd"] = compare_solve_backward(card, label, inputs, cfg)
+    ref = {}
+    records["solve_bwd"] = compare_solve_backward(card, label, inputs, cfg,
+                                                  ref=ref)
     # the spill color's adjoint at full size
     from nudge_tpu_torch.ops import solver, solver_kernel
 
@@ -2773,6 +2966,15 @@ def phase_grad(card, dev, pile_state, mixed_state):
         (bodies, man, warm, pwarm, scol, sorder), scfg, spill=True)
     records["solve_bwd"]["max_abs_err"] = max(
         records["solve_bwd"]["max_abs_err"], spill["max_abs_err"])
+    # the mass instance: the im rows' and a static side's j rows' adjoints
+    mass = compare_solve_backward(card, f"{label}, mass instance", inputs,
+                                  cfg, mass=True, ref=ref)
+    records["solve_bwd"].update(
+        mass_max_abs_err=mass["max_abs_err"], mass_ms=mass["ms"],
+        mass_device_ms=mass["device_ms"],
+        mass_kernel_device_ms=mass["kernel_device_ms"])
+    records["solve_bwd"]["max_abs_err"] = max(
+        records["solve_bwd"]["max_abs_err"], mass["max_abs_err"])
     launches = phase_grad_pile(card, pile_state)
     launches.update(phase_grad_mixed(card, mixed_state))
     launches.update(phase_grad_small(card, dev))
@@ -2782,6 +2984,171 @@ def phase_grad(card, dev, pile_state, mixed_state):
     log(card, f"phase 18: {t2 - t0:.1f} s, of which the two examples at "
         f"their originals' iteration counts {t2 - t1:.1f} s")
     return records, launches
+
+
+# phase 19: the mesh. One rank (NCCL) at config 5's 16 x 256 layout, and
+# two ranks (gloo: NCCL refuses two ranks on one card) on the one card at
+# the 128 x 32 layout's chunk size over MESH2_CHUNKS chunks.
+MESH_SPC, MESH_STEPS = 256, 30
+MESH2_SPC, MESH2_CHUNKS, MESH2_STEPS = 32, 4, 10
+MESH_TIMEOUT_S = 300
+DEMO_STEPS = 300   # the demo's first 300 of its 600 steps: the drop
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mesh_stack(spc, n_chunks, dev):
+    """Config 5's megachunk stack at `spc` scenes a chunk (phase 16's
+    capacities and seed), `n_chunks` chunks."""
+    from nudge_tpu_torch import scenes
+
+    proto = scenes.scene_pile_batch(spc, C5_BODIES, seed=C5_SEED)
+    cfg = scenes.cover_footprint(proto, pile_config(proto, proto.num_bodies))
+    batch, _ = scenes.scene_pile_megachunks(n_chunks, spc, C5_BODIES, cfg=cfg,
+                                            seed=C5_SEED, device=dev)
+    return batch, cfg
+
+
+def sharded_on(tree, mesh):
+    """Whether every leaf is a DTensor placed Shard(0) on `mesh`."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    return all(isinstance(x, DTensor) and x.device_mesh == mesh
+               and tuple(x.placements) == (Shard(0),) for x in leaves(tree))
+
+
+def mesh_rank(rank, port, out_path):
+    """One rank of the two-rank gloo group on the one card: its two chunks
+    of the stack through megabatch_simulate(mesh=), the kernels only,
+    against the same chunks stepped unsharded in this process, bitwise.
+    Writes what it found to out_path.format(rank)."""
+    sys.path.insert(0, REPO)
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from nudge_tpu_torch.parallel import mesh
+    from nudge_tpu_torch.state import tree_map
+
+    m = mesh.scene_mesh("cuda", backend="gloo",
+                        init_method=f"tcp://localhost:{port}", world_size=2,
+                        rank=rank,
+                        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    dev = torch.device("cuda", torch.cuda.current_device())
+    batch, cfg = mesh_stack(MESH2_SPC, MESH2_CHUNKS, dev)
+    k = MESH2_CHUNKS // 2
+    with KernelsOnly() as run:
+        out, mt = mesh.megabatch_simulate(cfg, MESH2_STEPS, mesh=m)(batch)
+    alone, ma = mesh.megabatch_simulate(cfg, MESH2_STEPS)(
+        tree_map(lambda x: x[rank * k:(rank + 1) * k], batch))
+    res = dict(rank=rank, launches=run.launches,
+               sharded=sharded_on(out, m) and sharded_on(mt, m),
+               equal=same_state(mesh.local_batch(out), alone)
+               and same_state(mesh.local_batch(mt), ma),
+               contacts=int(mesh.local_batch(mt).contact_count.sum()))
+    with open(out_path.format(rank), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_mesh(card, dev, kept):
+    """Phase 19: megabatch_simulate(mesh=) on a one-rank NCCL mesh at
+    config 5's 16 x 256 layout from phase 16's stack (`kept`: its start,
+    end and config), MESH_STEPS steps, the kernels only, the stack placed
+    Shard(0) and bitwise phase 16's unsharded end state; then two gloo
+    ranks on the one card (MESH2_CHUNKS chunks of MESH2_SPC scenes, each
+    rank its two chunks against the same chunks stepped alone in its own
+    process). Returns the launches by path."""
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from nudge_tpu_torch.parallel import mesh
+
+    n_chunks = C5_SCENES // MESH_SPC
+    label = f"mesh, 1 rank (NCCL), {n_chunks} x {MESH_SPC} x {C5_BODIES}"
+    batch, cfg, ref = kept["start"], kept["cfg"], kept["end"]
+    m1 = mesh.scene_mesh("cuda", init_method=f"tcp://localhost:{free_port()}",
+                         world_size=1, rank=0)
+    try:
+        with KernelsOnly() as run:
+            t0 = time.perf_counter()
+            out, mt = mesh.megabatch_simulate(cfg, MESH_STEPS, mesh=m1)(batch)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        if not (sharded_on(out, m1) and sharded_on(mt, m1)):
+            raise AssertionError(f"{label}: a leaf not placed Shard(0) on "
+                                 "the mesh")
+        if not (same_state(mesh.local_batch(out), ref)
+                and same_state(mesh.local_batch(mt), kept["end_metrics"])):
+            raise AssertionError(f"{label}: differs from phase 16's "
+                                 "unsharded run")
+        want = n_chunks * MESH_STEPS
+        if any(run.launches[k] != want for k in ("box_box", "setup", "solve")):
+            raise AssertionError(f"{label}: launches {run.launches}")
+    finally:
+        dist.destroy_process_group()
+    log(card, f"{label}: {MESH_STEPS} steps in {dt:.2f} s "
+        f"({MESH_STEPS / dt:.4f} steps/s, "
+        f"{MESH_STEPS * C5_SCENES * C5_BODIES / dt:.1f} body-steps/s, one "
+        f"call); stack and metrics Shard(0) on the 'scenes' mesh and bitwise "
+        f"phase 16's unsharded end state and last metrics; launches "
+        f"{run.launches}")
+    by_path = {label: run.launches}
+    kept.clear()
+    del batch, out, ref
+    torch.cuda.empty_cache()
+
+    out_path = os.path.join(OUT_DIR, "chip_smoke_mesh_rank{}.json")
+    label2 = (f"mesh, 2 ranks (gloo) on one card, {MESH2_CHUNKS} x "
+              f"{MESH2_SPC} x {C5_BODIES}")
+    t0 = time.perf_counter()
+    mp.start_processes(mesh_rank, args=(free_port(), out_path), nprocs=2,
+                       start_method="spawn")
+    dt = time.perf_counter() - t0
+    ranks = []
+    for r in range(2):
+        with open(out_path.format(r)) as f:
+            ranks.append(json.load(f))
+    for res in ranks:
+        if not (res["sharded"] and res["equal"]):
+            raise AssertionError(f"{label2}: rank {res['rank']}: sharded "
+                                 f"{res['sharded']}, equal to its chunks "
+                                 f"alone {res['equal']}")
+    launches = {k: sum(res["launches"][k] for res in ranks)
+                for k in ranks[0]["launches"]}
+    log(card, f"{label2}: {MESH2_STEPS} steps; each rank's chunks Shard(0) "
+        f"and bitwise equal to the same chunks stepped alone in its "
+        f"process; contacts by rank {[res['contacts'] for res in ranks]}; "
+        f"{dt:.1f} s with the two processes' start; launches {launches}")
+    by_path[label2] = launches
+    return by_path
+
+
+def phase_demo(card):
+    """Phase 20: the ported demo (nudge_tpu_torch.examples.demo) without
+    rendering, the kernels only: its steps/s beside the card. Returns the
+    launches by path."""
+    from nudge_tpu_torch.examples import demo
+
+    with KernelsOnly() as run:
+        out = demo.main(["--device", "cuda", "--no-render", "--steps",
+                         str(DEMO_STEPS)])
+    f = out["final"]
+    if f["overflow"] or not f["contacts"] > 0:
+        raise AssertionError(f"demo: final metrics {f}")
+    log(card, f"demo (256-box pile, {out['steps']} steps in windows of 10, "
+        f"the frames read back): {out['steps_per_s']:.1f} steps/s on "
+        f"{card}; final {f}; launches {run.launches}")
+    return {"demo (256 boxes)": run.launches}
 
 
 def main():
@@ -2814,7 +3181,8 @@ def main():
     phase_config2(card, dev)
     # this slice's paths: config 5, then the stacked batch, the API and the
     # environments
-    by_path, compared = phase_config5(card, dev)
+    kept = {}
+    by_path, compared = phase_config5(card, dev, kept)
     got, more = phase_batch_api_envs(card, dev)
     by_path.update(got)
     compared.update(more)
@@ -2826,6 +3194,9 @@ def main():
                      for k in grads})
     launches["pairs_1pt_bwd"] = got["config 3 gradient (3 steps)"][
         "pairs_1pt_bwd"]
+    # this slice's paths: the mesh, then the demo
+    by_path.update(phase_mesh(card, dev, kept))
+    by_path.update(phase_demo(card))
     kernels = []
     for k in TPU_KERNEL_OF:
         rec = dict(name=k, route="cuda", source=SOURCE_OF[k],

@@ -40,17 +40,17 @@ _SIGNATURES = {
     "nudge_setup": [_P] * 23 + [_I] * 3 + [_F] * 9 + [_I] * 3 + [_P] * 4
                    + [_P],
     "nudge_solve": [_P] * 12 + [_I] * 5 + [_P] + [_P],
-    "nudge_solve_bwd": [_P] * 15 + [_I] * 4 + [_P],
+    "nudge_solve_bwd": [_P] * 18 + [_I] * 4 + [_P],
     "nudge_solve_bwd_cluster": [],
     "nudge_solve_cluster": [],
     "nudge_pairs_1pt": [_P] * 15 + [_I] * 3 + [_P] * 10 + [_P],
     "nudge_color_rounds": [_P] * 5 + [_I] * 3 + [_P] * 2 + [_P],
-    "nudge_box_box_bwd": [_P] * 6 + [_I] + [_P] * 4 + [_P],
-    "nudge_pairs_1pt_bwd": [_P] * 11 + [_I] * 2 + [_P] * 4 + [_P],
+    "nudge_box_box_bwd": [_P] * 7 + [_I] + [_P] * 6 + [_P],
+    "nudge_pairs_1pt_bwd": [_P] * 13 + [_I] * 2 + [_P] * 6 + [_P],
     "nudge_segment_sum": [_P] * 3 + [_I] * 4 + [_P] + [_P],
-    "nudge_setup_bwd": [_P] * 17 + [_I] * 2 + [_F] * 9 + [_I] * 3 + [_P] * 11
+    "nudge_setup_bwd": [_P] * 17 + [_I] * 2 + [_F] * 9 + [_I] * 3 + [_P] * 12
                        + [_P],
-    "nudge_setup_body_sum": [_P] * 9 + [_I] * 2 + [_P] * 4 + [_P],
+    "nudge_setup_body_sum": [_P] * 9 + [_I] * 2 + [_P] * 6 + [_P],
 }
 
 

@@ -115,6 +115,10 @@ __device__ __forceinline__ void addm(float (&M)[3][3], int r, int c, float x) {
 // rows: box a's world position (0-2) and quaternion (3-6), then box b's
 // (7-13).
 constexpr int kPoseInputs = 14;
+// The shape inputs of a pair, in the order of the shape adjoint rows: side
+// a's half extents (0-2), friction (3) and radius (4, always 0 for a box),
+// then side b's (5-9); ops/narrowphase_kernel.py SHAPE_INPUTS.
+constexpr int kShapeInputs = 10;
 
 // One pair's outputs.
 struct PairOut {
@@ -630,16 +634,20 @@ __device__ __forceinline__ void collide_pair(int ia, int ib, const float* __rest
 struct PairAdj {
   M3 Ra, Rb;
   float pa[3], pb[3], R[3][3], t[3];
+  float ha[3], hb[3];  // of the half extents: the shape instance only
 };
 
 // The reverse of candidate k (face_frame's F, the forward's c): the
 // adjoints (g_u, g_v, g_w) of its coordinates into those of the quad's
-// corners (g_qu, g_qv, g_qw), the plane's normal g_n and offset *g_dpl.
+// corners (g_qu, g_qv, g_qw), the plane's normal g_n and offset *g_dpl;
+// with kShape also into those of the rectangle's half extents h_u, h_v
+// (g_huv), which type B's corners and type C's border lines are.
+template <bool kShape>
 __device__ __forceinline__ void candidate_adjoint(const FaceFrame& F, int k, const Cand& c,
                                                   float g_u, float g_v, float g_w,
                                                   float (&g_qu)[4], float (&g_qv)[4],
                                                   float (&g_qw)[4], float (&g_n)[3],
-                                                  float* g_dpl) {
+                                                  float* g_dpl, float (&g_huv)[2]) {
   if (k < 4) {
     // type A: the corner itself
     add4(g_qu, k, g_u);
@@ -655,6 +663,11 @@ __device__ __forceinline__ void candidate_adjoint(const FaceFrame& F, int k, con
     add3(g_n, F.u, -(g_num * ru));
     add3(g_n, F.v, -(g_num * rv));
     if (fabsf(sel3(F.n_inc, F.w)) > 1e-3f) add3(g_n, F.w, -(g_w * (c.w / F.n_w_safe)));
+    if constexpr (kShape) {
+      // ru = ±h_u and rv = ±h_v are the candidate's u, v and enter its w
+      g_huv[0] = g_huv[0] + (g_u - g_num * sel3(F.n_inc, F.u)) * (q < 2 ? 1.0f : -1.0f);
+      g_huv[1] = g_huv[1] + (g_v - g_num * sel3(F.n_inc, F.v)) * (q == 0 || q == 3 ? 1.0f : -1.0f);
+    }
   } else {
     // type C: q_e + tt (q_f - q_e), tt = (line - src) / den
     const int q = k - 8, e = q >> 2, l = q & 3, en = (e + 1) & 3;
@@ -677,11 +690,22 @@ __device__ __forceinline__ void candidate_adjoint(const FaceFrame& F, int k, con
       add4(g_qv, e, g_src);
       add4(g_qv, en, g_den);
     }
+    if constexpr (kShape) {
+      // the border line: ±h_u (l = 0, 1) or ±h_v (l = 2, 3)
+      const float g_line = g_tt / c.den;
+      if (is_u)
+        g_huv[0] = g_huv[0] + (l == 0 ? g_line : -g_line);
+      else
+        g_huv[1] = g_huv[1] + (l == 2 ? g_line : -g_line);
+    }
   }
 }
 
 // The face case's reverse: from the adjoints of the four points' pos (gp)
-// and depth (gd) and of the normal (gn) into A.
+// and depth (gd) and of the normal (gn) into A; with kShape also into the
+// half extents: the reference box's through the depth (h_w) and the
+// candidates (h_u, h_v), the incident box's through the quad's corners.
+template <bool kShape>
 __device__ __forceinline__ void face_adjoint(const PairFrame& f, const PairChoice& ch,
                                              const float (&gp)[4][3], const float (&gd)[4],
                                              const float (&gn)[3], PairAdj& A) {
@@ -689,6 +713,7 @@ __device__ __forceinline__ void face_adjoint(const PairFrame& f, const PairChoic
   const bool rb = F.ref_is_b;
   float g_Rref[3][3] = {}, g_pref[3] = {};
   float g_qu[4] = {}, g_qv[4] = {}, g_qw[4] = {}, g_n[3] = {}, g_dpl = 0.0f;
+  float g_huv[2] = {}, g_hw = 0.0f;  // of h_u, h_v, h_w (kShape)
   // every point, valid or not: pos[k] = Rref c + pref, depth[k] = h_w -
   // nsign c_w, c the chosen candidate in the reference box's x, y, z (a
   // candidate chosen twice takes both adjoints)
@@ -712,8 +737,10 @@ __device__ __forceinline__ void face_adjoint(const PairFrame& f, const PairChoic
 #pragma unroll
       for (int cc = 0; cc < 3; ++cc) g_Rref[r][cc] = g_Rref[r][cc] + gp[k][r] * cx[cc];
     }
-    candidate_adjoint(F, ci, c, sel3(g_c, F.u), sel3(g_c, F.v),
-                      sel3(g_c, F.w) - F.nsign * gd[k], g_qu, g_qv, g_qw, g_n, &g_dpl);
+    candidate_adjoint<kShape>(F, ci, c, sel3(g_c, F.u), sel3(g_c, F.v),
+                              sel3(g_c, F.w) - F.nsign * gd[k], g_qu, g_qv, g_qw, g_n, &g_dpl,
+                              g_huv);
+    if constexpr (kShape) g_hw = g_hw + gd[k];
   }
   // normal = ±Rref[:, axis] nsign
 #pragma unroll
@@ -722,6 +749,8 @@ __device__ __forceinline__ void face_adjoint(const PairFrame& f, const PairChoic
   // the quad: corner k = R_ri cmp_k + t_ri, (qu, qv, qw) its (u, v, w);
   // d_pl = n_inc · corner 0, n_inc = R_ri[:, b_axis] s_inc
   float g_Rri[3][3] = {}, g_tri[3] = {};
+  float g_hi[3] = {};  // of hi_b, hi_1, hi_2 (kShape)
+  const int b2 = (F.b_axis + 2) % 3;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const float cb = F.s_inc * F.hi_b, c1 = corner_su(k) * F.hi_1, c2 = corner_sv(k) * F.hi_2;
@@ -735,6 +764,34 @@ __device__ __forceinline__ void face_adjoint(const PairFrame& f, const PairChoic
       g_tri[r] = g_tri[r] + g_pt[r];
 #pragma unroll
       for (int c = 0; c < 3; ++c) g_Rri[r][c] = g_Rri[r][c] + g_pt[r] * cmp[c];
+    }
+    if constexpr (kShape) {
+      // corner k = R_ri cmp + t_ri: cmp's adjoint R_riᵀ g_pt, into the
+      // incident half extents it scales
+      float g_cmp[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        g_cmp[c] = ((rb ? f.R[c][0] : f.R[0][c]) * g_pt[0] +
+                    (rb ? f.R[c][1] : f.R[1][c]) * g_pt[1]) +
+                   (rb ? f.R[c][2] : f.R[2][c]) * g_pt[2];
+      g_hi[0] = g_hi[0] + sel3(g_cmp, F.b_axis) * F.s_inc;
+      g_hi[1] = g_hi[1] + sel3(g_cmp, F.b1) * corner_su(k);
+      g_hi[2] = g_hi[2] + sel3(g_cmp, b2) * corner_sv(k);
+    }
+  }
+  if constexpr (kShape) {
+    // h_ref = rb ? hb : ha, h_inc the other box's
+    float g_href[3] = {}, g_hinc[3] = {};
+    add3(g_href, F.u, g_huv[0]);
+    add3(g_href, F.v, g_huv[1]);
+    add3(g_href, F.w, g_hw);
+    add3(g_hinc, F.b_axis, g_hi[0]);
+    add3(g_hinc, F.b1, g_hi[1]);
+    add3(g_hinc, b2, g_hi[2]);
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      A.ha[r] = A.ha[r] + (rb ? g_hinc[r] : g_href[r]);
+      A.hb[r] = A.hb[r] + (rb ? g_href[r] : g_hinc[r]);
     }
   }
 #pragma unroll
@@ -771,7 +828,10 @@ __device__ __forceinline__ void face_adjoint(const PairFrame& f, const PairChoic
 }
 
 // The edge case's reverse: from the adjoints of point 0's pos (gp0) and
-// depth (gd0) and of the normal (gn) into A (points 1-3 are constants).
+// depth (gd0) and of the normal (gn) into A (points 1-3 are constants);
+// with kShape also into the half extents, which place the two edges (c1,
+// c2), bound their parameters and enter the edge axis's separation.
+template <bool kShape>
 __device__ __forceinline__ void edge_adjoint(const PairFrame& f, int best_edge,
                                              const float (&gp0)[3], float gd0,
                                              const float (&gn)[3], PairAdj& A) {
@@ -790,19 +850,22 @@ __device__ __forceinline__ void edge_adjoint(const PairFrame& f, int best_edge,
     for (int c = 0; c < 3; ++c)
       A.Ra.m[r][c] = A.Ra.m[r][c] + (gp0[r] * E.mid[c] + gn[r] * E.axf[c]);
   }
-  // mid = 0.5 ((c1 + s_par e_i) + (c2 + u_par Rj)), c1 a constant
-  float g_c2[3], g_Rj[3], g_s = 0.0f, g_u = 0.0f;
+  // mid = 0.5 ((c1 + s_par e_i) + (c2 + u_par Rj)); c1 = sa ha (1 - e_i)
+  // depends on ha only
+  float g_c2[3], g_c1[3], g_Rj[3], g_s = 0.0f, g_u = 0.0f;
 #pragma unroll
   for (int r = 0; r < 3; ++r) {
     const float h = 0.5f * g_mid[r];
     g_c2[r] = h;
+    g_c1[r] = h;
     g_s = g_s + h * E.e_i[r];
     g_u = g_u + h * E.Rj[r];
     g_Rj[r] = h * E.u_par;
   }
-  // s_par, u_par: xs, xu clamped to the constants ±ha_i, ±hb_j
-  const float g_xs = clamp2_adjoint(g_s, E.xs, E.ha_i);
-  const float g_xu = clamp2_adjoint(g_u, E.xu, E.hb_j);
+  // s_par, u_par: xs, xu clamped to ±ha_i, ±hb_j
+  float g_hai = 0.0f, g_hbj = 0.0f;
+  const float g_xs = clamp2_adjoint(g_s, E.xs, E.ha_i, &g_hai);
+  const float g_xu = clamp2_adjoint(g_u, E.xu, E.hb_j, &g_hbj);
   // xs = (d1r - b_dd d2r) / denom, xu = (b_dd d1r - d2r) / denom
   const float g_ns = g_xs / E.denom, g_nu = g_xu / E.denom;
   const float g_denom = -(g_xs * (E.xs / E.denom)) - g_xu * (E.xu / E.denom);
@@ -816,6 +879,7 @@ __device__ __forceinline__ void edge_adjoint(const PairFrame& f, int best_edge,
 #pragma unroll
   for (int r = 0; r < 3; ++r) {
     g_c2[r] = g_c2[r] + (g_d1r * E.e_i[r] + g_d2r * E.Rj[r]);
+    g_c1[r] = g_c1[r] - (g_d1r * E.e_i[r] + g_d2r * E.Rj[r]);
     g_Rj[r] = g_Rj[r] + (g_d2r * E.r12[r] + g_bdd * E.e_i[r]);
   }
   // c2 = R c2l + t
@@ -824,6 +888,17 @@ __device__ __forceinline__ void edge_adjoint(const PairFrame& f, int best_edge,
     A.t[r] = A.t[r] + g_c2[r];
 #pragma unroll
     for (int j = 0; j < 3; ++j) A.R[r][j] = A.R[r][j] + g_c2[r] * E.c2l[j];
+  }
+  if constexpr (kShape) {
+    // c1 = sa ha (1 - e_i), c2l = sb hb (1 - e_j), and the clamps' bounds
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      const float g_c2l = (f.R[0][r] * g_c2[0] + f.R[1][r] * g_c2[1]) + f.R[2][r] * g_c2[2];
+      A.ha[r] = A.ha[r] + g_c1[r] * E.sa[r] * (1.0f - E.e_i[r]);
+      A.hb[r] = A.hb[r] + g_c2l * E.sb[r] * (r == E.ej ? 0.0f : 1.0f);
+    }
+    add3(A.ha, E.ei, g_hai);
+    add3(A.hb, E.ej, g_hbj);
   }
   // axf = ax flip, ax = axr / nn, nn = sqrt(clamp_min(|axr|², 1e-24))
   float g_axr[3], g_nn = 0.0f;
@@ -872,23 +947,37 @@ __device__ __forceinline__ void edge_adjoint(const PairFrame& f, int best_edge,
   addm(A.R, a2, j, (-(g_X * t1) + 2.0f * r2 * g_L2) + abs_adjoint(-(ha1 * g_num), r2));
   addm(A.R, i, j2, abs_adjoint(-(hb1 * g_num), rj2));
   addm(A.R, i, j1, abs_adjoint(-(hb2 * g_num), rj1));
+  if constexpr (kShape) {
+    add3(A.ha, a1, -(g_num * (absv(r2) + kAbsEps)));
+    add3(A.ha, a2, -(g_num * (absv(r1) + kAbsEps)));
+    add3(A.hb, j1, -(g_num * (absv(rj2) + kAbsEps)));
+    add3(A.hb, j2, -(g_num * (absv(rj1) + kAbsEps)));
+  }
 }
 
 // The reverse of collide_pair for pair (ia, ib), replaying its forward's
 // choices ch: the adjoints of the pose inputs (kPoseInputs order) from
-// those of the outputs pos (gp), depth (gd) and normal (gn).
+// those of the outputs pos (gp), depth (gd) and normal (gn); with kShape
+// also those of both boxes' half extents (g_ha, g_hb).
+template <bool kShape>
 __device__ __forceinline__ void pair_adjoint(int ia, int ib, const float* __restrict__ half,
                                              const float* __restrict__ quat,
                                              const float* __restrict__ wpos,
                                              const PairChoice& ch, const float (&gp)[4][3],
                                              const float (&gd)[4], const float (&gn)[3],
-                                             float (&adj)[kPoseInputs]) {
+                                             float (&adj)[kPoseInputs], float (&g_ha)[3],
+                                             float (&g_hb)[3]) {
   const PairFrame f = pair_frame(ia, ib, half, quat, wpos);
   PairAdj A = {};
   if (!ch.edge_case)
-    face_adjoint(f, ch, gp, gd, gn, A);
+    face_adjoint<kShape>(f, ch, gp, gd, gn, A);
   else
-    edge_adjoint(f, ch.best_edge, gp[0], gd[0], gn, A);
+    edge_adjoint<kShape>(f, ch.best_edge, gp[0], gd[0], gn, A);
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    g_ha[r] = A.ha[r];
+    g_hb[r] = A.hb[r];
+  }
   // R = Raᵀ Rb, t = Raᵀ d, d = pb - pa
   const float d[3] = {f.pb[0] - f.pa[0], f.pb[1] - f.pa[1], f.pb[2] - f.pa[2]};
 #pragma unroll
@@ -969,26 +1058,40 @@ __global__ void __launch_bounds__(kThreads)
 // The backward: one thread a pair slot. A live pair runs collide_pair once
 // (the forward's bits and choices) and its reverse, pair_adjoint, and
 // writes adj[p][0..13] = d loss / d (pos a, quat a, pos b, quat b) through
-// pos, depth and normal (the outputs with a gradient; feature ids,
-// validity, friction and ids have none) as seven 8-byte words (row p starts
-// at byte 56 p). A dead slot writes nothing: contacts.collider_entries
-// gives its rows the key that the segment sum (csrc/segment.cu, the
-// per-box sums in a fixed order) skips. A null output adjoint is zero.
+// pos, depth and normal (feature ids, validity and ids have no gradient)
+// as seven 8-byte words (row p starts at byte 56 p). A dead slot writes
+// nothing: contacts.collider_entries gives its rows the key that the
+// segment sum (csrc/segment.cu, the per-box sums in a fixed order) skips.
+// A null output adjoint is zero.
+//
+// The shape instance (kShape, launched only when the caller passes
+// adj_shape: a collider's half extents or friction carry a gradient) also
+// writes adj_shape[p][0..9] = d loss / d (half a, friction a, radius a,
+// half b, friction b, radius b) as five 8-byte words (radius: 0 for a
+// box), through pos, depth and normal and through the pair's friction
+// sqrt(max(fa fb, 0)), whose adjoint g_fric may be null (zero). Its
+// reverse is autograd's for the twin's sqrt(clamp_min(fa * fb, 0)):
+// sqrt's g / (2 r), passed where fa fb >= 0, then times fb and fa. At fa
+// fb == 0, r is 0, so it gives ±inf (g != 0) or NaN (g == 0), and the
+// product with a zero factor NaN, as autograd does. The pose-only
+// instance does none of this work: its code is the pose reverse alone.
 //
 // What bounds it on an H100: the chain of one live pair, the forward's
 // (~1,770 float operations in the face case) and then its reverse, which
 // walks back only through what reaches pos, depth and normal: the four
 // chosen candidates (of the 24), the quad, the frames and the quaternions;
 // most of the clip is selection and carries no gradient. Reads: the
-// forward's inputs and 76 B of output adjoint a live pair; writes 56 B a
-// live pair.
+// forward's inputs and 76 B of output adjoint a live pair (80 B and the
+// frictions with kShape); writes 56 B a live pair (96 B with kShape).
+template <bool kShape>
 __global__ void __launch_bounds__(kThreads)
     box_box_bwd_kernel(const float* __restrict__ half, const float* __restrict__ quat,
-                       const float* __restrict__ wpos, const int* __restrict__ pa_idx,
-                       const int* __restrict__ pb_idx, const bool* __restrict__ pair_valid,
-                       int n_pairs, const float* __restrict__ g_pos,
-                       const float* __restrict__ g_depth, const float* __restrict__ g_normal,
-                       float* __restrict__ adj) {
+                       const float* __restrict__ wpos, const float* __restrict__ fric,
+                       const int* __restrict__ pa_idx, const int* __restrict__ pb_idx,
+                       const bool* __restrict__ pair_valid, int n_pairs,
+                       const float* __restrict__ g_pos, const float* __restrict__ g_depth,
+                       const float* __restrict__ g_normal, const float* __restrict__ g_fric,
+                       float* __restrict__ adj, float* __restrict__ adj_shape) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n_pairs || !pair_valid[p]) return;
   const int ia = pa_idx[p], ib = pb_idx[p];
@@ -1004,11 +1107,27 @@ __global__ void __launch_bounds__(kThreads)
   }
 #pragma unroll
   for (int r = 0; r < 3; ++r) gn[r] = g_normal ? g_normal[3LL * p + r] : 0.0f;
-  float a[kPoseInputs];
-  pair_adjoint(ia, ib, half, quat, wpos, ch, gp, gd, gn, a);
+  float a[kPoseInputs], g_ha[3], g_hb[3];
+  pair_adjoint<kShape>(ia, ib, half, quat, wpos, ch, gp, gd, gn, a, g_ha, g_hb);
   float2* row = reinterpret_cast<float2*>(adj + (long long)kPoseInputs * p);
 #pragma unroll
   for (int w = 0; w < kPoseInputs / 2; ++w) row[w] = make_float2(a[2 * w], a[2 * w + 1]);
+  if constexpr (kShape) {
+    float g_fa = 0.0f, g_fb = 0.0f;
+    if (g_fric) {
+      const float fa = fric[ia], fb = fric[ib];
+      const float x = fa * fb;
+      const float gx = x >= 0.0f ? g_fric[p] / (2.0f * sqrtf(fmaxf(x, 0.0f))) : 0.0f;
+      g_fa = gx * fb;
+      g_fb = gx * fa;
+    }
+    float2* srow = reinterpret_cast<float2*>(adj_shape + (long long)kShapeInputs * p);
+    srow[0] = make_float2(g_ha[0], g_ha[1]);
+    srow[1] = make_float2(g_ha[2], g_fa);
+    srow[2] = make_float2(0.0f, g_hb[0]);
+    srow[3] = make_float2(g_hb[1], g_hb[2]);
+    srow[4] = make_float2(g_fb, 0.0f);
+  }
 }
 
 }  // namespace
@@ -1031,15 +1150,26 @@ extern "C" int nudge_box_box(const float* half, const float* quat, const float* 
 // The adjoint rows of the box poses, one per live pair slot: adj[p][0..13]
 // = d loss / d (pos a, quat a, pos b, quat b) through pair p's pos, depth
 // and normal, given their adjoints g_pos[P,4,3], g_depth[P,4],
-// g_normal[P,3] (each may be null: zero). A dead slot's row is not
-// written. adj must be 8-byte aligned.
+// g_normal[P,3] (each may be null: zero). With adj_shape (else null) also
+// adj_shape[p][0..9] = d loss / d (half a, friction a, 0, half b, friction
+// b, 0), the frictions through the pair friction's adjoint g_fric[P] (may
+// be null: zero) and fric[nb]. A dead slot's rows are not written. adj and
+// adj_shape must be 8-byte aligned.
 extern "C" int nudge_box_box_bwd(const float* half, const float* quat, const float* wpos,
-                                 const int* pa, const int* pb, const bool* pair_valid,
-                                 int n_pairs, const float* g_pos, const float* g_depth,
-                                 const float* g_normal, float* adj, void* stream) {
+                                 const float* fric, const int* pa, const int* pb,
+                                 const bool* pair_valid, int n_pairs, const float* g_pos,
+                                 const float* g_depth, const float* g_normal,
+                                 const float* g_fric, float* adj, float* adj_shape,
+                                 void* stream) {
   if (n_pairs > 0) {
-    box_box_bwd_kernel<<<blocks_for(n_pairs), kThreads, 0, (cudaStream_t)stream>>>(
-        half, quat, wpos, pa, pb, pair_valid, n_pairs, g_pos, g_depth, g_normal, adj);
+    if (adj_shape)
+      box_box_bwd_kernel<true><<<blocks_for(n_pairs), kThreads, 0, (cudaStream_t)stream>>>(
+          half, quat, wpos, fric, pa, pb, pair_valid, n_pairs, g_pos, g_depth, g_normal, g_fric,
+          adj, adj_shape);
+    else
+      box_box_bwd_kernel<false><<<blocks_for(n_pairs), kThreads, 0, (cudaStream_t)stream>>>(
+          half, quat, wpos, fric, pa, pb, pair_valid, n_pairs, g_pos, g_depth, g_normal, g_fric,
+          adj, adj_shape);
   }
   return (int)cudaGetLastError();
 }

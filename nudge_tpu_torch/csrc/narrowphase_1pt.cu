@@ -84,6 +84,10 @@ struct Slots {
 // box, quaternion (3-6); side b's (a sphere) position (7-9); 10-13 are
 // always zero.
 constexpr int kPoseInputs = 14;
+// The shape inputs of a pair, in the order of the shape adjoint rows (the
+// box-box kernel's): side a's half extents (0-2, a box's), friction (3)
+// and radius (4, a sphere's), then side b's (5-9).
+constexpr int kShapeInputs = 10;
 
 // A pair's contact (pos, nrm, depth) and the values its reverse reads:
 // both centres, side a's rotation (a box), and the intermediates of the
@@ -166,14 +170,23 @@ __device__ __forceinline__ OnePoint one_point(const Colliders& c, bool sphere_a,
   return o;
 }
 
+// The adjoints of a pair's shapes: box a's half extents, both radii (named
+// scalars: an array here took a stack frame).
+struct ShapeAdj {
+  float h0, h1, h2, ra, rb;
+};
+
 // The reverse of one_point (its forward values o): the adjoints of the
 // pose inputs (kPoseInputs order) from those of point 0's pos (gp) and
 // depth (gd) and of the normal (gn); box a's quaternion is read again.
+// With kShape also those of the shapes into S.
+template <bool kShape>
 __device__ __forceinline__ void one_point_adjoint(const Colliders& c, const OnePoint& o,
                                                   bool sphere_a, int a, V3 gp, float gd, V3 gn,
-                                                  float (&adj)[kPoseInputs]) {
+                                                  float (&adj)[kPoseInputs], ShapeAdj& S) {
 #pragma unroll
   for (int i = 0; i < kPoseInputs; ++i) adj[i] = 0.0f;
+  S = ShapeAdj{0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   float g_d[3];
   if (sphere_a) {
     // pos = pa + nrm s, s = ra - 0.5 depth, depth = (ra + rb) - dist,
@@ -182,6 +195,11 @@ __device__ __forceinline__ void one_point_adjoint(const Colliders& c, const OneP
     const float nrm[3] = {o.nrm.x, o.nrm.y, o.nrm.z};
     const float g_s = (gp.x * o.nrm.x + gp.y * o.nrm.y) + gp.z * o.nrm.z;
     float g_dist = -(gd - 0.5f * g_s);
+    if constexpr (kShape) {
+      // s = ra - 0.5 depth, depth = (ra + rb) - dist
+      S.ra = g_s + (gd - 0.5f * g_s);
+      S.rb = gd - 0.5f * g_s;
+    }
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
       g_d[i] = o.apart ? gn3[i] / o.dist : 0.0f;
@@ -218,12 +236,28 @@ __device__ __forceinline__ void one_point_adjoint(const Colliders& c, const OneP
         g_dl[i] = g_dl[i] + 2.0f * o.dl[i] * g_d2;
         const float w = clamp2_adjoint(1.0f, o.d[i], o.h[i]);
         g_ctr[i] = g_dl[i] * (1.0f - w) + g_pl[i] * w;
+        // the clamp's bound h: cl's adjoint is g_pl - g_dl
+        if constexpr (kShape) {
+          float gh = 0.0f;
+          clamp2_adjoint(g_pl[i] - g_dl[i], o.d[i], o.h[i], &gh);
+          if (i == 0) S.h0 = gh;
+          if (i == 1) S.h1 = gh;
+          if (i == 2) S.h2 = gh;
+        }
       }
     } else {
       // inside: depth = rb + (h - |ctr|)[k]; pl = ctr off face k; nl a constant
 #pragma unroll
       for (int i = 0; i < 3; ++i) g_ctr[i] = i == o.k ? -abs_adjoint(gd, o.d[i]) : g_pl[i];
+      if constexpr (kShape) {
+        // and pl[k] = sgn h[k]
+        const float sgn = (o.k == 0 ? o.d[0] : (o.k == 1 ? o.d[1] : o.d[2])) >= 0.0f ? 1.0f : -1.0f;
+        if (o.k == 0) S.h0 = gd + sgn * g_pl[0];
+        if (o.k == 1) S.h1 = gd + sgn * g_pl[1];
+        if (o.k == 2) S.h2 = gd + sgn * g_pl[2];
+      }
     }
+    if constexpr (kShape) S.rb = gd;  // depth = rb - dist or rb + fk
     // ctr = Raᵀ (pb - pa)
     const V3 gc = v3(g_ctr[0], g_ctr[1], g_ctr[2]);
     mtv_adjoint_m(&g_Ra, gc, sub(o.pb, o.pa));
@@ -287,12 +321,23 @@ __global__ void __launch_bounds__(kThreads)
 // live row's. A dead pair slot writes nothing (contacts.collider_entries
 // gives its rows the key the sum skips). A null output adjoint is zero.
 //
+// The shape instance (kShape, launched only when the caller passes
+// adj_shape) also writes adj_shape[r][0..9], the adjoints of side a's
+// half extents (a box's), friction and radius (a sphere's), then side b's
+// (always a sphere), as five 8-byte words: through the contact, and
+// through the pair's friction sqrt(max(fa fb, 0)) from its adjoint g_fric
+// (may be null: zero), whose reverse and its value at fa fb == 0 are the
+// box-box kernel's (csrc/narrowphase.cu: autograd's for the twin).
+//
 // What bounds it on an H100: latency, as the forward: ~200 operations a
-// live pair forward and about as many back, 36 B read and 56 B written.
+// live pair forward and about as many back, 36 B read and 56 B written
+// (with kShape 12 B more read and 40 B more written).
+template <bool kShape>
 __global__ void __launch_bounds__(kThreads)
     pairs_1pt_bwd_kernel(Colliders c, Pairs in, int n_bs, int n_ss,
                          const float* __restrict__ g_pos, const float* __restrict__ g_depth,
-                         const float* __restrict__ g_normal, float* __restrict__ adj) {
+                         const float* __restrict__ g_normal, const float* __restrict__ g_fric,
+                         float* __restrict__ adj, float* __restrict__ adj_shape) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_bs + n_ss) return;
   const bool sphere_a = r >= n_bs;
@@ -305,10 +350,29 @@ __global__ void __launch_bounds__(kThreads)
   const float gd = g_depth ? g_depth[4LL * r] : 0.0f;
   const V3 gn = g_normal ? load3(g_normal + 3LL * r) : v3(0.0f, 0.0f, 0.0f);
   float g[kPoseInputs];
-  one_point_adjoint(c, o, sphere_a, a, gp, gd, gn, g);
+  ShapeAdj S;
+  one_point_adjoint<kShape>(c, o, sphere_a, a, gp, gd, gn, g, S);
   float2* row = reinterpret_cast<float2*>(adj + (long long)kPoseInputs * r);
 #pragma unroll
   for (int w = 0; w < kPoseInputs / 2; ++w) row[w] = make_float2(g[2 * w], g[2 * w + 1]);
+  if constexpr (kShape) {
+    float g_fa = 0.0f, g_fb = 0.0f;
+    if (g_fric) {
+      const float fa = sphere_a ? c.sph_fric[a] : c.box_fric[a], fb = c.sph_fric[b];
+      const float x = fa * fb;
+      const float gx = x >= 0.0f ? g_fric[r] / (2.0f * sqrtf(fmaxf(x, 0.0f))) : 0.0f;
+      g_fa = gx * fb;
+      g_fb = gx * fa;
+    }
+    // side a: half (a box's), friction, radius (a sphere's); side b: a
+    // sphere's friction and radius
+    float2* srow = reinterpret_cast<float2*>(adj_shape + (long long)kShapeInputs * r);
+    srow[0] = make_float2(S.h0, S.h1);
+    srow[1] = make_float2(S.h2, g_fa);
+    srow[2] = make_float2(S.ra, 0.0f);
+    srow[3] = make_float2(0.0f, 0.0f);
+    srow[4] = make_float2(g_fb, S.rb);
+  }
 }
 
 }  // namespace
@@ -338,22 +402,30 @@ extern "C" int nudge_pairs_1pt(const float* half, const float* box_quat, const f
 // The adjoint rows of the colliders' poses, one per live pair row of this
 // launch (the box-sphere rows, then the sphere-sphere rows): adj[r][0..13],
 // from the rows' adjoints g_pos[P,4,3], g_depth[P,4], g_normal[P,3] (each
-// may be null: zero). A dead row is not written. adj must be 8-byte
-// aligned.
+// may be null: zero). With adj_shape (else null) also adj_shape[r][0..9]
+// (the shapes' and frictions' adjoints; the frictions through g_fric[P],
+// may be null: zero). A dead row is not written. adj and adj_shape must be
+// 8-byte aligned.
 extern "C" int nudge_pairs_1pt_bwd(const float* half, const float* box_quat,
-                                   const float* box_pos, const float* radius,
-                                   const float* sph_pos, const int* bs_a, const int* bs_b,
+                                   const float* box_pos, const float* box_fric,
+                                   const float* radius, const float* sph_pos,
+                                   const float* sph_fric, const int* bs_a, const int* bs_b,
                                    const bool* bs_valid, const int* ss_a, const int* ss_b,
                                    const bool* ss_valid, int n_bs, int n_ss, const float* g_pos,
-                                   const float* g_depth, const float* g_normal, float* adj,
+                                   const float* g_depth, const float* g_normal,
+                                   const float* g_fric, float* adj, float* adj_shape,
                                    void* stream) {
   const int rows = n_bs + n_ss;
   if (rows > 0) {
-    const Colliders c{half, box_quat, box_pos, nullptr, nullptr,
-                      radius, sph_pos, nullptr, nullptr};
+    const Colliders c{half, box_quat, box_pos, box_fric, nullptr,
+                      radius, sph_pos, sph_fric, nullptr};
     const Pairs in{bs_a, bs_b, bs_valid, ss_a, ss_b, ss_valid};
-    pairs_1pt_bwd_kernel<<<blocks_for(rows), kThreads, 0, (cudaStream_t)stream>>>(
-        c, in, n_bs, n_ss, g_pos, g_depth, g_normal, adj);
+    if (adj_shape)
+      pairs_1pt_bwd_kernel<true><<<blocks_for(rows), kThreads, 0, (cudaStream_t)stream>>>(
+          c, in, n_bs, n_ss, g_pos, g_depth, g_normal, g_fric, adj, adj_shape);
+    else
+      pairs_1pt_bwd_kernel<false><<<blocks_for(rows), kThreads, 0, (cudaStream_t)stream>>>(
+          c, in, n_bs, n_ss, g_pos, g_depth, g_normal, g_fric, adj, adj_shape);
   }
   return (int)cudaGetLastError();
 }

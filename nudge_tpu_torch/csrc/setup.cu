@@ -55,8 +55,10 @@ struct SetupParams {
 
 constexpr int kSetupBlocks = 264;  // 2 per SM; a grid-stride loop covers the rest
 // the per-body adjoint rows of the backward: pos (0-2), quat (3-6), vel
-// (7-9), angvel (10-12)
+// (7-9), angvel (10-12); the mass instance adds inv_mass (13) and
+// inv_inertia (14-16)
 constexpr int kBodyInputs = 13;
+constexpr int kBodyInputsMass = 17;
 constexpr int kNoBody = 0x7fffffff;
 
 struct SetupIn {
@@ -388,8 +390,10 @@ __device__ __forceinline__ Q4 quat_rotate_adjoint(Q4 q, V3 v, V3 g, V3* gv) {
 }
 
 // The adjoints of inv_inertia_apply(q, ii, v) = R (ii ⊙ Rᵀ v), from the
-// output's adjoint g: of q (returned) and of v (added into *gv).
-__device__ __forceinline__ Q4 inv_inertia_adjoint(Q4 q, V3 ii, V3 v, V3 g, V3* gv) {
+// output's adjoint g: of q (returned) and of v (added into *gv); with
+// kMass also of ii (added into *gii).
+template <bool kMass>
+__device__ __forceinline__ Q4 inv_inertia_adjoint(Q4 q, V3 ii, V3 v, V3 g, V3* gv, V3* gii) {
   Q4 c;  // the conjugate: quat_rotate_inv(q, v) = quat_rotate(c, v)
   c.x = -q.x;
   c.y = -q.y;
@@ -398,6 +402,7 @@ __device__ __forceinline__ Q4 inv_inertia_adjoint(Q4 q, V3 ii, V3 v, V3 g, V3* g
   const V3 l = quat_rotate(c, v);
   V3 gs = v3(0.0f, 0.0f, 0.0f);
   Q4 gq = quat_rotate_adjoint(q, v3(ii.x * l.x, ii.y * l.y, ii.z * l.z), g, &gs);
+  if constexpr (kMass) *gii = add(*gii, v3(gs.x * l.x, gs.y * l.y, gs.z * l.z));
   const Q4 gc = quat_rotate_adjoint(c, v, v3(ii.x * gs.x, ii.y * gs.y, ii.z * gs.z), gv);
   gq.x = gq.x - gc.x;
   gq.y = gq.y - gc.y;
@@ -408,18 +413,22 @@ __device__ __forceinline__ Q4 inv_inertia_adjoint(Q4 q, V3 ii, V3 v, V3 g, V3* g
 
 // The adjoints flowing back from eff(d): of ra, rb, d (added into *g_ra,
 // *g_rb, *g_d) and of both quaternions (into *g_qa, *g_qb), from those of
-// ja, jb and m, at the forward's values e.
+// ja, jb and m, at the forward's values e; with kMass also of the inverse
+// masses (k's, added into *g_k) and inertias (into *g_iia, *g_iib).
+template <bool kMass>
 __device__ __forceinline__ void eff_adjoint(const ManifoldIn& M, const Eff& e, V3 ra, V3 rb,
                                             V3 d, V3 g_ja, V3 g_jb, float g_m, V3* g_ra,
-                                            V3* g_rb, V3* g_d, Q4* g_qa, Q4* g_qb) {
+                                            V3* g_rb, V3* g_d, Q4* g_qa, Q4* g_qb, float* g_km,
+                                            V3* g_iia, V3* g_iib) {
   // m = where(k > 0, 1 / clamp_min(k, 1e-12), 0)
   const float g_k = (e.k > 0.0f && e.k >= 1e-12f) ? -(g_m * e.m) * e.m : 0.0f;
   // k = ima + imb + rna · ja + rnb · jb
+  if constexpr (kMass) *g_km = *g_km + g_k;
   V3 g_rna = scale(e.ja, g_k), g_rnb = scale(e.jb, g_k);
   g_ja = add(g_ja, scale(e.rna, g_k));
   g_jb = add(g_jb, scale(e.rnb, g_k));
-  *g_qa = qadd(*g_qa, inv_inertia_adjoint(M.qa, M.iia, e.rna, g_ja, &g_rna));
-  *g_qb = qadd(*g_qb, inv_inertia_adjoint(M.qb, M.iib, e.rnb, g_jb, &g_rnb));
+  *g_qa = qadd(*g_qa, inv_inertia_adjoint<kMass>(M.qa, M.iia, e.rna, g_ja, &g_rna, g_iia));
+  *g_qb = qadd(*g_qb, inv_inertia_adjoint<kMass>(M.qb, M.iib, e.rnb, g_jb, &g_rnb, g_iib));
   // rna = ra × d, rnb = rb × d
   *g_ra = add(*g_ra, cross(d, g_rna));
   *g_rb = add(*g_rb, cross(d, g_rnb));
@@ -465,6 +474,19 @@ __device__ __forceinline__ float bias_adjoint(const Bias& B, float depth, float 
   return g_depth;
 }
 
+// The mass instance (kMass, launched when inv_mass, inv_inertia or the
+// manifolds' friction carry a gradient) adds the adjoints of both bodies'
+// inverse mass and inverse inertia (adj_body columns 13-16) and of the
+// manifold's friction (adj_fric[i], lane 3): the inverse masses through
+// the im rows, the effective masses' k and the warm-start velocity
+// changes; the inertias through the angular responses' I⁻¹; the friction
+// through the mu row and the warm start's tangent bound. A static side
+// (inverse mass 0) takes its inverse mass's and inertia's adjoints too, as
+// in the twin's autograd, where the warm start adds -P ima and -dwa into
+// every body: so this instance reads d_velw for a static side as well
+// (its other terms are then products with a zero inverse mass or a zero
+// angular response, and add nothing).
+template <bool kMass>
 __global__ void __launch_bounds__(kThreads, 3)
     setup_bwd_kernel(SetupIn in, const int* __restrict__ body_a,
                      const int* __restrict__ body_b, const long long* __restrict__ order,
@@ -474,7 +496,8 @@ __global__ void __launch_bounds__(kThreads, 3)
                      float* __restrict__ adj_body, float* __restrict__ adj_normal,
                      float* __restrict__ adj_pos, float* __restrict__ adj_depth,
                      float* __restrict__ adj_warm, float* __restrict__ adj_pwarm,
-                     int* __restrict__ static_keys) {
+                     int* __restrict__ static_keys, float* __restrict__ adj_fric) {
+  constexpr int W = kMass ? kBodyInputsMass : kBodyInputs;
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const int s = (int)(t >> 2), p = (int)(t & 3);
   if (s >= m) return;  // whole quads: blocks hold whole quads
@@ -488,6 +511,7 @@ __global__ void __launch_bounds__(kThreads, 3)
     adj_pwarm[ip] = 0.0f;
     if (p == 0) store3(adj_normal + 3 * i, v3(0.0f, 0.0f, 0.0f));
     if (p < 2) static_keys[2 * i + p] = kNoBody;
+    if (kMass && p == 3) adj_fric[i] = 0.0f;
     return;
   }
   const int a = body_a[i], b = body_b[i];
@@ -508,8 +532,8 @@ __global__ void __launch_bounds__(kThreads, 3)
   // db = (Pw imb, dwb, Pp imb, pdwb), added into a dynamic side's velw;
   // Pw = n Σan + t1 Σat1 + t2 Σat2, Pp = n Σpw, dwa = Σ (jna an + jt1a at1
   // + jt2a at2), pdwa = Σ jna pw (b alike). A static side takes none.
-  const float* Da = M.ima > 0.0f ? d_velw + kVelRow * a : nullptr;
-  const float* Db = M.imb > 0.0f ? d_velw + kVelRow * b : nullptr;
+  const float* Da = (kMass || M.ima > 0.0f) ? d_velw + kVelRow * a : nullptr;
+  const float* Db = (kMass || M.imb > 0.0f) ? d_velw + kVelRow * b : nullptr;
   auto dv = [&](const float* D, int c) { return D ? load3(D + c) : zero; };
   const V3 g_dwa = neg(dv(Da, 3)), g_dwb = dv(Db, 3);
   const V3 g_pdwa = neg(dv(Da, 9)), g_pdwb = dv(Db, 9);
@@ -527,10 +551,22 @@ __global__ void __launch_bounds__(kThreads, 3)
     g_at2 = dot(g_Pw, M.t2) + DW[(kWorkAccT2 + p) * fm];
     g_pw = (dot(g_Pp, M.n) + DW[(kWorkAccP + p) * fm]) + dr(kRowPwarm + p);
   }
+  // kMass: this lane's part of the inverse masses', inertias' and
+  // friction's adjoints; the warm start's changes -Pw ima, Pw imb, -Pp ima,
+  // Pp imb, with this point's terms of Pw and Pp
+  float g_ima = 0.0f, g_imb = 0.0f, g_mu = 0.0f;
+  V3 g_iia = zero, g_iib = zero;
+  if constexpr (kMass) {
+    const V3 Pw = add(add(scale(M.n, w.an), scale(M.t1, w.at1)), scale(M.t2, w.at2));
+    const V3 Pp = scale(M.n, pw);
+    g_ima = -(dot(dv(Da, 0), Pw) + dot(dv(Da, 6), Pp));
+    g_imb = dot(dv(Db, 0), Pw) + dot(dv(Db, 6), Pp);
+  }
 
   // the angular responses and effective masses, one direction at a time:
   // their rows' adjoints and their warm-start terms' (jd_a λ, jd_b λ)
   V3 g_ra = dr3(kRowRa + 3 * p), g_rb = dr3(kRowRb + 3 * p);
+  float g_km = 0.0f;  // of the effective masses' k (kMass)
   Q4 g_qa, g_qb;
   g_qa.x = g_qa.y = g_qa.z = g_qa.w = 0.0f;
   g_qb = g_qa;
@@ -538,25 +574,30 @@ __global__ void __launch_bounds__(kThreads, 3)
     const Eff e = eff(M, ra, rb, M.n);
     g_an = g_an + dot(g_dwa, e.ja) + dot(g_dwb, e.jb);
     g_pw = g_pw + dot(g_pdwa, e.ja) + dot(g_pdwb, e.jb);
-    eff_adjoint(M, e, ra, rb, M.n,
-                add(add(dr3(kRowJna + 3 * p), scale(g_dwa, w.an)), scale(g_pdwa, pw)),
-                add(add(dr3(kRowJnb + 3 * p), scale(g_dwb, w.an)), scale(g_pdwb, pw)),
-                dr(kRowMn + p), &g_ra, &g_rb, &g_n, &g_qa, &g_qb);
+    eff_adjoint<kMass>(M, e, ra, rb, M.n,
+                       add(add(dr3(kRowJna + 3 * p), scale(g_dwa, w.an)), scale(g_pdwa, pw)),
+                       add(add(dr3(kRowJnb + 3 * p), scale(g_dwb, w.an)), scale(g_pdwb, pw)),
+                       dr(kRowMn + p), &g_ra, &g_rb, &g_n, &g_qa, &g_qb, &g_km, &g_iia,
+                       &g_iib);
   }
   adj_pwarm[ip] = (P.use_pwarm && pv) ? g_pw : 0.0f;
   {
     const Eff e = eff(M, ra, rb, M.t1);
     g_at1 = g_at1 + dot(g_dwa, e.ja) + dot(g_dwb, e.jb);
-    eff_adjoint(M, e, ra, rb, M.t1, add(dr3(kRowJt1a + 3 * p), scale(g_dwa, w.at1)),
-                add(dr3(kRowJt1b + 3 * p), scale(g_dwb, w.at1)), dr(kRowMt1 + p), &g_ra,
-                &g_rb, &g_t1, &g_qa, &g_qb);
+    eff_adjoint<kMass>(M, e, ra, rb, M.t1, add(dr3(kRowJt1a + 3 * p), scale(g_dwa, w.at1)),
+                       add(dr3(kRowJt1b + 3 * p), scale(g_dwb, w.at1)), dr(kRowMt1 + p), &g_ra,
+                       &g_rb, &g_t1, &g_qa, &g_qb, &g_km, &g_iia, &g_iib);
   }
   {
     const Eff e = eff(M, ra, rb, M.t2);
     g_at2 = g_at2 + dot(g_dwa, e.ja) + dot(g_dwb, e.jb);
-    eff_adjoint(M, e, ra, rb, M.t2, add(dr3(kRowJt2a + 3 * p), scale(g_dwa, w.at2)),
-                add(dr3(kRowJt2b + 3 * p), scale(g_dwb, w.at2)), dr(kRowMt2 + p), &g_ra,
-                &g_rb, &g_t2, &g_qa, &g_qb);
+    eff_adjoint<kMass>(M, e, ra, rb, M.t2, add(dr3(kRowJt2a + 3 * p), scale(g_dwa, w.at2)),
+                       add(dr3(kRowJt2b + 3 * p), scale(g_dwb, w.at2)), dr(kRowMt2 + p), &g_ra,
+                       &g_rb, &g_t2, &g_qa, &g_qb, &g_km, &g_iia, &g_iib);
+  }
+  if constexpr (kMass) {  // k = ima + imb + ...: both take k's adjoint
+    g_ima = g_ima + g_km;
+    g_imb = g_imb + g_km;
   }
 
   // the warm start: an = clamp_min(wi · n, 0), at = clamp(wi · t, ±mu an)
@@ -570,6 +611,7 @@ __global__ void __launch_bounds__(kThreads, 3)
     const float g_y1 = clamp2_adjoint(g_at1, dot(wi, M.t1), bound, &g_bound);
     const float g_y2 = clamp2_adjoint(g_at2, dot(wi, M.t2), bound, &g_bound);
     const float g_dn = dn >= 0.0f ? g_an + M.mu * g_bound : 0.0f;
+    if constexpr (kMass) g_mu = g_bound * clamp_min(dn, 0.0f);  // bound = mu an
     g_wi = add(add(scale(M.n, g_dn), scale(M.t1, g_y1)), scale(M.t2, g_y2));
     g_n = add(g_n, scale(wi, g_dn));
     g_t1 = add(g_t1, scale(wi, g_y1));
@@ -608,11 +650,18 @@ __global__ void __launch_bounds__(kThreads, 3)
   g_qb = quad_sum4(mask, g_qb);
   const V3 s_va = quad_sum3(mask, g_va), s_vb = quad_sum3(mask, g_vb);
   const V3 s_wa = quad_sum3(mask, g_wa), s_wb = quad_sum3(mask, g_wb);
+  if constexpr (kMass) {
+    g_ima = quad_sum(mask, g_ima);
+    g_imb = quad_sum(mask, g_imb);
+    g_iia = quad_sum3(mask, g_iia);
+    g_iib = quad_sum3(mask, g_iib);
+    g_mu = quad_sum(mask, g_mu);
+  }
   if (p < 2) {
     const int body = p ? b : a;
     const V3 gp = p ? g_pb : g_pa;
     const Q4 gq = p ? g_qb : g_qa;
-    float* r = adj_body + (2 * i + p) * kBodyInputs;
+    float* r = adj_body + (2 * i + p) * W;
     store3(r, gp);
     r[3] = gq.x;
     r[4] = gq.y;
@@ -620,7 +669,13 @@ __global__ void __launch_bounds__(kThreads, 3)
     r[6] = gq.w;
     store3(r + 7, p ? s_vb : s_va);
     store3(r + 10, p ? s_wb : s_wa);
+    if constexpr (kMass) {
+      r[13] = p ? g_imb + dr(kRowImB) : g_ima + dr(kRowImA);
+      store3(r + 14, p ? g_iib : g_iia);
+    }
     static_keys[2 * i + p] = in.binvm[body] > 0.0f ? kNoBody : body;
+  } else if (kMass && p == 3) {
+    adj_fric[i] = g_mu + dr(kRowMu);
   } else if (p == 2) {
     // the rows' and the frame's own adjoints, then orthonormal_basis:
     // a = -1 / (sign + nz), b = nx ny a, t1 = (1 + sign nx nx a, sign b,
@@ -653,9 +708,10 @@ __device__ __forceinline__ int lower_bound(const int* __restrict__ keys, int n, 
   return lo;
 }
 
-// Adds into acc the adj_body rows of `body`'s entries in keys[0..n) (row
-// 2 perm[e] + side, or perm[e] for side < 0), lane l taking entries l,
-// l + 32, ... of the body's segment in order.
+// Adds into acc the adj_body rows (W words) of `body`'s entries in
+// keys[0..n) (row 2 perm[e] + side, or perm[e] for side < 0), lane l
+// taking entries l, l + 32, ... of the body's segment in order.
+template <int W>
 __device__ __forceinline__ void warp_rows(const int* __restrict__ keys,
                                           const long long* __restrict__ perm, int n, int side,
                                           int body, int lane,
@@ -666,9 +722,9 @@ __device__ __forceinline__ void warp_rows(const int* __restrict__ keys,
     const bool in = e < n && keys[e] == body;
     if (in) {
       const long long row = side < 0 ? perm[e] : 2 * perm[e] + side;
-      const float* r = adj_body + row * kBodyInputs;
+      const float* r = adj_body + row * W;
 #pragma unroll
-      for (int c = 0; c < kBodyInputs; ++c) acc[c] = acc[c] + r[c];
+      for (int c = 0; c < W; ++c) acc[c] = acc[c] + r[c];
     }
     if (!__any_sync(0xffffffffu, in)) break;
   }
@@ -680,7 +736,8 @@ __device__ __forceinline__ void warp_rows(const int* __restrict__ keys,
 // body's through the sorted static keys that setup_bwd_kernel wrote. Each
 // lane sums its entries in order, then a fixed xor butterfly over the warp;
 // velw's own adjoint (velw = v | w + the warm-start changes) is added to
-// vel and angvel.
+// vel and angvel. W = kBodyInputsMass: also the inverse mass and inertia.
+template <int W>
 __global__ void __launch_bounds__(kThreads)
     setup_body_sum_kernel(const float* __restrict__ binvm, const int* __restrict__ keys_a,
                           const long long* __restrict__ perm_a, const int* __restrict__ keys_b,
@@ -689,27 +746,28 @@ __global__ void __launch_bounds__(kThreads)
                           const long long* __restrict__ static_perm,
                           const float* __restrict__ adj_body, const float* __restrict__ d_velw,
                           int m, int n, float* __restrict__ g_pos, float* __restrict__ g_quat,
-                          float* __restrict__ g_vel, float* __restrict__ g_ang) {
+                          float* __restrict__ g_vel, float* __restrict__ g_ang,
+                          float* __restrict__ g_invm, float* __restrict__ g_invi) {
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const int body = (int)(t >> 5), lane = (int)(t & 31);
   if (body >= n) return;  // whole warps
-  float acc[kBodyInputs];
+  float acc[W];
 #pragma unroll
-  for (int c = 0; c < kBodyInputs; ++c) acc[c] = 0.0f;
+  for (int c = 0; c < W; ++c) acc[c] = 0.0f;
   if (binvm[body] > 0.0f) {
-    warp_rows(keys_a, perm_a, m, 0, body, lane, adj_body, acc);
-    warp_rows(keys_b, perm_b, m, 1, body, lane, adj_body, acc);
+    warp_rows<W>(keys_a, perm_a, m, 0, body, lane, adj_body, acc);
+    warp_rows<W>(keys_b, perm_b, m, 1, body, lane, adj_body, acc);
   } else {
-    warp_rows(static_keys, static_perm, 2 * m, -1, body, lane, adj_body, acc);
+    warp_rows<W>(static_keys, static_perm, 2 * m, -1, body, lane, adj_body, acc);
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
 #pragma unroll
-    for (int c = 0; c < kBodyInputs; ++c)
+    for (int c = 0; c < W; ++c)
       acc[c] = acc[c] + __shfl_xor_sync(0xffffffffu, acc[c], off);
   float x = 0.0f;
 #pragma unroll
-  for (int c = 0; c < kBodyInputs; ++c)
+  for (int c = 0; c < W; ++c)
     if (lane == c) x = acc[c];
   if (lane < 3)
     g_pos[3 * body + lane] = x;
@@ -719,6 +777,10 @@ __global__ void __launch_bounds__(kThreads)
     g_vel[3 * body + lane - 7] = x + d_velw[kVelRow * body + lane - 7];
   else if (lane < kBodyInputs)
     g_ang[3 * body + lane - 10] = x + d_velw[kVelRow * body + lane - 7];
+  else if (lane == kBodyInputs && W > kBodyInputs)
+    g_invm[body] = x;
+  else if (lane < W)
+    g_invi[3 * body + lane - kBodyInputs - 1] = x;
 }
 
 // velw[body] = (v, w, 0, 0) + Σ side-a deltas + Σ side-b deltas, each in the
@@ -808,7 +870,9 @@ extern "C" int nudge_setup(
 // those not live), of each live manifold's two bodies' pos | quat | vel |
 // angvel, adj_body[2m, 13] (row 2i + side), and the static-body keys
 // static_keys[2m] (entry 2i + side: the body of a live manifold's static
-// side, else INT_MAX).
+// side, else INT_MAX). With adj_fric (else null) the mass instance: also
+// the manifolds' friction adjoints adj_fric[m], and adj_body[2m, 17] rows
+// with the bodies' inv_mass | inv_inertia adjoints after angvel's.
 extern "C" int nudge_setup_bwd(
     const float* bpos, const float* bquat, const float* bvel, const float* bang,
     const float* binvm, const float* binvi, const int* body_a, const int* body_b,
@@ -819,7 +883,7 @@ extern "C" int nudge_setup_bwd(
     float max_pseudo_vel, float restitution, int split, int warm_start, int use_pwarm,
     const float* d_rows, const float* d_work, const float* d_frame, const float* d_velw,
     float* adj_body, float* adj_normal, float* adj_pos, float* adj_depth, float* adj_warm,
-    float* adj_pwarm, int* static_keys, void* stream_) {
+    float* adj_pwarm, int* static_keys, float* adj_fric, void* stream_) {
   if (m <= 0) return 0;
   const SetupParams P =
       params(bod, slop, max_bias_vel, deep_bias_depth, deep_bias_gate, ungated_depth,
@@ -828,27 +892,41 @@ extern "C" int nudge_setup_bwd(
                    fric, mpos, mdepth, pvalid, warm, pwarm_in};
   // one quad a manifold slot; slots past the live count write zeros
   const long long threads = 4LL * m;
-  setup_bwd_kernel<<<(unsigned)((threads + kThreads - 1) / kThreads), kThreads, 0,
-                     (cudaStream_t)stream_>>>(in, body_a, body_b, order, offsets, max_colors, m,
-                                              P, d_rows, d_work, d_frame, d_velw, adj_body,
-                                              adj_normal, adj_pos, adj_depth, adj_warm,
-                                              adj_pwarm, static_keys);
+  const unsigned blocks = (unsigned)((threads + kThreads - 1) / kThreads);
+  cudaStream_t stream = (cudaStream_t)stream_;
+  if (adj_fric)
+    setup_bwd_kernel<true><<<blocks, kThreads, 0, stream>>>(
+        in, body_a, body_b, order, offsets, max_colors, m, P, d_rows, d_work, d_frame, d_velw,
+        adj_body, adj_normal, adj_pos, adj_depth, adj_warm, adj_pwarm, static_keys, adj_fric);
+  else
+    setup_bwd_kernel<false><<<blocks, kThreads, 0, stream>>>(
+        in, body_a, body_b, order, offsets, max_colors, m, P, d_rows, d_work, d_frame, d_velw,
+        adj_body, adj_normal, adj_pos, adj_depth, adj_warm, adj_pwarm, static_keys, adj_fric);
   return (int)cudaGetLastError();
 }
 
 // The backward's per-body sums (setup_body_sum_kernel): the adjoints of the
-// bodies' pos [n, 3], quat [n, 4], vel [n, 3] and angvel [n, 3].
+// bodies' pos [n, 3], quat [n, 4], vel [n, 3] and angvel [n, 3]; with g_invm
+// (else null: adj_body rows of kBodyInputs words) also of inv_mass [n] and
+// inv_inertia g_invi [n, 3], from rows of kBodyInputsMass words.
 extern "C" int nudge_setup_body_sum(const float* binvm, const int* keys_a,
                                     const long long* perm_a, const int* keys_b,
                                     const long long* perm_b, const int* static_keys,
                                     const long long* static_perm, const float* adj_body,
                                     const float* d_velw, int m, int n, float* g_pos,
-                                    float* g_quat, float* g_vel, float* g_ang, void* stream_) {
+                                    float* g_quat, float* g_vel, float* g_ang, float* g_invm,
+                                    float* g_invi, void* stream_) {
   if (n <= 0) return 0;
   const long long threads = 32LL * n;
-  setup_body_sum_kernel<<<(unsigned)((threads + kThreads - 1) / kThreads), kThreads, 0,
-                          (cudaStream_t)stream_>>>(binvm, keys_a, perm_a, keys_b, perm_b,
-                                                   static_keys, static_perm, adj_body, d_velw,
-                                                   m, n, g_pos, g_quat, g_vel, g_ang);
+  const unsigned blocks = (unsigned)((threads + kThreads - 1) / kThreads);
+  cudaStream_t stream = (cudaStream_t)stream_;
+  if (g_invm)
+    setup_body_sum_kernel<kBodyInputsMass><<<blocks, kThreads, 0, stream>>>(
+        binvm, keys_a, perm_a, keys_b, perm_b, static_keys, static_perm, adj_body, d_velw, m, n,
+        g_pos, g_quat, g_vel, g_ang, g_invm, g_invi);
+  else
+    setup_body_sum_kernel<kBodyInputs><<<blocks, kThreads, 0, stream>>>(
+        binvm, keys_a, perm_a, keys_b, perm_b, static_keys, static_perm, adj_body, d_velw, m, n,
+        g_pos, g_quat, g_vel, g_ang, g_invm, g_invi);
   return (int)cudaGetLastError();
 }

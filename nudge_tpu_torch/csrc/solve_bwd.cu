@@ -63,6 +63,25 @@
 //     sums the columns per body afterwards in a fixed order
 //     (csrc/segment.cu). No float atomics anywhere: two backward runs from
 //     one tape are bitwise equal.
+//   - The mass instance (kMass: the bodies' inverse masses or inertias
+//     carry a gradient) also writes the adjoints of the im_a / im_b rows
+//     (shared rows, summed over the pair as mu is) and completes a static
+//     side's j rows and im row: in the twin (ops/solver.py solve_from) a
+//     static body's velocity is written back like any other, with a change
+//     of zero, so each visit's static side sees the adjoint of the static
+//     velocity after its color pass, S0, and that reaches im and the j
+//     rows (times a zero inverse mass or inertia everywhere else). The
+//     chain runs a static side from zero as the instance without does, so
+//     its reads come out exact; each point leaves its dln, dlt1, dlt2 and
+//     dlp in the stash, and after the chain each lane adds S0's terms
+//     (linear in them) into its points' j rows and the im row. S0 lives in
+//     adj_velw: the visits leave their reads in their slots' adj_static
+//     columns (this pass's, not a sum over sweeps), and after each color
+//     pass one thread a static body's segment of that color (the wrapper's
+//     static entries, sorted by color, then body, then entry) sums them in
+//     entry order and adds the sum into adj_velw before the next pass
+//     reads it (one more cluster barrier a pass). adj_velw then ends with
+//     the static reads summed, and the wrapper's per-body sum is not run.
 //   - The spill color (Jacobi, the forward's spill_side): side b's sum is
 //     undone first, then side a's, through the same body-sorted entry
 //     lists: each entry's post-pass adjoint is its body's adjoint, and the
@@ -115,6 +134,11 @@ struct SolveBwdArgs {
   const int* slot;
   const int *keys_a, *keys_b;
   const long long *perm_a, *perm_b;
+  // the mass instance's static entries: body ids sorted by (color, body),
+  // each entry's 2 slot + side, and each color's first entry (max_colors + 1)
+  const int* skeys;
+  const long long* sperm;
+  const int* soff;
   int m, iters, split, pfric;
 };
 
@@ -276,6 +300,10 @@ constexpr int kStashRows = kStashAcc + 4 * kPointsPerLane;
 constexpr int kPointRowWords = 30;
 constexpr int kStashWords = kStashRows + kPointRowWords * kPointsPerLane;
 constexpr size_t kStashBytes = sizeof(float) * kStashWords * kBwdThreads;
+// the mass instance's extra words: each point's dln, dlt1, dlt2, dlp
+constexpr int kStashDl = kStashWords;
+constexpr size_t kStashBytesMass =
+    sizeof(float) * (kStashWords + 4 * kPointsPerLane) * kBwdThreads;
 
 __device__ __forceinline__ void stash_in(float* word, const float* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(word);
@@ -317,33 +345,43 @@ __device__ __forceinline__ Point stashed_point(const float* st, float relax) {
 }
 
 // The shared rows lane l adds: group g (n, t1, t2, mu) is lane g %
-// kLanes's; fn(stash word, row) for each of its words.
-template <typename Fn>
+// kLanes's, and with kMass groups im_a and im_b the last lane's (on two
+// lanes: 6 words each); fn(stash word, row) for each of its words.
+template <bool kMass, typename Fn>
 __device__ __forceinline__ void shared_words(int l, Fn fn) {
   int k = kStashShared;
 #pragma unroll
-  for (int g = 0; g < 4; ++g) {
-    if (g % kLanes != l) continue;
-    const int row = g == 0 ? kRowN : (g == 1 ? kRowT1 : (g == 2 ? kRowT2 : kRowMu));
+  for (int g = 0; g < (kMass ? 6 : 4); ++g) {
+    if ((g < 4 ? g % kLanes : kLanes - 1) != l) continue;
+    const int row = g == 0   ? kRowN
+                    : g == 1 ? kRowT1
+                    : g == 2 ? kRowT2
+                    : g == 3 ? kRowMu
+                    : g == 4 ? kRowImA
+                             : kRowImB;
 #pragma unroll
-    for (int c = 0; c < (g == 3 ? 1 : 3); ++c) fn(k++, row + c);
+    for (int c = 0; c < (g >= 3 ? 1 : 3); ++c) fn(k++, row + c);
   }
 }
 
-// The shared row adjoints of a visit: normal, tangents, friction.
+// The shared row adjoints of a visit: normal, tangents, friction, and (the
+// mass instance) the inverse masses.
 struct Shared {
   V3 n, t1, t2;
-  float mu;
+  float mu, ima, imb;
 };
 
 // Point p of a visit, backward: S holds the velocities before the point
 // (replayed), G the adjoint of those after it (on return, before it),
 // A[0..3] the adjoints of the point's accumulators (λn, λt1, λt2, pseudo
 // λ) after it (on return, before it). Returns the point's row adjoints;
-// this lane's part of the shared ones goes to `sh`.
+// this lane's part of the shared ones goes to `sh` (with kMass also the
+// inverse masses').
+template <bool kMass>
 __device__ __forceinline__ RowAdj point_bwd(const Point& P, const Frame& F, float an, float at1,
                                             float at2, float pp, bool split, bool pfric,
-                                            const Vel& S, Vel& G, float* A, Shared& sh) {
+                                            const Vel& S, Vel& G, float* A, Shared& sh,
+                                            float* dl) {
   const V3 n = F.n, t1 = F.t1, t2 = F.t2;
   const float mu = F.mu, ima = F.ima, imb = F.imb, pm = P.pm, mn = P.mn;
 
@@ -375,6 +413,12 @@ __device__ __forceinline__ RowAdj point_bwd(const Point& P, const Frame& F, floa
     // pva' = pva - Pp ima, pvb' = pvb + Pp imb, pwa' = pwa - jna dlp,
     // pwb' = pwb + jnb dlp, Pp = n dlp
     const V3 APp = sub(scale(G.pvb, imb), scale(G.pva, ima));
+    if constexpr (kMass) {
+      const V3 Pp = scale(n, dlp);
+      sh.ima = sh.ima - dot(G.pva, Pp);
+      sh.imb = sh.imb + dot(G.pvb, Pp);
+      dl[3 * kBwdThreads] = dlp;
+    }
     Adlp = Adlp + dot(G.pwb, P.jnb) - dot(G.pwa, P.jna);
     Ajna = sub(Ajna, scale(G.pwa, dlp));
     Ajnb = add(Ajnb, scale(G.pwb, dlp));
@@ -414,6 +458,15 @@ __device__ __forceinline__ RowAdj point_bwd(const Point& P, const Frame& F, floa
   D.v[6] = neg(scale(G.wa, dlt2));
   // va' = va - Pimp ima, vb' = vb + Pimp imb, Pimp = n dln + t1 dlt1 + t2 dlt2
   const V3 APimp = sub(scale(G.vb, imb), scale(G.va, ima));
+  if constexpr (kMass) {
+    const V3 Pimp = add(add(scale(n, dln), scale(t1, dlt1)), scale(t2, dlt2));
+    sh.ima = sh.ima - dot(G.va, Pimp);
+    sh.imb = sh.imb + dot(G.vb, Pimp);
+    dl[0] = dln;
+    dl[kBwdThreads] = dlt1;
+    dl[2 * kBwdThreads] = dlt2;
+    if (!split) dl[3 * kBwdThreads] = 0.0f;
+  }
   sh.n = add(sh.n, scale(APimp, dln));
   sh.t1 = add(sh.t1, scale(APimp, dlt1));
   sh.t2 = add(sh.t2, scale(APimp, dlt2));
@@ -481,7 +534,10 @@ __device__ __forceinline__ RowAdj point_bwd(const Point& P, const Frame& F, floa
 // manifold's lanes, which holds points l * kPointsPerLane + j. jacobi (the
 // spill color): the visit's output adjoints are the post-pass adjoints in
 // scratch, and its dynamic read adjoints go to scratch for the per-body
-// sums.
+// sums. kMass: a static side's running adjoint S0 (adj_velw) adds its
+// terms to the j rows and the im row after the chain, and its reads go to
+// adj_static for static_pass.
+template <bool kMass>
 __device__ __forceinline__ void reverse_visit(const SolveBwdArgs& A, int s, int it, bool jacobi,
                                               int l, unsigned mask, float* stash) {
   constexpr int Q = kPointsPerLane;
@@ -521,8 +577,8 @@ __device__ __forceinline__ void reverse_visit(const SolveBwdArgs& A, int s, int 
       acc[j][f] = Tacc[(4 * f + p) * fm];
     }
   }
-  shared_words(l, [&](int k, int row) { stash_in(word(k), AR + row * fm); });
-  if (l == 0)
+  shared_words<kMass>(l, [&](int k, int row) { stash_in(word(k), AR + row * fm); });
+  if (l == 0 && !kMass)
     for (int c = 0; c < 2 * kVelRow; ++c) stash_in(word(kStashStatic + c), SA + c * fm);
   stash_commit();
   auto point = [&](int j) { return stashed_point(word(kStashRows + kPointRowWords * j), relax); };
@@ -585,7 +641,7 @@ __device__ __forceinline__ void reverse_visit(const SolveBwdArgs& A, int s, int 
   // the reverse chain, down the lanes: lane k takes its points' adjoints,
   // last first, and hands lane k - 1 the adjoint of the velocities before
   // its first point
-  Shared sh{v3(0.0f, 0.0f, 0.0f), v3(0.0f, 0.0f, 0.0f), v3(0.0f, 0.0f, 0.0f), 0.0f};
+  Shared sh{v3(0.0f, 0.0f, 0.0f), v3(0.0f, 0.0f, 0.0f), v3(0.0f, 0.0f, 0.0f), 0.0f, 0.0f, 0.0f};
 #pragma unroll 1
   for (int k = kLanes - 1; k >= 0; --k) {
     if (l == k) {
@@ -594,8 +650,9 @@ __device__ __forceinline__ void reverse_visit(const SolveBwdArgs& A, int s, int 
         float Aacc[4];
 #pragma unroll
         for (int f = 0; f < 4; ++f) Aacc[f] = *word(kStashAcc + 4 * j + f);
-        const RowAdj D = point_bwd(point(j), F, acc[j][0], acc[j][1], acc[j][2], acc[j][3],
-                                   split, pfric, S[j], G, Aacc, sh);
+        const RowAdj D = point_bwd<kMass>(point(j), F, acc[j][0], acc[j][1], acc[j][2],
+                                          acc[j][3], split, pfric, S[j], G, Aacc, sh,
+                                          word(kStashDl + 4 * j));
 #pragma unroll
         for (int f = 0; f < 4; ++f) *word(kStashAcc + 4 * j + f) = Aacc[f];
 #pragma unroll
@@ -612,16 +669,58 @@ __device__ __forceinline__ void reverse_visit(const SolveBwdArgs& A, int s, int 
     }
   }
 
+  // kMass: a static side's S0 terms, linear in this lane's points' dl:
+  // im -= S0.v · (n dln + t1 dlt1 + t2 dlt2) + S0.pv · n dlp (side b +),
+  // jn -= S0.w dln + S0.pw dlp, jt1 -= S0.w dlt1, jt2 -= S0.w dlt2
+  if constexpr (kMass) {
+#pragma unroll 1
+    for (int side = 0; side < 2; ++side) {
+      if (side ? dyn_b : dyn_a) continue;
+      float s0[kVelRow];
+      load_row(A.adj_velw + kVelRow * (side ? b : a), s0);
+      const V3 v0 = v3(s0[0], s0[1], s0[2]), w0 = v3(s0[3], s0[4], s0[5]);
+      const V3 pv0 = v3(s0[6], s0[7], s0[8]), pw0 = v3(s0[9], s0[10], s0[11]);
+      const float sg = side ? 1.0f : -1.0f;
+      float gim = 0.0f;
+#pragma unroll
+      for (int j = 0; j < Q; ++j) {
+        const float* d = word(kStashDl + 4 * j);
+        const float dln = d[0], dlt1 = d[kBwdThreads], dlt2 = d[2 * kBwdThreads];
+        const float dlp = d[3 * kBwdThreads];
+        const V3 Pimp = add(add(scale(F.n, dln), scale(F.t1, dlt1)), scale(F.t2, dlt2));
+        gim = gim + (dot(v0, Pimp) + dot(pv0, scale(F.n, dlp)));
+        const V3 gjn = add(scale(w0, dln), scale(pw0, dlp));
+        const V3 gjt1 = scale(w0, dlt1), gjt2 = scale(w0, dlt2);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          *word(kPointWords * j + 3 * (2 + side) + c) += sg * get(gjn, c);
+          *word(kPointWords * j + 3 * (4 + side) + c) += sg * get(gjt1, c);
+          *word(kPointWords * j + 3 * (6 + side) + c) += sg * get(gjt2, c);
+        }
+      }
+      if (side)
+        sh.imb = sh.imb + gim;
+      else
+        sh.ima = sh.ima - gim;
+    }
+  }
+
   // the shared row adjoints, summed over the lanes in a fixed order; then
   // the stash back, the shared rows with their sums added
   sh.n = lanes_sum3(mask, sh.n);
   sh.t1 = lanes_sum3(mask, sh.t1);
   sh.t2 = lanes_sum3(mask, sh.t2);
   sh.mu = lanes_sum(mask, sh.mu);
-  shared_words(l, [&](int k, int row) {
-    const float x = row == kRowMu ? sh.mu
-                                  : get(row < kRowT1 ? sh.n : (row < kRowT2 ? sh.t1 : sh.t2),
-                                        (row - kRowN) % 3);
+  if constexpr (kMass) {
+    sh.ima = lanes_sum(mask, sh.ima);
+    sh.imb = lanes_sum(mask, sh.imb);
+  }
+  shared_words<kMass>(l, [&](int k, int row) {
+    const float x = row == kRowMu    ? sh.mu
+                    : row == kRowImA ? sh.ima
+                    : row == kRowImB ? sh.imb
+                                     : get(row < kRowT1 ? sh.n : (row < kRowT2 ? sh.t1 : sh.t2),
+                                           (row - kRowN) % 3);
     AR[row * fm] = *word(k) + x;
   });
 #pragma unroll
@@ -641,7 +740,10 @@ __device__ __forceinline__ void reverse_visit(const SolveBwdArgs& A, int s, int 
   const int body[2] = {a, b};
   for (int side = 0; side < 2; ++side) {
     const float* r = side ? rb_ : ra_;
-    if (!dyn[side]) {
+    if (!dyn[side] && kMass) {
+      // this visit's reads, for static_pass
+      for (int c = 0; c < kVelRow; ++c) SA[(side * kVelRow + c) * fm] = r[c];
+    } else if (!dyn[side]) {
       for (int c = 0; c < kVelRow; ++c)
         SA[(side * kVelRow + c) * fm] = *word(kStashStatic + side * kVelRow + c) + r[c];
     } else if (!jacobi) {
@@ -711,6 +813,34 @@ __device__ __forceinline__ void spill_side_reads(const SolveBwdArgs& A, const in
   }
 }
 
+// The mass instance's static update after the visits of color c: each
+// static body with entries in c sums their slots' reads (adj_static, side
+// a | side b) in entry order, then adds the sum into its adjoint in
+// adj_velw (as the twin's autograd sums a pass's reads before it adds
+// them: one rounding on the large running adjoint a pass, not one an
+// entry); one thread a body's segment, on the forward's thread map.
+__device__ __forceinline__ void static_pass(const SolveBwdArgs& A, int c, int g, int stride) {
+  const long long fm = A.m;
+  const int lo = A.soff[c], hi = A.soff[c + 1];
+  for (int e = lo + g; e < hi; e += stride) {
+    const int body = A.skeys[e];
+    if (e > lo && A.skeys[e - 1] == body) continue;  // not the segment's first entry
+    float sum[kVelRow], acc[kVelRow];
+    for (int k = 0; k < kVelRow; ++k) sum[k] = 0.0f;
+    for (int j = e; j < hi && A.skeys[j] == body; ++j) {
+      const long long en = A.sperm[j];
+      const long long s = en >> 1;
+      const int side = (int)(en & 1);
+      for (int k = 0; k < kVelRow; ++k)
+        sum[k] = sum[k] + __ldcg(A.adj_static + (side * kVelRow + k) * fm + s);
+    }
+    load_row(A.adj_velw + kVelRow * body, acc);
+    for (int k = 0; k < kVelRow; ++k) acc[k] = acc[k] + sum[k];
+    store_row(A.adj_velw + kVelRow * body, acc);
+  }
+}
+
+template <bool kMass>
 __global__ void __launch_bounds__(kBwdThreads, 1) solve_bwd_kernel(SolveBwdArgs A) {
   extern __shared__ float stash_cols[];  // kStashWords x kBwdThreads
   float* stash = stash_cols + threadIdx.x;
@@ -739,25 +869,31 @@ __global__ void __launch_bounds__(kBwdThreads, 1) solve_bwd_kernel(SolveBwdArgs 
         spill_side_bwd(A, A.keys_a, A.perm_a, 0, lo, hi, g, stride);
         cluster.sync();
         for (int s = lo + group; s < hi; s += groups)
-          reverse_visit(A, s, it, true, l, mask, stash);
+          reverse_visit<kMass>(A, s, it, true, l, mask, stash);
         cluster.sync();
+        if constexpr (kMass) static_pass(A, c, g, stride);  // static bodies only
         spill_side_reads(A, A.keys_a, A.perm_a, 0, lo, hi, g, stride);
         cluster.sync();
         spill_side_reads(A, A.keys_b, A.perm_b, 1, lo, hi, g, stride);
         cluster.sync();
       } else {
         for (int s = lo + group; s < hi; s += groups)
-          reverse_visit(A, s, it, false, l, mask, stash);
+          reverse_visit<kMass>(A, s, it, false, l, mask, stash);
         cluster.sync();
+        if constexpr (kMass) {
+          static_pass(A, c, g, stride);
+          cluster.sync();
+        }
       }
     }
   }
 }
 
-int g_cluster = 0;  // the cluster size, chosen at the first launch
+int g_cluster = 0;       // the cluster size, chosen at the first launch
+int g_cluster_mass = 0;  // the mass instance's
 
 cudaError_t choose_bwd_cluster() {
-  return choose_cluster(solve_bwd_kernel, kBwdThreads, kStashBytes, &g_cluster);
+  return choose_cluster(solve_bwd_kernel<false>, kBwdThreads, kStashBytes, &g_cluster);
 }
 
 }  // namespace
@@ -777,18 +913,24 @@ extern "C" int nudge_solve_bwd(
     // the forward's color segments, slots and body-sorted entries
     const int* offsets, const int* n_colors, const int* spill_color, const int* slot,
     const int* keys_a, const long long* perm_a, const int* keys_b, const long long* perm_b,
-    int m, int iters, int split, int pfric, void* stream_) {
+    // the mass instance's static entries (null: the instance without)
+    const int* skeys, const long long* sperm, const int* soff, int m, int iters, int split,
+    int pfric, void* stream_) {
   if (m <= 0) return 0;
-  cudaError_t err = choose_bwd_cluster();
+  const bool mass = skeys != nullptr;
+  cudaError_t err = mass ? choose_cluster(solve_bwd_kernel<true>, kBwdThreads,
+                                          kStashBytesMass, &g_cluster_mass)
+                         : choose_bwd_cluster();
   if (err != cudaSuccess) return (int)err;
-  SolveBwdArgs A{rows,     tape,    adj_velw,    adj_acc, adj_rows, adj_static,
-                 scratch,  offsets, n_colors,    spill_color, slot, keys_a,
-                 keys_b,   perm_a,  perm_b,      m,       iters,    split,
-                 pfric};
+  SolveBwdArgs A{rows,   tape,   adj_velw, adj_acc, adj_rows,    adj_static, scratch,
+                 offsets, n_colors, spill_color, slot, keys_a, keys_b, perm_a,
+                 perm_b, skeys,  sperm,  soff,     m,       iters,       split,      pfric};
   cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg =
-      cluster_config(g_cluster, kBwdThreads, kStashBytes, (cudaStream_t)stream_, &attr);
-  err = cudaLaunchKernelEx(&cfg, solve_bwd_kernel, A);
+  cudaLaunchConfig_t cfg = cluster_config(mass ? g_cluster_mass : g_cluster, kBwdThreads,
+                                          mass ? kStashBytesMass : kStashBytes,
+                                          (cudaStream_t)stream_, &attr);
+  err = mass ? cudaLaunchKernelEx(&cfg, solve_bwd_kernel<true>, A)
+             : cudaLaunchKernelEx(&cfg, solve_bwd_kernel<false>, A);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

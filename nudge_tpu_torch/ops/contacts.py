@@ -22,8 +22,8 @@ from .narrowphase_1pt import (
     pairs_1pt_adjoint_cuda, pairs_1pt_slots_cuda, pairs_1pt_slots_plain,
 )
 from .narrowphase_kernel import (
-    POSE_INPUTS, SLOTS, box_box_adjoint_cuda, box_box_slots,
-    box_box_slots_cuda, box_box_slots_plain, empty_slots,
+    POSE_INPUTS, SHAPE_COLUMNS, SHAPE_INPUTS, SLOTS, box_box_adjoint_cuda,
+    box_box_slots, box_box_slots_cuda, box_box_slots_plain, empty_slots,
 )
 from .segment import entries, segment_sum
 
@@ -68,7 +68,7 @@ def narrowphase_all(state: SimState, wc, bb, bs, ss, cfg: SimConfig):
     that layout: each narrowphase writes its own rows from row 0.
 
     On the card the kernels run inside `NarrowphaseFn` (`narrowphase_cuda`),
-    whose backward is the kernels' backward; when no collider pose carries
+    whose backward is the kernels' backward; when no collider input carries
     a gradient it builds no graph."""
     if state.boxes.half.device.type == "cuda":
         return narrowphase_cuda(state, wc, bb, bs, ss)
@@ -79,20 +79,22 @@ def narrowphase_all(state: SimState, wc, bb, bs, ss, cfg: SimConfig):
 
 def narrowphase_cuda(state: SimState, wc, bb, bs, ss):
     """The kernels' slots, as one `NarrowphaseFn` node: differentiable in
-    the colliders' world poses (`wc`'s box_pos, box_quat, sph_pos), not in
-    their shapes or friction."""
-    if torch.is_grad_enabled():
-        for name, t in (("half", state.boxes.half),
-                        ("friction", state.boxes.friction),
-                        ("radius", state.spheres.radius),
-                        ("friction", state.spheres.friction)):
-            if t.requires_grad:
-                raise NotImplementedError(
-                    f"narrowphase: the kernels' backward gives no gradient "
-                    f"to a collider's {name}")
-    outs = NarrowphaseFn.apply(wc.box_pos, wc.box_quat, wc.sph_pos, state,
-                               wc, bb, bs, ss)
+    the colliders' world poses (`wc`'s box_pos, box_quat, sph_pos) and in
+    their shapes and frictions (`SHAPE_LEAVES`)."""
+    outs = NarrowphaseFn.apply(wc.box_pos, wc.box_quat, wc.sph_pos,
+                               *shape_leaves(state), state, wc, bb, bs, ss)
     return dict(zip(SLOTS, outs))
+
+
+# the colliders' shape and friction inputs of the narrowphase, in
+# NarrowphaseFn's order after the poses
+SHAPE_LEAVES = ("box_half", "box_friction", "sphere_radius",
+                "sphere_friction")
+
+
+def shape_leaves(state: SimState):
+    return (state.boxes.half, state.boxes.friction, state.spheres.radius,
+            state.spheres.friction)
 
 
 def narrowphase_joined_plain(state: SimState, wc, bb, bs, ss):
@@ -117,10 +119,10 @@ def narrowphase_joined_cuda(state: SimState, wc, bb, bs, ss):
 
 
 def _slot_grads(grads: dict, p: int, device):
-    """The adjoints of the slots' pos, depth and normal (zeros for an
-    output autograd passed none)."""
+    """The adjoints of the slots' pos, depth, normal and friction (zeros
+    for an output autograd passed none)."""
     out = []
-    for key in ("pos", "depth", "normal"):
+    for key in ("pos", "depth", "normal", "friction"):
         g = grads.get(key)
         row, _ = SLOTS[key]
         out.append(torch.zeros((p,) + row, dtype=torch.float32, device=device)
@@ -144,56 +146,85 @@ def collider_entries(bb, bs, ss, nb: int):
     return entries(torch.stack([ga, gb], 1), live[:, None].expand(-1, 2))
 
 
-def narrowphase_backward_cuda(state: SimState, wc, bb, bs, ss, grads: dict):
+def narrowphase_backward_cuda(state: SimState, wc, bb, bs, ss, grads: dict,
+                              shapes: bool = False):
     """d loss / d (box_pos, box_quat, sph_pos) of the world colliders from
-    the adjoints of narrowphase_all's slots (`grads`: pos, depth, normal):
-    the box-box and the one-point backward kernels write each pair row's
-    pose adjoints, and one segment sum adds them per collider in a fixed
-    order."""
+    the adjoints of narrowphase_all's slots (`grads`: pos, depth, normal,
+    friction): the box-box and the one-point backward kernels write each
+    pair row's pose adjoints, and one segment sum adds them per collider in
+    a fixed order. With `shapes`, then also d loss / d SHAPE_LEAVES, from
+    the kernels' shape instances and a second segment sum."""
     return _backward_kernels(state.boxes, state.spheres, wc, bb, bs, ss,
-                             grads)
+                             grads, shapes)
 
 
-def _backward_kernels(boxes, spheres, wc, bb, bs, ss, grads: dict):
+def _backward_kernels(boxes, spheres, wc, bb, bs, ss, grads: dict,
+                      shapes: bool = False):
     """The two backward kernels write the live pair rows of one adjoint
     buffer (box-box rows, then the one-point rows; an output adjoint that
     autograd passed as None goes in as a null pointer, a zero), and one
-    segment sum adds them per collider."""
+    segment sum adds them per collider. With `shapes` the kernels' shape
+    instances also write the rows of a [P, SHAPE_INPUTS] buffer, which a
+    second segment sum over the same entries adds per collider into the
+    columns half (3), friction, radius."""
     nb = boxes.half.shape[0]
     ns = spheres.radius.shape[0]
     n_bb, n_1pt = bb.a.shape[0], bs.a.shape[0] + ss.a.shape[0]
     g = [None if grads.get(k) is None else grads[k].contiguous()
-         for k in ("pos", "depth", "normal")]
+         for k in ("pos", "depth", "normal", "friction")]
+    dev = boxes.half.device
     adj = torch.empty((n_bb + n_1pt, POSE_INPUTS), dtype=torch.float32,
-                      device=boxes.half.device)
-    box_box_adjoint_cuda(boxes, wc, bb, *[x if x is None else x[:n_bb]
-                                          for x in g], out=adj[:n_bb])
+                      device=dev)
+    shp = (torch.empty((n_bb + n_1pt, SHAPE_INPUTS), dtype=torch.float32,
+                       device=dev) if shapes else None)
+
+    def rows(x, sl):
+        return None if x is None else x[sl]
+
+    head, tail = slice(0, n_bb), slice(n_bb, None)
+    box_box_adjoint_cuda(boxes, wc, bb, *[rows(x, head) for x in g[:3]],
+                         out=adj[head], g_friction=rows(g[3], head),
+                         out_shape=rows(shp, head))
     if n_1pt:
         pairs_1pt_adjoint_cuda(boxes, spheres, wc, bs, ss,
-                               *[x if x is None else x[n_bb:] for x in g],
-                               out=adj[n_bb:])
+                               *[rows(x, tail) for x in g[:3]],
+                               out=adj[tail], g_friction=rows(g[3], tail),
+                               out_shape=rows(shp, tail))
     keys, perm = collider_entries(bb, bs, ss, nb)
     pose = segment_sum(keys, perm, adj.reshape(-1, 7), nb + ns)
-    return (pose[:nb, 0:3].contiguous(), pose[:nb, 3:7].contiguous(),
-            pose[nb:, 0:3].contiguous())
+    out = (pose[:nb, 0:3].contiguous(), pose[:nb, 3:7].contiguous(),
+           pose[nb:, 0:3].contiguous())
+    if not shapes:
+        return out
+    per = segment_sum(keys, perm, shp.reshape(-1, SHAPE_COLUMNS), nb + ns)
+    return out + (per[:nb, 0:3].contiguous(), per[:nb, 3].contiguous(),
+                  per[nb:, 4].contiguous(), per[nb:, 3].contiguous())
 
 
-def narrowphase_backward_plain(state: SimState, wc, bb, bs, ss, grads: dict):
+def narrowphase_backward_plain(state: SimState, wc, bb, bs, ss, grads: dict,
+                               shapes: bool = False):
     """The plain version of `narrowphase_backward_cuda`: autograd through
     the twins (`narrowphase_joined_plain`) on the same inputs."""
     leaves = [t.detach().requires_grad_() for t in
               (wc.box_pos, wc.box_quat, wc.sph_pos)]
     wcg = wc._replace(box_pos=leaves[0], box_quat=leaves[1],
                       sph_pos=leaves[2])
+    stg = state
+    if shapes:
+        shp = [t.detach().requires_grad_() for t in shape_leaves(state)]
+        leaves += shp
+        stg = state.replace(
+            boxes=state.boxes.replace(half=shp[0], friction=shp[1]),
+            spheres=state.spheres.replace(radius=shp[2], friction=shp[3]))
     with torch.enable_grad():
-        slots = narrowphase_joined_plain(state, wcg, bb, bs, ss)
+        slots = narrowphase_joined_plain(stg, wcg, bb, bs, ss)
         n = slots["pos"].shape[0]
-        outs, gs = [], []
-        for key, g in zip(("pos", "depth", "normal"),
-                          _slot_grads(grads, n, slots["pos"].device)):
-            outs.append(slots[key])
-            gs.append(g)
-        got = torch.autograd.grad(outs, leaves, gs, allow_unused=True)
+        keys = ("pos", "depth", "normal", "friction")
+        outs = [slots[k] for k in keys]
+        gs = _slot_grads(grads, n, slots["pos"].device)
+        pairs = [(y, g) for y, g in zip(outs, gs) if y.requires_grad]
+        got = torch.autograd.grad([y for y, _ in pairs], leaves,
+                                  [g for _, g in pairs], allow_unused=True)
     return tuple(torch.zeros_like(x) if g is None else g
                  for g, x in zip(got, leaves))
 
@@ -202,12 +233,15 @@ class NarrowphaseFn(torch.autograd.Function):
     """narrowphase_all on the card as one autograd node: the forward runs
     the box-box and one-point kernels into fresh slot buffers and saves the
     tensors its backward reads (an in-place write to one before the
-    backward raises); the backward runs their backward kernels. Inputs with
-    a gradient: the colliders' world positions and quaternions (`wc`'s
-    box_pos, box_quat, sph_pos); outputs with one: pos, depth, normal."""
+    backward raises); the backward runs their backward kernels, the shape
+    instances only when a shape or friction input needs a gradient. Inputs
+    with a gradient: the colliders' world positions and quaternions (`wc`'s
+    box_pos, box_quat, sph_pos), then SHAPE_LEAVES; outputs with one: pos,
+    depth, normal, and friction when a friction input needs one."""
 
     @staticmethod
-    def forward(ctx, box_pos, box_quat, sph_pos, state, wc, bb, bs, ss):
+    def forward(ctx, box_pos, box_quat, sph_pos, box_half, box_friction,
+                sphere_radius, sphere_friction, state, wc, bb, bs, ss):
         if bs.a.shape[0] + ss.a.shape[0] == 0:
             slots = box_box_slots(state.boxes, wc, bb)
         else:
@@ -215,19 +249,24 @@ class NarrowphaseFn(torch.autograd.Function):
         saved, ctx.rebuild = flatten((state.boxes, state.spheres, wc, bb, bs,
                                       ss))
         ctx.save_for_backward(*saved)
-        # the seven outputs without a gradient reach the backward as None,
-        # not as zero tensors autograd would fill
+        # the outputs without a gradient reach the backward as None, not as
+        # zero tensors autograd would fill
         ctx.set_materialize_grads(False)
+        smooth = ["pos", "depth", "normal"]
+        if ctx.needs_input_grad[4] or ctx.needs_input_grad[6]:
+            smooth.append("friction")
         ctx.mark_non_differentiable(*[slots[k] for k in SLOTS
-                                      if k not in ("pos", "depth", "normal")])
+                                      if k not in smooth])
         return tuple(slots[k] for k in SLOTS)
 
     @staticmethod
     def backward(ctx, *grads):
         g = dict(zip(SLOTS, grads))
-        d_box_pos, d_box_quat, d_sph_pos = _backward_kernels(
-            *ctx.rebuild(ctx.saved_tensors), g)
-        return d_box_pos, d_box_quat, d_sph_pos, None, None, None, None, None
+        shapes = any(ctx.needs_input_grad[3:7])
+        got = _backward_kernels(*ctx.rebuild(ctx.saved_tensors), g, shapes)
+        if not shapes:
+            got = got + (None,) * 4
+        return (*got, None, None, None, None, None)
 
 
 def compact_manifolds(slots: dict, cfg: SimConfig, pair_overflow,

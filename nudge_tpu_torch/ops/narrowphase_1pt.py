@@ -129,12 +129,16 @@ pairs_1pt_slots_cuda.launches = 0
 
 def pairs_1pt_adjoint_cuda(bx: Boxes, sp: Spheres, wc: WorldColliders,
                            bs: CandidatePairs, ss: CandidatePairs, g_pos,
-                           g_depth, g_normal, out=None):
+                           g_depth, g_normal, out=None, g_friction=None,
+                           out_shape=None):
     """The backward kernel: the pose adjoint rows f32[P_bs + P_ss, 14] of
     the live box-sphere then sphere-sphere pair rows (side a's position
     and, for a box, quaternion; side b's position; zeros elsewhere), from
     the rows' pos, depth and normal adjoints (None: zero), into `out` where
-    given, else into new rows. A dead row is left as it was, as box-box's
+    given, else into new rows. With `out_shape` ([rows, SHAPE_INPUTS]) the
+    shape instance also writes the half-extent, radius and friction
+    adjoints of each live row, the frictions through `g_friction` (None:
+    zero). A dead row is left as it was, as box-box's
     (`narrowphase_kernel.box_box_adjoint_cuda`)."""
     nb, ns = bx.half.shape[0], sp.radius.shape[0]
     n_bs, n_ss = bs.a.shape[0], ss.a.shape[0]
@@ -143,20 +147,23 @@ def pairs_1pt_adjoint_cuda(bx: Boxes, sp: Spheres, wc: WorldColliders,
     ins = dict(half=(bx.half, f32, (nb, 3)),
                box_quat=(wc.box_quat, f32, (nb, 4)),
                box_pos=(wc.box_pos, f32, (nb, 3)),
+               box_friction=(bx.friction, f32, (nb,)),
                radius=(sp.radius, f32, (ns,)),
                sph_pos=(wc.sph_pos, f32, (ns, 3)),
+               sph_friction=(sp.friction, f32, (ns,)),
                bs_a=(bs.a, i32, (n_bs,)), bs_b=(bs.b, i32, (n_bs,)),
                bs_valid=(bs.valid, b8, (n_bs,)),
                ss_a=(ss.a, i32, (n_ss,)), ss_b=(ss.b, i32, (n_ss,)),
                ss_valid=(ss.valid, b8, (n_ss,)))
     for name, (t, dt, shape) in ins.items():
         _build.check_cuda("pairs_1pt_bwd", name, t, dt, shape)
-    g_ptrs, out = adjoint_ins("pairs_1pt_bwd", rows, g_pos, g_depth,
-                              g_normal, out, bx.half.device)
+    g_ptrs, out, shape_ptr = adjoint_ins(
+        "pairs_1pt_bwd", rows, g_pos, g_depth, g_normal, g_friction, out,
+        out_shape, bx.half.device)
     if rows:
         _build.library().call("nudge_pairs_1pt_bwd",
                               *[_build.ptr(t) for t, _, _ in ins.values()],
-                              n_bs, n_ss, *g_ptrs, _build.ptr(out),
+                              n_bs, n_ss, *g_ptrs, _build.ptr(out), shape_ptr,
                               _build.stream_of(bx.half))
         pairs_1pt_adjoint_cuda.launches += 1
     return out

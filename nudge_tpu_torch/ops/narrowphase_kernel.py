@@ -120,50 +120,73 @@ def box_box_slots_cuda(bx: Boxes, wc: WorldColliders, bb: CandidatePairs,
 # the pose inputs of a pair slot, in the backward kernel's order: box a's
 # world position and quaternion, then box b's (csrc/narrowphase.cu)
 POSE_INPUTS = 14
+# the shape inputs of a pair slot, in the backward kernels' shape rows: side
+# a's half extents (3), friction and radius, then side b's; a box's radius
+# and a sphere's half extents are zero columns
+SHAPE_INPUTS = 10
+SHAPE_COLUMNS = SHAPE_INPUTS // 2
 
 
-def adjoint_ins(kernel: str, p: int, g_pos, g_depth, g_normal, out, device):
-    """The output adjoints' pointers (0 for None: a zero adjoint) and the
-    [p, POSE_INPUTS] adjoint rows `out` (new rows where None) of a
-    narrowphase backward kernel, checked: the kernels store a row as
-    8-byte words."""
+def _check_rows(kernel: str, name: str, t, p: int, width: int):
+    _build.check_cuda(kernel, name, t, torch.float32, (p, width))
+    if t.data_ptr() % 8:
+        raise ValueError(f"{kernel} kernel: {name} needs an 8-byte aligned "
+                         "base")
+
+
+def adjoint_ins(kernel: str, p: int, g_pos, g_depth, g_normal, g_friction,
+                out, out_shape, device):
+    """The output adjoints' pointers (0 for None: a zero adjoint), the
+    [p, POSE_INPUTS] adjoint rows `out` (new rows where None) and the
+    pointer to the [p, SHAPE_INPUTS] shape rows `out_shape` (0 for None:
+    the kernels' pose-only instance) of a narrowphase backward kernel,
+    checked: the kernels store a row as 8-byte words."""
     ptrs = []
     for name, g, row in (("g_pos", g_pos, (POINTS, 3)),
                          ("g_depth", g_depth, (POINTS,)),
-                         ("g_normal", g_normal, (3,))):
+                         ("g_normal", g_normal, (3,)),
+                         ("g_friction", g_friction, ())):
         if g is not None:
             _build.check_cuda(kernel, name, g, torch.float32, (p,) + row)
         ptrs.append(0 if g is None else _build.ptr(g))
     if out is None:
         out = torch.empty((p, POSE_INPUTS), dtype=torch.float32, device=device)
-    _build.check_cuda(kernel, "out", out, torch.float32, (p, POSE_INPUTS))
-    if out.data_ptr() % 8:
-        raise ValueError(f"{kernel} kernel: out needs an 8-byte aligned base")
-    return ptrs, out
+    _check_rows(kernel, "out", out, p, POSE_INPUTS)
+    if out_shape is not None:
+        _check_rows(kernel, "out_shape", out_shape, p, SHAPE_INPUTS)
+    shape_ptr = 0 if out_shape is None else _build.ptr(out_shape)
+    return ptrs, out, shape_ptr
 
 
 def box_box_adjoint_cuda(bx: Boxes, wc: WorldColliders, bb: CandidatePairs,
-                         g_pos, g_depth, g_normal, out=None):
+                         g_pos, g_depth, g_normal, out=None, g_friction=None,
+                         out_shape=None):
     """The backward kernel: the pose adjoint rows f32[P, 14] of the live
     pair slots, from the slots' pos, depth and normal adjoints (None: zero),
     into `out` where given (rows of `contacts._backward_kernels`' joined
-    buffer), else into new rows. A dead slot's row is left as it was:
-    `contacts.collider_entries` gives it the key the segment sum skips.
-    The per-box sums are `contacts.narrowphase_backward_cuda`'s."""
+    buffer), else into new rows. With `out_shape` ([P, SHAPE_INPUTS]) the
+    kernel's shape instance also writes each live slot's half-extent and
+    friction adjoints there, the frictions through the slots' friction
+    adjoint `g_friction` (None: zero). A dead slot's rows are left as they
+    were: `contacts.collider_entries` gives them the key the segment sum
+    skips. The per-box sums are `contacts.narrowphase_backward_cuda`'s."""
     nb = bx.half.shape[0]
     p = bb.a.shape[0]
     f32 = torch.float32
     ins = dict(half=(bx.half, f32, (nb, 3)), quat=(wc.box_quat, f32, (nb, 4)),
                pos=(wc.box_pos, f32, (nb, 3)),
+               friction=(bx.friction, f32, (nb,)),
                a=(bb.a, torch.int32, (p,)), b=(bb.b, torch.int32, (p,)),
                valid=(bb.valid, torch.bool, (p,)))
     for name, (t, dt, shape) in ins.items():
         _build.check_cuda("box_box_bwd", name, t, dt, shape)
-    g_ptrs, out = adjoint_ins("box_box_bwd", p, g_pos, g_depth, g_normal, out,
-                              bx.half.device)
+    g_ptrs, out, shape_ptr = adjoint_ins(
+        "box_box_bwd", p, g_pos, g_depth, g_normal, g_friction, out,
+        out_shape, bx.half.device)
     _build.library().call("nudge_box_box_bwd",
                           *[_build.ptr(t) for t, _, _ in ins.values()], p,
-                          *g_ptrs, _build.ptr(out), _build.stream_of(bx.half))
+                          *g_ptrs, _build.ptr(out), shape_ptr,
+                          _build.stream_of(bx.half))
     box_box_adjoint_cuda.launches += 1
     return out
 

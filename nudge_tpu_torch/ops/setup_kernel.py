@@ -56,6 +56,9 @@ class PackedConstraints:
     valid: torch.Tensor        # bool[M]
     spill_count: torch.Tensor  # i32
     spill_color: torch.Tensor  # i32
+    # the bodies' inverse masses or inertias carry a gradient: the solve's
+    # backward then runs its mass instance (solver_kernel.SolveFn)
+    mass_grad: bool = False
 
     @property
     def t1(self):
@@ -199,22 +202,30 @@ def _setup_launch(bodies: Bodies, man: Manifolds, warm, pwarm, relax,
     return rows, work, frame, velw
 
 
-# setup's inputs that carry a gradient, in SetupFn's order
+# setup's inputs that carry a gradient, in SetupFn's order; the last three
+# (MASS_INPUTS) take the backward kernel's mass instance
 GRAD_INPUTS = ("pos", "quat", "vel", "angvel", "normal", "pos_m", "depth",
-                "warm", "pwarm")
+               "warm", "pwarm", "inv_mass", "inv_inertia", "friction")
+MASS_INPUTS = GRAD_INPUTS[-3:]
+# the per-body adjoint rows of the backward kernel: pos, quat, vel, angvel;
+# the mass instance's also inv_mass and inv_inertia (csrc/setup.cu)
+BODY_INPUTS, BODY_INPUTS_MASS = 13, 17
 
 
 def _grad_inputs(bodies: Bodies, man: Manifolds, warm, pwarm):
     return (bodies.pos, bodies.quat, bodies.vel, bodies.angvel, man.normal,
-            man.pos, man.depth, warm, pwarm)
+            man.pos, man.depth, warm, pwarm, bodies.inv_mass,
+            bodies.inv_inertia, man.friction)
 
 
 def _setup_bwd_launch(ins, consts, cfg: SimConfig, use_pwarm: bool, d_rows,
-                      d_work, d_frame, d_velw):
+                      d_work, d_frame, d_velw, mass: bool = False):
     """The backward kernel alone: (adj_body f32[2M, 13], the live
     manifolds' body rows, row 2i + side; static_keys i32[2M], the body of a
     live manifold's static side, else INT32_MAX; the adjoints of normal,
-    pos, depth, warm and pwarm, every manifold written)."""
+    pos, depth, warm and pwarm, every manifold written). With `mass` the
+    kernel's mass instance: adj_body rows of 17 (inv_mass and inv_inertia
+    after angvel) and, last, the manifolds' friction adjoints f32[M]."""
     m = ins["normal"].shape[0]
     dev = ins["normal"].device
     f32 = torch.float32
@@ -224,10 +235,12 @@ def _setup_bwd_launch(ins, consts, cfg: SimConfig, use_pwarm: bool, d_rows,
                            ("d_velw", d_velw, (ins["pos"].shape[0], VEL_ROW))):
         _build.check_cuda("setup_bwd", name, t, f32, shape)
     P = CONTACT_POINTS
-    adj_body = torch.empty((2 * m, 13), dtype=f32, device=dev)
+    width = BODY_INPUTS_MASS if mass else BODY_INPUTS
+    adj_body = torch.empty((2 * m, width), dtype=f32, device=dev)
     static_keys = torch.empty(2 * m, dtype=torch.int32, device=dev)
     adj = [torch.empty(shape, dtype=f32, device=dev) for shape in
            ((m, 3), (m, P, 3), (m, P), (m, P, 3), (m, P))]
+    adj_fric = torch.empty(m, dtype=f32, device=dev) if mass else None
     names = ("pos", "quat", "vel", "angvel", "inv_mass", "inv_inertia",
              "body_a", "body_b", "normal", "friction", "pos_m", "depth",
              "point_valid", "warm", "pwarm", "order", "offsets")
@@ -237,42 +250,51 @@ def _setup_bwd_launch(ins, consts, cfg: SimConfig, use_pwarm: bool, d_rows,
         int(cfg.warm_start), int(use_pwarm), _build.ptr(d_rows),
         _build.ptr(d_work), _build.ptr(d_frame), _build.ptr(d_velw),
         _build.ptr(adj_body), *[_build.ptr(t) for t in adj],
-        _build.ptr(static_keys), _build.stream_of(d_rows))
+        _build.ptr(static_keys), 0 if adj_fric is None else
+        _build.ptr(adj_fric), _build.stream_of(d_rows))
     setup_backward_cuda.launches += 1
+    if mass:
+        adj.append(adj_fric)
     return adj_body, static_keys, adj
 
 
 def setup_backward_cuda(bodies: Bodies, man: Manifolds, warm, pwarm, relax,
                         order: SlotOrder, cfg: SimConfig, use_pwarm: bool,
-                        d_rows, d_work, d_frame, d_velw):
+                        d_rows, d_work, d_frame, d_velw, mass: bool = False):
     """The backward of `_setup_launch`: the adjoints of GRAD_INPUTS from
-    those of (rows, work, frame, velw). The backward kernel (one quad a
-    live slot) writes the manifolds' input adjoints and each live
-    manifold's body rows; the per-body sums (csrc/setup.cu
-    setup_body_sum_kernel, one warp a body, fixed order) walk a dynamic
-    body's rows through the forward's body-sorted lists (`order`: live
-    dynamic entries) and a static body's through one stable sort of the
-    static-body keys the kernel wrote, the only entries those lists do
-    not hold; velw's own adjoint goes to vel and angvel (velw = v | w +
-    the warm-start changes). The work rows' scratch part (the warm-start
-    changes, which the solve overwrites before it reads them) takes no
-    adjoint."""
+    those of (rows, work, frame, velw), without MASS_INPUTS' unless `mass`.
+    The backward kernel (one quad a live slot) writes the manifolds' input
+    adjoints and each live manifold's body rows; the per-body sums
+    (csrc/setup.cu setup_body_sum_kernel, one warp a body, fixed order)
+    walk a dynamic body's rows through the forward's body-sorted lists
+    (`order`: live dynamic entries) and a static body's through one stable
+    sort of the static-body keys the kernel wrote, the only entries those
+    lists do not hold; velw's own adjoint goes to vel and angvel (velw = v
+    | w + the warm-start changes). The work rows' scratch part (the
+    warm-start changes, which the solve overwrites before it reads them)
+    takes no adjoint."""
     ins, consts = _setup_args(bodies, man, warm, pwarm, relax, order, cfg)
     adj_body, static_keys, adj = _setup_bwd_launch(
-        ins, consts, cfg, use_pwarm, d_rows, d_work, d_frame, d_velw)
+        ins, consts, cfg, use_pwarm, d_rows, d_work, d_frame, d_velw, mass)
     static_keys, static_perm = torch.sort(static_keys, stable=True)
     n = bodies.pos.shape[0]
     m = man.valid.shape[0]
+    widths = (3, 4, 3, 3) + ((1, 3) if mass else ())
     body = [torch.empty((n, w), dtype=torch.float32, device=d_rows.device)
-            for w in (3, 4, 3, 3)]
+            for w in widths]
+    mass_ptrs = [_build.ptr(t) for t in body[4:]] if mass else [0, 0]
     _build.library().call(
         "nudge_setup_body_sum", _build.ptr(bodies.inv_mass),
         *[_build.ptr(ins[k]) for k in ("keys_a", "perm_a", "keys_b",
                                         "perm_b")],
         _build.ptr(static_keys), _build.ptr(static_perm),
         _build.ptr(adj_body), _build.ptr(d_velw), m, n,
-        *[_build.ptr(t) for t in body], _build.stream_of(d_rows))
-    return (*body, *adj)
+        *[_build.ptr(t) for t in body[:4]], *mass_ptrs,
+        _build.stream_of(d_rows))
+    out = (*body[:4], *adj[:5])
+    if mass:
+        out += (body[4].reshape(n), body[5], adj[5])
+    return out
 
 
 setup_backward_cuda.launches = 0
@@ -282,12 +304,14 @@ class SetupFn(torch.autograd.Function):
     """The setup kernels as one autograd node on the card: the forward is
     `_setup_launch` and saves the tensors its backward reads (an in-place
     write to one before the backward raises), the backward
-    `setup_backward_cuda`. Inputs with a gradient: GRAD_INPUTS; outputs:
-    (rows, work, frame, velw)."""
+    `setup_backward_cuda`, its mass instance only when one of MASS_INPUTS
+    needs a gradient. Inputs with a gradient: GRAD_INPUTS; outputs: (rows,
+    work, frame, velw)."""
 
     @staticmethod
     def forward(ctx, pos, quat, vel, angvel, normal, mpos, depth, warm, pwarm,
-                bodies, man, relax, order, cfg, use_pwarm):
+                inv_mass, inv_inertia, friction, bodies, man, relax, order,
+                cfg, use_pwarm):
         saved, ctx.rebuild = flatten((bodies, man, warm, pwarm, relax, order))
         ctx.save_for_backward(*saved)
         ctx.cfg, ctx.use_pwarm = cfg, use_pwarm
@@ -305,10 +329,13 @@ class SetupFn(torch.autograd.Function):
                                 device=bodies.pos.device)
                     if g is None else g.contiguous())
 
+        k = len(GRAD_INPUTS)
+        mass = any(ctx.needs_input_grad[k - len(MASS_INPUTS):k])
         grads = setup_backward_cuda(
             bodies, man, warm, pwarm, relax, order, ctx.cfg, ctx.use_pwarm,
             dense(d_rows, (ROWS, m)), dense(d_work, (WORK_ROWS, m)),
-            dense(d_frame, (2, m, 3)), dense(d_velw, (n, VEL_ROW)))
+            dense(d_frame, (2, m, 3)), dense(d_velw, (n, VEL_ROW)), mass)
+        grads += (None,) * (k - len(grads))
         return (*grads, None, None, None, None, None, None)
 
 
@@ -325,8 +352,10 @@ def setup_backward_plain(bodies: Bodies, man: Manifolds, warm, cfg: SimConfig,
               for t in _grad_inputs(bodies, man, warm, pwarm)]
     with torch.enable_grad():
         b2 = bodies.replace(pos=leaves[0], quat=leaves[1], vel=leaves[2],
-                            angvel=leaves[3])
-        m2 = man.replace(normal=leaves[4], pos=leaves[5], depth=leaves[6])
+                            angvel=leaves[3], inv_mass=leaves[9],
+                            inv_inertia=leaves[10])
+        m2 = man.replace(normal=leaves[4], pos=leaves[5], depth=leaves[6],
+                         friction=leaves[11])
         con, velw, acc = setup_plain(b2, m2, leaves[7], cfg, coloring,
                                      leaves[8])
         packed, work = pack_constraints(con, acc, order)
@@ -355,21 +384,15 @@ def setup_cuda(bodies: Bodies, man: Manifolds, warm, cfg: SimConfig,
     if pwarm is None:
         pwarm = torch.zeros(man.depth.shape, dtype=torch.float32,
                             device=bodies.pos.device)
-    if torch.is_grad_enabled():
-        for name, t in (("inv_mass", bodies.inv_mass),
-                        ("inv_inertia", bodies.inv_inertia),
-                        ("friction", man.friction)):
-            if t.requires_grad:
-                raise NotImplementedError(
-                    f"setup: the kernels' backward gives no gradient to "
-                    f"{name}")
     rows, work, frame, velw = SetupFn.apply(
         *_grad_inputs(bodies, man, warm, pwarm), bodies, man, relax, order,
         cfg, use_pwarm)
+    mass_grad = torch.is_grad_enabled() and (bodies.inv_mass.requires_grad or
+                                             bodies.inv_inertia.requires_grad)
     con = PackedConstraints(
         rows=rows, frame=frame, n=man.normal, order=order, color=color,
         n_colors=n_colors, valid=man.valid, spill_count=spill,
-        spill_color=spill_color)
+        spill_color=spill_color, mass_grad=mass_grad)
     return con, velw, work
 
 

@@ -187,7 +187,8 @@ def solve_cuda(velw, con, acc, cfg: SimConfig):
     on copies of velw and the work rows, with a tape."""
     if torch.is_grad_enabled() and (velw.requires_grad or acc.requires_grad
                                     or con.rows.requires_grad):
-        velw, out = SolveFn.apply(velw, con.rows, acc, con, cfg)
+        velw, out = SolveFn.apply(velw, con.rows, acc, con, cfg,
+                                  con.mass_grad)
     else:
         velw, out = _solve_launch(velw, con, acc, cfg)
     return velw, (out[0], out[1], out[2]), out[3]
@@ -204,27 +205,56 @@ def solve_bwd_cluster_size() -> int:
 
 
 def _solve_bwd_launch(rows, tape, order_ptrs, cfg: SimConfig, adj_velw,
-                      adj_acc, adj_rows, adj_static, scratch):
+                      adj_acc, adj_rows, adj_static, scratch, statics=None):
     """One launch of the reverse-sweep kernel alone, on checked buffers
     (`solve_backward_cuda` makes them): adj_velw and adj_acc in and out,
-    adj_rows and adj_static added into."""
+    adj_rows and adj_static added into. With `statics` (`static_entries`)
+    the kernel's mass instance."""
+    static_ptrs = ([0, 0, 0] if statics is None
+                   else [_build.ptr(t) for t in statics])
     _build.library().call(
         "nudge_solve_bwd", _build.ptr(rows), _build.ptr(tape),
         _build.ptr(adj_velw), _build.ptr(adj_acc), _build.ptr(adj_rows),
         _build.ptr(adj_static), _build.ptr(scratch), *order_ptrs,
-        rows.shape[1], cfg.solver_iters, int(cfg.split_impulse),
-        int(cfg.split_impulse and cfg.pseudo_friction),
+        *static_ptrs, rows.shape[1], cfg.solver_iters,
+        int(cfg.split_impulse), int(cfg.split_impulse and cfg.pseudo_friction),
         _build.stream_of(rows))
     solve_backward_cuda.launches += 1
 
 
-def solve_backward_cuda(rows, tape, con, cfg: SimConfig, d_velw, d_out):
+def static_entries(rows, offsets, n: int, cfg: SimConfig):
+    """The mass instance's static entries: every live slot's static side
+    (inverse mass 0) as entry 2 slot + side, sorted stably by (the slot's
+    color, body). Returns (body ids i32, entries i64, each color's first
+    entry i32[max_colors + 1])."""
+    K = cfg.max_colors
+    m = rows.shape[1]
+    dev = rows.device
+    ids = rows[ROW_OFFSET["body_a"]:ROW_OFFSET["body_b"] + 1].view(torch.int32)
+    im = rows[ROW_OFFSET["im_a"]:ROW_OFFSET["im_b"] + 1]
+    s = torch.arange(m, device=dev)
+    color = torch.searchsorted(offsets, s.to(offsets.dtype), right=True) - 1
+    static = (s < offsets[K])[None, :] & ~(im > 0.0)
+    key = torch.where(static, color[None, :].long() * n + ids.long(), K * n)
+    key, perm = torch.sort(key.T.reshape(-1), stable=True)   # entry 2 s + side
+    soff = torch.searchsorted(
+        key, torch.arange(K + 1, device=dev, dtype=torch.int64) * n,
+        out_int32=True)
+    return (torch.remainder(key, n).to(torch.int32).contiguous(),
+            perm.contiguous(), soff.contiguous())
+
+
+def solve_backward_cuda(rows, tape, con, cfg: SimConfig, d_velw, d_out,
+                        mass: bool = False):
     """The backward of `_solve_launch` with a tape: from the adjoints of
     the output velw and accumulators (d_out [4, M, 4], manifold order) the
     adjoints of the input velw, rows and work rows. The reverse-sweep
     kernel (csrc/solve_bwd.cu) leaves the adjoint of the static bodies'
     reads in one column a slot; a segment sum adds them per body in a fixed
-    order."""
+    order. With `mass` (the inverse masses or inertias carry a gradient)
+    the kernel's mass instance also writes the im rows' adjoints and keeps
+    each static body's running adjoint in adj_velw itself, through
+    `static_entries`; the per-body sum is then not run."""
     n = d_velw.shape[0]
     m = rows.shape[1]
     f32 = torch.float32
@@ -243,16 +273,19 @@ def solve_backward_cuda(rows, tape, con, cfg: SimConfig, d_velw, d_out):
     adj_rows = torch.zeros((ROWS, m), dtype=f32, device=dev)
     adj_static = torch.zeros((2 * VEL_ROW, m), dtype=f32, device=dev)
     scratch = torch.empty((4 * VEL_ROW, m), dtype=f32, device=dev)
+    statics = static_entries(rows, o.offsets, n, cfg) if mass else None
     _solve_bwd_launch(rows, tape, order_ptrs, cfg, adj_velw, adj_acc,
-                      adj_rows, adj_static, scratch)
-    # the static sides' reads, summed per body onto adj_velw
+                      adj_rows, adj_static, scratch, statics)
     live = torch.arange(m, device=dev) < o.offsets[cfg.max_colors]
-    ids = rows[ROW_OFFSET["body_a"]:ROW_OFFSET["body_b"] + 1].view(torch.int32)
-    im = rows[ROW_OFFSET["im_a"]:ROW_OFFSET["im_b"] + 1]
-    keys, perm = entries(ids.T, (live[None, :] & ~(im > 0.0)).T)
-    vals = adj_static.reshape(2, VEL_ROW, m).permute(2, 0, 1).reshape(
-        2 * m, VEL_ROW)
-    adj_velw = segment_sum(keys, perm, vals.contiguous(), n, adj_velw)
+    if not mass:
+        # the static sides' reads, summed per body onto adj_velw
+        ids = rows[ROW_OFFSET["body_a"]:ROW_OFFSET["body_b"] + 1].view(
+            torch.int32)
+        im = rows[ROW_OFFSET["im_a"]:ROW_OFFSET["im_b"] + 1]
+        keys, perm = entries(ids.T, (live[None, :] & ~(im > 0.0)).T)
+        vals = adj_static.reshape(2, VEL_ROW, m).permute(2, 0, 1).reshape(
+            2 * m, VEL_ROW)
+        adj_velw = segment_sum(keys, perm, vals.contiguous(), n, adj_velw)
     d_work = torch.cat([adj_acc * live, torch.zeros(
         (WORK_ROWS - 4 * CONTACT_POINTS, m), dtype=f32, device=dev)])
     return adj_velw, adj_rows, d_work
@@ -266,18 +299,19 @@ class SolveFn(torch.autograd.Function):
     `_solve_launch` on copies of velw and the work rows (the kernel writes
     them in place; autograd must not see an input change) with a tape
     sized by capacity, [solver_iters, TAPE_ROWS, M] floats; the backward is
-    `solve_backward_cuda`. Inputs with a gradient: velw, the rows, the work
-    rows; outputs: velw and the accumulators [4, M, 4]."""
+    `solve_backward_cuda`, its mass instance with `mass`. Inputs with a
+    gradient: velw, the rows, the work rows; outputs: velw and the
+    accumulators [4, M, 4]."""
 
     @staticmethod
-    def forward(ctx, velw, rows, work, con, cfg):
+    def forward(ctx, velw, rows, work, con, cfg, mass=False):
         m = rows.shape[1]
         tape = torch.empty((cfg.solver_iters, TAPE_ROWS, m),
                            dtype=torch.float32, device=rows.device)
         velw, out = _solve_launch(velw.clone(), con, work.clone(), cfg, tape)
         saved, ctx.rebuild = flatten((tape, con))
         ctx.save_for_backward(*saved)
-        ctx.cfg, ctx.n = cfg, velw.shape[0]
+        ctx.cfg, ctx.n, ctx.mass = cfg, velw.shape[0], mass
         return velw, out
 
     @staticmethod
@@ -292,8 +326,8 @@ class SolveFn(torch.autograd.Function):
                              device=dev)
                  if d_out is None else d_out.contiguous())
         d_velw_in, d_rows, d_work = solve_backward_cuda(
-            rows, tape, con, ctx.cfg, d_velw, d_out)
-        return d_velw_in, d_rows, d_work, None, None
+            rows, tape, con, ctx.cfg, d_velw, d_out, ctx.mass)
+        return d_velw_in, d_rows, d_work, None, None, None
 
 
 def solve_backward_plain(velw, con: solver.ContactConstraints, acc,

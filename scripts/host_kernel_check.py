@@ -25,7 +25,10 @@ their box and some coincident):
     autograd of the float64 twin (one-point), and against the parent's
     rows; the largest difference over the largest element;
   - dead slots: the rows the kernel leaves unwritten (filled with NaN
-    beforehand).
+    beforehand);
+  - where the tree's backward kernels have a shape instance: its pose rows
+    bitwise the pose-only instance's, and its shape rows (half extents,
+    radii, frictions) against autograd of the float32 twin.
 
 Needs g++. Prints one line per tree and case; exits non-zero when a check
 fails.
@@ -117,6 +120,90 @@ extern "C" void host_box_box_bwd(const float* half, const float* quat, const flo
   }, &a);
 }
 """
+# The same for trees whose backward kernels have a shape instance (a
+# friction input, the friction's adjoint, the shape rows: null for the
+# pose-only instance).
+BOX_BOX_SHAPE = r"""
+struct FwdArgs { const float *half, *quat, *wpos, *fric; const int *body, *pa, *pb; const bool* valid; int n; Outputs out; };
+struct BwdArgs { const float *half, *quat, *wpos, *fric; const int *pa, *pb; const bool* valid; int n; const float *gp, *gd, *gn, *gf; float *adj, *shp; };
+extern "C" void host_box_box(const float* half, const float* quat, const float* wpos, const float* fric,
+                             const int* body, const int* pa, const int* pb, const bool* valid, int n,
+                             float* normal, float* fr, int* ba, int* bb, float* pos, float* depth,
+                             int* feat, bool* pv, int* ga, int* gb) {
+  FwdArgs a{half, quat, wpos, fric, body, pa, pb, valid, n, Outputs{normal, fr, ba, bb, pos, depth, feat, pv, ga, gb}};
+  each_thread(n, [](void* c) {
+    auto& a = *(FwdArgs*)c;
+    box_box_kernel(a.half, a.quat, a.wpos, a.fric, a.body, a.pa, a.pb, a.valid, a.n, a.out);
+  }, &a);
+}
+extern "C" void host_box_box_bwd_shape(const float* half, const float* quat, const float* wpos,
+                                       const float* fric, const int* pa, const int* pb,
+                                       const bool* valid, int n, const float* gp, const float* gd,
+                                       const float* gn, const float* gf, float* adj, float* shp) {
+  BwdArgs a{half, quat, wpos, fric, pa, pb, valid, n, gp, gd, gn, gf, adj, shp};
+  each_thread(n, [](void* c) {
+    auto& a = *(BwdArgs*)c;
+    if (a.shp)
+      box_box_bwd_kernel<true>(a.half, a.quat, a.wpos, a.fric, a.pa, a.pb, a.valid, a.n, a.gp,
+                               a.gd, a.gn, a.gf, a.adj, a.shp);
+    else
+      box_box_bwd_kernel<false>(a.half, a.quat, a.wpos, a.fric, a.pa, a.pb, a.valid, a.n, a.gp,
+                                a.gd, a.gn, a.gf, a.adj, a.shp);
+  }, &a);
+}
+extern "C" void host_box_box_bwd(const float* half, const float* quat, const float* wpos, const int* pa,
+                                 const int* pb, const bool* valid, int n, const float* gp,
+                                 const float* gd, const float* gn, float* adj) {
+  host_box_box_bwd_shape(half, quat, wpos, nullptr, pa, pb, valid, n, gp, gd, gn, nullptr, adj,
+                         nullptr);
+}
+"""
+ONE_POINT_SHAPE = r"""
+struct FwdArgs { Colliders c; Pairs in; int nb, n_bs, n_ss; Slots out; };
+struct BwdArgs { Colliders c; Pairs in; int n_bs, n_ss; const float *gp, *gd, *gn, *gf; float *adj, *shp; };
+extern "C" void host_pairs_1pt(const float* half, const float* box_quat, const float* box_pos,
+                               const float* box_fric, const int* box_body, const float* radius,
+                               const float* sph_pos, const float* sph_fric, const int* sph_body,
+                               const int* bs_a, const int* bs_b, const bool* bs_valid, const int* ss_a,
+                               const int* ss_b, const bool* ss_valid, int nb, int n_bs, int n_ss,
+                               float* normal, float* fr, int* ba, int* bb, float* pos, float* depth,
+                               int* feat, bool* pv, int* ga, int* gb) {
+  FwdArgs a{Colliders{half, box_quat, box_pos, box_fric, box_body, radius, sph_pos, sph_fric, sph_body},
+            Pairs{bs_a, bs_b, bs_valid, ss_a, ss_b, ss_valid}, nb, n_bs, n_ss,
+            Slots{normal, fr, ba, bb, pos, depth, feat, pv, ga, gb}};
+  each_thread(n_bs + n_ss, [](void* c) {
+    auto& a = *(FwdArgs*)c;
+    pairs_1pt_kernel(a.c, a.in, a.nb, a.n_bs, a.n_ss, a.out);
+  }, &a);
+}
+extern "C" void host_pairs_1pt_bwd_shape(const float* half, const float* box_quat,
+                                         const float* box_pos, const float* box_fric,
+                                         const float* radius, const float* sph_pos,
+                                         const float* sph_fric, const int* bs_a, const int* bs_b,
+                                         const bool* bs_valid, const int* ss_a, const int* ss_b,
+                                         const bool* ss_valid, int n_bs, int n_ss, const float* gp,
+                                         const float* gd, const float* gn, const float* gf,
+                                         float* adj, float* shp) {
+  BwdArgs a{Colliders{half, box_quat, box_pos, box_fric, nullptr, radius, sph_pos, sph_fric, nullptr},
+            Pairs{bs_a, bs_b, bs_valid, ss_a, ss_b, ss_valid}, n_bs, n_ss, gp, gd, gn, gf, adj, shp};
+  each_thread(n_bs + n_ss, [](void* c) {
+    auto& a = *(BwdArgs*)c;
+    if (a.shp)
+      pairs_1pt_bwd_kernel<true>(a.c, a.in, a.n_bs, a.n_ss, a.gp, a.gd, a.gn, a.gf, a.adj, a.shp);
+    else
+      pairs_1pt_bwd_kernel<false>(a.c, a.in, a.n_bs, a.n_ss, a.gp, a.gd, a.gn, a.gf, a.adj, a.shp);
+  }, &a);
+}
+extern "C" void host_pairs_1pt_bwd(const float* half, const float* box_quat, const float* box_pos,
+                                   const float* radius, const float* sph_pos, const int* bs_a,
+                                   const int* bs_b, const bool* bs_valid, const int* ss_a,
+                                   const int* ss_b, const bool* ss_valid, int n_bs, int n_ss,
+                                   const float* gp, const float* gd, const float* gn, float* adj) {
+  host_pairs_1pt_bwd_shape(half, box_quat, box_pos, nullptr, radius, sph_pos, nullptr, bs_a, bs_b,
+                           bs_valid, ss_a, ss_b, ss_valid, n_bs, n_ss, gp, gd, gn, nullptr, adj,
+                           nullptr);
+}
+"""
 ONE_POINT = r"""
 struct FwdArgs { Colliders c; Pairs in; int nb, n_bs, n_ss; Slots out; };
 struct BwdArgs { Colliders c; Pairs in; int n_bs, n_ss; const float *gp, *gd, *gn; float* adj; };
@@ -162,9 +249,12 @@ def build(name: str, root: str) -> dict:
         if header.endswith(".cuh"):
             shutil.copy(os.path.join(csrc, header), out)
     libs = {}
-    for src, entries in (("narrowphase", BOX_BOX), ("narrowphase_1pt", ONE_POINT)):
+    for src, entries, with_shape in (("narrowphase", BOX_BOX, BOX_BOX_SHAPE),
+                                     ("narrowphase_1pt", ONE_POINT, ONE_POINT_SHAPE)):
         with open(os.path.join(csrc, src + ".cu")) as f:
             code = f.read()
+        if "kShapeInputs" in code:
+            entries = with_shape
         cpp = os.path.join(out, src + ".cpp")
         with open(cpp, "w") as f:
             f.write(code[:code.index('extern "C"')] + GRID_LOOP + entries)
@@ -266,6 +356,8 @@ def box_box_case(trees, label, x, seed):
         big = float(want[live].abs().max())
         err = float((adj[live] - want[live]).abs().max())
         edge = int((live & (out["feat"][:, 0] >= 1024)).sum())
+        if hasattr(libs["narrowphase"], "host_box_box_bwd_shape"):
+            box_box_shape_rows(libs["narrowphase"], label, x, fric, gp, gd, gn, adj, seed)
         print(f"{name}: box-box {label}: {n} slots, {int(live.sum())} live ({edge} "
               f"edge case); forward against the twin: integer fields that "
               f"differ {differ or 'none'}, floats {f_err:.2e} of the largest; "
@@ -280,6 +372,51 @@ def box_box_case(trees, label, x, seed):
               f"{float((a - b).abs().max()) / float(b.abs().max()):.2e} of the "
               "largest element", flush=True)
         assert not bits
+
+
+def shape_report(kind, label, got, want, pose_bits):
+    """Print and check a shape instance's rows against autograd: the
+    largest difference over the largest element, column group by group."""
+    errs = {k: float((got[k] - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            for k, w in want.items()}
+    print(f"committed: {kind} {label}: shape instance: "
+          + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+          + " of the largest element against float32 twin autograd; pose rows "
+          + ("bitwise the pose-only instance's" if pose_bits else "DIFFER from the pose-only"),
+          flush=True)
+    assert pose_bits and max(errs.values()) <= 1e-5
+
+
+def box_box_shape_rows(lib, label, x, fric, gp, gd, gn, adj, seed):
+    """The box-box kernel's shape instance: its pose rows bitwise the
+    pose-only instance's (`adj`), its shape rows (half extents and
+    frictions of both boxes) against autograd of the float32 twin."""
+    n = x["a"].shape[0]
+    live = x["valid"]
+    g = torch.Generator().manual_seed(seed + 100)
+    fr = torch.tensor(np.random.default_rng(seed).uniform(0.2, 1.0, 2 * n),
+                      dtype=torch.float32)
+    gf = torch.randn(n, generator=g)
+    adj2 = torch.full((n, 14), float("nan"))
+    shp = torch.full((n, 10), float("nan"))
+    lib.host_box_box_bwd_shape(
+        ptr(x["half"]), ptr(x["quat"]), ptr(x["pos"]), ptr(fr), ptr(x["a"]), ptr(x["b"]),
+        ptr(live), n, ptr(gp), ptr(gd), ptr(gn), ptr(gf), ptr(adj2), ptr(shp))
+    pose_bits = torch.equal(adj2[live], adj[live]) and bool(shp[~live].isnan().all())
+    ia, ib = x["a"].long(), x["b"].long()
+    leaves = [t.clone().requires_grad_() for t in
+              (x["half"][ia], x["half"][ib], fr[ia], fr[ib])]
+    o = nps.box_box(leaves[0], x["quat"][ia], x["pos"][ia], leaves[1], x["quat"][ib],
+                    x["pos"][ib])
+    loss = ((o["pos"] * gp).sum() + (o["depth"] * gd).sum() + (o["normal"] * gn).sum()
+            + (npk.combine_friction(leaves[2], leaves[3]) * gf).sum())
+    w = torch.autograd.grad(loss, leaves)
+    want = dict(half_a=w[0][live], half_b=w[1][live], friction_a=w[2][live],
+                friction_b=w[3][live])
+    got = dict(half_a=shp[live, 0:3], half_b=shp[live, 5:8], friction_a=shp[live, 3],
+               friction_b=shp[live, 8])
+    assert bool((shp[live][:, [4, 9]] == 0).all())
+    shape_report("box-box", label, got, want, pose_bits)
 
 
 def one_point_case(trees, seed, nb=600, ns=600, n_bs=1500, n_ss=1500):
@@ -365,6 +502,42 @@ def one_point_case(trees, seed, nb=600, ns=600, n_bs=1500, n_ss=1500):
         dead = "NaN (unwritten)" if bool(adj[~live].isnan().all()) else "written"
         errs = [float((k - z).abs().max()) / float(z.abs().max())
                 for k, z in zip(collider_sums(adj), want64)]
+        lib = libs["narrowphase_1pt"]
+        if hasattr(lib, "host_pairs_1pt_bwd_shape"):
+            gf = torch.randn(rows, generator=gen)
+            bf = torch.tensor(g.uniform(0.2, 1.0, nb), dtype=torch.float32)
+            sf = torch.tensor(g.uniform(0.2, 1.0, ns), dtype=torch.float32)
+            adj2 = torch.full((rows, 14), float("nan"))
+            shp = torch.full((rows, 10), float("nan"))
+            lib.host_pairs_1pt_bwd_shape(
+                ptr(half), ptr(quat), ptr(bpos), ptr(bf), ptr(radius), ptr(spos), ptr(sf),
+                ptr(bs_a), ptr(bs_b), ptr(bs_valid), ptr(ss_a), ptr(ss_b), ptr(ss_valid),
+                n_bs, n_ss, ptr(gp), ptr(gd), ptr(gn), ptr(gf), ptr(adj2), ptr(shp))
+            pose_bits = torch.equal(adj2[live], adj[live]) and bool(shp[~live].isnan().all())
+            a_, b_, c_, d_ = bs_a.long(), bs_b.long(), ss_a.long(), ss_b.long()
+            lv = [t.clone().requires_grad_() for t in
+                  (half[a_], radius[b_], bf[a_], sf[b_], radius[c_], radius[d_], sf[c_],
+                   sf[d_])]
+            m1 = nps.box_sphere(lv[0], quat[a_], bpos[a_], lv[1], spos[b_])
+            m2 = nps.sphere_sphere(lv[4], spos[c_], lv[5], spos[d_])
+            loss = 0.0
+            for m, fr, sl in ((m1, npk.combine_friction(lv[2], lv[3]), slice(0, n_bs)),
+                              (m2, npk.combine_friction(lv[6], lv[7]), slice(n_bs, rows))):
+                loss = loss + (((m["pos"] * gp[sl, 0]).sum(1) + m["depth"] * gd[sl, 0]
+                                + (m["normal"] * gn[sl]).sum(1) + fr * gf[sl])
+                               * live[sl]).sum()
+            w = torch.autograd.grad(loss, lv)
+            lb, ls = bs_valid, ss_valid
+            want = dict(half=w[0][lb], radius_b=torch.cat([w[1][lb], w[5][ls]]),
+                        friction_a=torch.cat([w[2][lb], w[6][ls]]),
+                        friction_b=torch.cat([w[3][lb], w[7][ls]]), radius_a=w[4][ls])
+            sb, ss_ = shp[:n_bs][lb], shp[n_bs:][ls]
+            got = dict(half=sb[:, 0:3], radius_b=torch.cat([sb[:, 9], ss_[:, 9]]),
+                       friction_a=torch.cat([sb[:, 3], ss_[:, 3]]),
+                       friction_b=torch.cat([sb[:, 8], ss_[:, 8]]), radius_a=ss_[:, 4])
+            zero = torch.cat([sb[:, [4, 5, 6, 7]].reshape(-1), ss_[:, [0, 1, 2, 5, 6, 7]].reshape(-1)])
+            assert bool((zero == 0).all())
+            shape_report("one-point", f"seed {seed}", got, want, pose_bits)
         print(f"{name}: one-point seed {seed}: {rows} rows, {int(live.sum())} live; "
               f"forward against the twin: integer fields that differ "
               f"{differ or 'none'}, floats {f_err:.2e} of the largest; "

@@ -44,7 +44,14 @@ For each, in a process of its own:
     the backward kernel alone (device time and operations a call) and the
     whole call `contacts.narrowphase_backward_cuda` (the kernels, the
     collider sort, the segment sum: device time, device operations a call
-    and the wrapper's time).
+    and the wrapper's time);
+  - where the tree has them, the backward kernels' shape and mass
+    instances (the gradients of the half extents, radii, frictions,
+    inverse masses and inertias) timed beside the instances without, in
+    the same process; and each backward call's outputs are saved, so
+    that with --parent the two trees' outputs are compared bit for bit at
+    the end (the instances without the new work must give the parent's
+    bits).
 
 The pile's and config 3's states are made once by the committed kernels
 and shared by both trees. Needs one NVIDIA GPU; prints the card's name and power limit, then
@@ -258,6 +265,23 @@ def kernel_ms(fn, kernel):
     return (total / count / 1e3 if count else float("nan")), count, top
 
 
+def keep(name, case, out):
+    """Save a backward call's outputs for the trees' bitwise comparison."""
+    import torch
+
+    torch.save([x.cpu() for x in out], os.path.join(OUT, f"{name}_{case}.pt"))
+
+
+def same_bits(case):
+    """Whether the committed and the parent tree's saved outputs of `case`
+    are bitwise equal."""
+    import torch
+
+    a, b = (torch.load(os.path.join(OUT, f"{t}_{case}.pt"))
+            for t in ("committed", "parent"))
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 def setup_backward_case(cs, name, inputs, cfg):
     import torch
 
@@ -289,11 +313,27 @@ def setup_backward_case(cs, name, inputs, cfg):
     ops = cs.fmt_ops(timing().device_ops(call))
     k_ms, k_n, top = kernel_ms(call, "setup_bwd_kernel")
     ms = cs.timed(call, reps=REPS)
+    keep(name, "setup_bwd", call())
     print(f"{name}: setup_bwd awake pile: {int(man.valid.sum())} live "
           f"manifolds; the call: device {dev_ms:.4f} ms (a call enqueues "
           f"{ops}), wrapper {ms:.4f} ms; setup_bwd_kernel alone {k_ms:.4f} "
           f"ms (profiler, {k_n} of {PROFILED} launches recorded); the call's "
           f"largest kernels, ms a call: {top}", flush=True)
+    if hasattr(setup_kernel, "MASS_INPUTS"):
+        ins, consts = setup_kernel._setup_args(bodies, man, warm, pwarm,
+                                               col[2], order, cfg)
+        for mass in (False, True):
+            def alone():
+                return setup_kernel._setup_bwd_launch(
+                    ins, consts, cfg, args[7], d_rows, d_work, d_frame,
+                    d_velw, mass)
+            a_ms = timing().device_ms(alone, reps=REPS)
+            c_ms = timing().device_ms(
+                lambda: setup_kernel.setup_backward_cuda(*args, mass=mass),
+                reps=REPS)
+            print(f"{name}: setup_bwd {'mass' if mass else 'without'} "
+                  f"instance: the kernel alone {a_ms:.4f} ms (CUDA events), "
+                  f"the call {c_ms:.4f} ms", flush=True)
 
 
 def narrowphase_backward_case(cs, name, label, st, cfg, kernel):
@@ -335,11 +375,34 @@ def narrowphase_backward_case(cs, name, label, st, cfg, kernel):
     dev_ms = timing().device_ms(call, reps=REPS)
     ops = cs.fmt_ops(timing().device_ops(call))
     ms = cs.timed(call, reps=REPS)
+    keep(name, f"{kernel}_bwd", call())
     print(f"{name}: {kernel}_bwd {label}: {rows.stop - rows.start} slots, "
           f"{int(live[rows].sum())} live; {kernel}_bwd_kernel alone "
           f"{k_ms:.4f} ms (a call enqueues {k_ops}); the call "
           f"(narrowphase_backward_cuda): device {dev_ms:.4f} ms (a call "
           f"enqueues {ops}), wrapper {ms:.4f} ms", flush=True)
+    if hasattr(npk, "SHAPE_INPUTS"):
+        fr = torch.randn(n, generator=gen, device=dev) * w
+        shp = torch.empty((n, npk.SHAPE_INPUTS), device=dev)
+
+        def shape_alone():
+            if kernel == "box_box":
+                return npk.box_box_adjoint_cuda(
+                    st.boxes, wc, bb, *g, g_friction=fr[rows],
+                    out_shape=shp[rows])
+            return p1pt.pairs_1pt_adjoint_cuda(
+                st.boxes, st.spheres, wc, bs, ss, *g, g_friction=fr[rows],
+                out_shape=shp[rows])
+
+        sg = dict(grads, friction=fr)
+        s_ms = timing().device_ms(shape_alone, reps=REPS)
+        c_ms = timing().device_ms(
+            lambda: contacts.narrowphase_backward_cuda(st, wc, bb, bs, ss, sg,
+                                                       shapes=True),
+            reps=REPS)
+        print(f"{name}: {kernel}_bwd {label} shape instance: the kernel "
+              f"alone {s_ms:.4f} ms (without {k_ms:.4f}), the call {c_ms:.4f} "
+              f"ms (without {dev_ms:.4f})", flush=True)
 
 
 def solve_backward_case(cs, name, inputs, cfg, label):
@@ -350,8 +413,11 @@ def solve_backward_case(cs, name, inputs, cfg, label):
     bodies, man, warm, pwarm, col, order = inputs
     dev = bodies.pos.device
     m, n = man.valid.shape[0], bodies.pos.shape[0]
-    tcon, tvelw, tacc = setup_kernel.setup_plain(bodies, man, warm, cfg, col,
-                                                 pwarm)
+    # the twin's warm start sums with index_add: deterministic algorithms
+    # make its inputs the same bits in both trees' processes
+    with cs.Deterministic():
+        tcon, tvelw, tacc = setup_kernel.setup_plain(bodies, man, warm, cfg,
+                                                     col, pwarm)
     packed, work = setup_kernel.pack_constraints(tcon, tacc, order)
     tape = torch.empty((cfg.solver_iters, solver_kernel.TAPE_ROWS, m),
                        dtype=torch.float32, device=dev)
@@ -370,6 +436,18 @@ def solve_backward_case(cs, name, inputs, cfg, label):
     ops = cs.fmt_ops(timing().device_ops(call))
     k_ms, k_n, top = kernel_ms(call, "solve_bwd_kernel")
     ms = cs.timed(call, reps=REPS)
+    keep(name, f"solve_bwd_{label.split()[0]}", call())
+    if hasattr(solver_kernel, "static_entries"):
+        def mass_call():
+            return solver_kernel.solve_backward_cuda(
+                packed.rows, tape, packed, cfg, g_v, g_o, True)
+        m_call = cs.timed(mass_call, reps=REPS)
+        m_ms, m_n, _ = kernel_ms(mass_call, "solve_bwd_kernel")
+        print(f"{name}: solve_bwd awake pile, {label}, mass instance: the "
+              f"call {m_call:.4f} ms (CUDA events around the calls, host "
+              f"included; without {ms:.4f}); the kernel alone {m_ms:.4f} ms "
+              f"(profiler, {m_n} of {PROFILED} launches recorded; without "
+              f"{k_ms:.4f})", flush=True)
     print(f"{name}: solve_bwd awake pile, {label}: {int(tcon.n_colors)} "
           f"colors, {int(tcon.spill_count)} spilled, "
           f"{int(man.valid.sum())} live manifolds, {cfg.solver_iters} sweeps; "
@@ -456,6 +534,15 @@ def main():
             failed.append(os.path.basename(root))
     if failed:
         raise SystemExit(f"trees that failed: {failed}")
+    if len(trees) == 2:
+        cases = sorted({f[len("committed_"):-3] for f in os.listdir(OUT)
+                        if f.startswith("committed_") and f.endswith(".pt")})
+        differ = [c for c in cases if not same_bits(c)]
+        print(f"backward outputs, committed against parent: {len(cases)} "
+              f"calls ({', '.join(cases)}), bitwise equal except "
+              f"{differ or 'none'}", flush=True)
+        if differ:
+            raise SystemExit(f"backward outputs that differ: {differ}")
 
 
 if __name__ == "__main__":

@@ -139,6 +139,125 @@ def test_batched_grads_match_sequential(pile4):
         assert_close(gb[i], g, 2e-4, f"lane {i}")
 
 
+# --- the bodies' and colliders' parameters --------------------------------
+# The leaves a system-identification loss fits: (the state's part, field).
+# On the card the backward kernels give these through their shape and mass
+# instances (tests/test_torch_backward.py, chip_smoke.py phase 18); on the
+# CPU both packages differentiate their twins.
+
+def _with_leaves(st, leaves: dict):
+    """`st` with its (part, field) tensors replaced by `leaves`' values."""
+    parts = {}
+    for (part, field), x in leaves.items():
+        parts.setdefault(part, {})[field] = x
+    return st.replace(**{part: getattr(st, part).replace(**kw)
+                         for part, kw in parts.items()})
+
+
+def _targets_loss(pos, targets, xp):
+    return sum(xp.sum((pos[i] - xp.asarray(t)) ** 2) for i, t in targets)
+
+
+def _port_param_grads(st0, cfg, steps, keys, targets):
+    """(loss, {key: d loss / d leaf}) of the port's rollout from st0."""
+    leaves = {k: getattr(getattr(st0, k[0]), k[1]).clone().requires_grad_()
+              for k in keys}
+    st = _with_leaves(st0, leaves)
+    for _ in range(steps):
+        st, _ = engine.step(st, cfg)
+    loss = _targets_loss(st.bodies.pos, [(i, torch.tensor(t)) for i, t in
+                                         targets], torch)
+    got = torch.autograd.grad(loss, list(leaves.values()))
+    return float(loss.detach()), dict(zip(keys, got))
+
+
+def _jax_param_grads(jst0, jcfg, steps, keys, targets):
+    """The same through the JAX package's rollout and jax.grad."""
+    def loss(xs):
+        st = _with_leaves(jst0, dict(zip(keys, xs)))
+
+        def body(s, _):
+            s, _ = jengine.step(s, jcfg)
+            return s, None
+
+        st, _ = jax.lax.scan(body, st, None, length=steps)
+        return _targets_loss(st.bodies.pos, targets, jnp)
+
+    x0 = [getattr(getattr(jst0, k[0]), k[1]) for k in keys]
+    val, g = jax.jit(jax.value_and_grad(loss))(x0)
+    return float(val), dict(zip(keys, g))
+
+
+PILE_PARAMS = (("bodies", "inv_mass"), ("bodies", "inv_inertia"),
+               ("boxes", "half"))
+
+
+def test_mass_inertia_and_half_grads_match_jax(pile4):
+    """The 4-body rollout's loss differentiated with respect to every
+    body's inverse mass and inertia and every box's half extents, the
+    static ground's too (its inverse mass takes the warm start's, the
+    effective masses' and the solve's terms even though it is 0), against
+    jax.grad of the same rollout."""
+    targets = [(1, TARGET)]
+    loss, g = _port_param_grads(pile4["st0"], pile4["cfg"], STEPS,
+                                PILE_PARAMS, targets)
+    jl, jg = _jax_param_grads(pile4["jst0"], pile4["jcfg"], STEPS,
+                              PILE_PARAMS, targets)
+    assert abs(loss - jl) <= LOSS_RTOL * abs(jl)
+    assert float(pile4["st0"].bodies.inv_mass[0]) == 0.0   # the ground
+    assert abs(float(g[("bodies", "inv_mass")][0])) > 1e-2
+    for k in PILE_PARAMS:
+        assert float(torch.linalg.norm(g[k])) > 1e-3, k
+        assert_close(g[k], jg[k], GRAD_ATOL, f"d loss / d {k[0]}.{k[1]}")
+
+
+def _sliding_scene(pkg):
+    """A box sliding and a sphere rolling across the ground, both launched
+    sideways at a few m/s, the sphere starting in contact. The box is
+    tilted by 0.1 rad, so it lands on an edge and its contact points have
+    distinct depths: flat on the ground its four corners tie in the
+    4-point reduction, where the two packages may order them differently
+    (ROADMAP Queue 3) and the solve then takes them in another order."""
+    b = pkg.SceneBuilder()
+    b.add_static_box((8.0, 0.5, 8.0), (0.0, -0.5, 0.0), friction=0.6)
+    ax = np.array([1.0, 0.0, 0.6]) / np.sqrt(1.36)
+    tilt = tuple(np.append(ax * np.sin(0.05), np.cos(0.05)).astype(np.float32))
+    b.add_box((0.5, 0.4, 0.3), (-2.0, 0.42, 0.0), tilt, vel=(2.0, 0.0, 0.5),
+              friction=0.5)
+    b.add_sphere(0.35, (1.5, 0.345, -1.0), vel=(-0.5, 0.0, 2.5),
+                 friction=0.7)
+    return b
+
+
+SLIDE_STEPS = 30
+SLIDE_PARAMS = (("boxes", "friction"), ("spheres", "friction"),
+                ("spheres", "radius"), ("boxes", "half"),
+                ("bodies", "inv_mass"))
+SLIDE_TARGETS = [(1, (0.0, 0.4, 1.0)), (2, (1.0, 0.35, 0.0))]
+
+
+def test_friction_and_radius_grads_match_jax():
+    """A sliding box and a rolling sphere: their loss differentiated with
+    respect to both colliders' frictions (the ground's too), the sphere's
+    radius, the half extents and the inverse masses, against jax.grad; the
+    friction gradient is nonzero in the JAX package."""
+    b = _sliding_scene(scenes)
+    cfg = b.auto_config(differentiable=True, max_colors=4, solver_iters=8)
+    st0 = b.finalize(cfg, device="cpu")
+    jcfg = jax_cfg(cfg)
+    jst0 = _sliding_scene(jscenes).finalize(jcfg)
+    loss, g = _port_param_grads(st0, cfg, SLIDE_STEPS, SLIDE_PARAMS,
+                                SLIDE_TARGETS)
+    jl, jg = _jax_param_grads(jst0, jcfg, SLIDE_STEPS, SLIDE_PARAMS,
+                              SLIDE_TARGETS)
+    assert abs(loss - jl) <= LOSS_RTOL * abs(jl)
+    for k in (("boxes", "friction"), ("spheres", "friction"),
+              ("spheres", "radius")):
+        assert float(np.abs(np.asarray(jg[k])).max()) > 1e-3, k
+    for k in SLIDE_PARAMS:
+        assert_close(g[k], jg[k], GRAD_ATOL, f"d loss / d {k[0]}.{k[1]}")
+
+
 def test_dynamic_color_count_differentiates():
     """The port's counterpart of test_dynamic_bound_solver_rejects_grad:
     torch accepts a dynamic trip count, and the solve's sweep over the

@@ -8,7 +8,10 @@ chip_smoke.py phase 18); the tests marked gpu below hold setup's and the
 solve's backward kernels to them case by case (split impulse on and off,
 pseudo friction off, no warm start, a forced spill color, manifolds with
 fewer than 4 valid points, friction clamps at their bound; a static side
-in every case). They skip without a card; on one, with no JAX installed:
+in every case), also their mass instances (the inverse masses', inertias'
+and friction's adjoints), and the narrowphase kernels' shape instances
+against autograd of the joined twins. They skip without a card; on one,
+with no JAX installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_backward.py
 """
@@ -259,6 +262,49 @@ def test_one_point_twin_backward_matches_central_differences():
                                pb.clone().requires_grad_()])
 
 
+def test_box_box_twin_shape_backward_matches_central_differences():
+    """The box-box twin's gradient with respect to both boxes' half
+    extents (the face case's reference rectangle, depth and incident quad;
+    the edge case's edges, their clamps and separation) and of the pair
+    friction with respect to both frictions."""
+    ha, qa, pa, hb, qb, pb = _box_pairs()
+
+    def fn(ha, hb):
+        o = narrowphase.box_box(ha, qa, pa, hb, qb, pb)
+        return o["pos"], o["depth"], o["normal"]
+
+    _gradcheck(fn, [ha.clone().requires_grad_(), hb.clone().requires_grad_()])
+    fr = torch.tensor([0.3, 0.8], dtype=f64)
+    _gradcheck(narrowphase_kernel.combine_friction,
+               [fr.clone().requires_grad_(), fr.flip(0).requires_grad_()])
+
+
+def test_one_point_twin_shape_backward_matches_central_differences():
+    """The one-point twins' gradients with respect to the box's half
+    extents (a centre outside the box: the clamp's bounds; inside: the
+    least-penetrated face) and the radii."""
+    h = torch.tensor([[0.5, 0.4, 0.6], [0.5, 0.5, 0.5]], dtype=f64)
+    q = torch.stack([_q([0.2, 1.0, 0.1], 0.4),
+                     _q([1.0, 0.0, 0.0], 0.2)]).to(f64)
+    pa = torch.zeros((2, 3), dtype=f64)
+    r = torch.tensor([0.3, 0.4], dtype=f64)
+    pb = torch.tensor([[0.3, 0.65, 0.1], [0.1, 0.2, -0.1]], dtype=f64)
+    qs = torch.tensor([[0.3, 0.2, 0.1], [0.0, 0.5, 0.2]], dtype=f64)
+
+    def box_sphere(h, r):
+        o = narrowphase.box_sphere(h, q, pa, r, pb)
+        return o["pos"], o["depth"], o["normal"]
+
+    def sphere_sphere(ra, rb):
+        o = narrowphase.sphere_sphere(ra, pa, rb, qs)
+        return o["pos"], o["depth"], o["normal"]
+
+    _gradcheck(box_sphere, [h.clone().requires_grad_(),
+                            r.clone().requires_grad_()])
+    _gradcheck(sphere_sphere, [r.clone().requires_grad_(),
+                               r.flip(0).requires_grad_()])
+
+
 def _step_inputs(n=6, steps=25, **cfg_kw):
     """What a step of a small pressed pile hands setup and the solve."""
     b = scenes.scene_pile(n, seed=2)
@@ -331,6 +377,35 @@ def test_setup_twin_split_backward_matches_central_differences():
     _gradcheck(fn, [x.clone().requires_grad_() for x in ins])
 
 
+@pytest.mark.parametrize("split", [False, True])
+def test_setup_twin_mass_backward_matches_central_differences(split):
+    """setup_plain's gradient with respect to MASS_INPUTS (the bodies'
+    inverse masses and inertias, the static ground's too, and the
+    manifolds' friction) in float64: through the im rows, the effective
+    masses, the angular responses, the warm start's impulses and its
+    friction bound. With split impulse on, the pseudo warm start's
+    velocities are float32 (see the split test above), so only the
+    constraint part is checked there."""
+    kw = dict(split_impulse=False, restitution=0.4) if not split else {}
+    cfg, bodies, man, warm, pwarm, col = _valid_only(*_step_inputs(**kw))
+    assert bool((bodies.inv_mass == 0).any())
+
+    def fn(inv_mass, inv_inertia, friction):
+        b2 = bodies.replace(inv_mass=inv_mass, inv_inertia=inv_inertia)
+        m2 = man.replace(friction=friction)
+        if split:
+            con, b3, acc = solver.setup_constraints(b2, m2, warm, cfg, col,
+                                                    pwarm)
+            return (con.mn, con.jt1a, con.jnb, con.im_a, con.mu, b3.vel,
+                    b3.angvel, *acc)
+        con, velw, acc = setup_kernel.setup_plain(b2, m2, warm, cfg, col)
+        return (con.mn, con.mt1, con.jna, con.jt2b, con.im_b, con.mu, velw,
+                *acc)
+
+    _gradcheck(fn, [x.clone().requires_grad_() for x in
+                    (bodies.inv_mass, bodies.inv_inertia, man.friction)])
+
+
 def test_solve_twin_backward_matches_central_differences():
     """solve_plain in float64 over 2 sweeps of the valid manifolds: its
     adjoints of the input velocities, the accumulators and the constraint
@@ -359,6 +434,35 @@ def test_solve_twin_backward_matches_central_differences():
     ins = [velw.to(f64), acc[0].to(f64), acc[1].to(f64)] \
         + [getattr(con, f) for f in fields]
     _gradcheck(fn, [x.clone().requires_grad_() for x in ins])
+
+
+def test_solve_twin_mass_rows_backward_matches_central_differences():
+    """solve_plain in float64 over 2 sweeps: its adjoints of the im_a and
+    im_b rows (a static side's too, whose inverse mass is 0) and of the j
+    rows, against central differences."""
+    cfg, bodies, man, warm, pwarm, col = _valid_only(
+        *_step_inputs(solver_iters=2))
+    con, velw, acc = setup_kernel.setup_plain(
+        bodies.replace(**{f: getattr(bodies, f).float() for f in (
+            "pos", "quat", "vel", "angvel", "inv_mass", "inv_inertia")}),
+        man.replace(normal=man.normal.float(), pos=man.pos.float(),
+                    depth=man.depth.float(), friction=man.friction.float()),
+        warm.float(), cfg, (col[0], col[1], col[2].float(), col[3], col[4]),
+        pwarm.float())
+    con = con.replace(**{f: getattr(con, f).to(f64) for f, _ in
+                         solver_kernel.ROW_FIELDS
+                         if getattr(con, f).is_floating_point()})
+    assert bool((con.im_a == 0).any() | (con.im_b == 0).any())
+    fields = ("im_a", "im_b", "jna", "jnb", "jt1a", "jt2b")
+
+    def fn(*xs):
+        c = con.replace(**dict(zip(fields, xs)))
+        v, a, p = solver_kernel.solve_plain(
+            velw.to(f64), c, tuple(x.to(f64) for x in acc), cfg)
+        return (v, *a, p)
+
+    _gradcheck(fn, [getattr(con, f).clone().requires_grad_()
+                    for f in fields])
 
 
 def test_backward_wrappers_refuse_cpu_tensors():
@@ -600,3 +704,154 @@ def test_solve_backward_kernel_matches_plain(cuda, case):
         corner = (x - y).abs() <= SOLVE_CORNER * big
         assert not bool((far & ~corner).any()), (
             name, float((x.double() - z).abs().max()), big)
+
+
+# --- the shape and mass instances of the backward kernels on the card ------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spheres", [False, True])
+def test_narrowphase_shape_backward_kernels_match_plain(cuda, spheres):
+    """The narrowphase backward kernels' shape instances (half extents,
+    radii and frictions, through pos, depth, normal and the pair friction)
+    and their per-collider sums against autograd of the joined twins,
+    twice bitwise; their pose columns bitwise the pose-only instances'."""
+    b = scenes.scene_pile(300, sphere_frac=0.3 if spheres else 0.0, seed=5,
+                          walls=True)
+    cfg = b.auto_config(broadphase="grid")
+    st, _ = engine.simulate(b.finalize(cfg, device=cuda), cfg, 60)
+    wc = broadphase.world_colliders(st)
+    from nudge_tpu_torch.ops import grid
+    bb, bs, ss = grid.grid_broadphase(st, wc, cfg)
+    k = contacts.narrowphase_all(st, wc, bb, bs, ss, cfg)
+    p = contacts.narrowphase_joined_plain(st, wc, bb, bs, ss)
+    same = torch.cat([bb.valid, bs.valid, ss.valid])
+    for key in ("point_valid", "feat"):
+        same &= (k[key] == p[key]).all(1)
+    n = same.shape[0]
+    w = same.float()
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    grads = {"pos": torch.randn((n, 4, 3), generator=gen, device=cuda)
+             * w[:, None, None],
+             "depth": torch.randn((n, 4), generator=gen, device=cuda)
+             * w[:, None],
+             "normal": torch.randn((n, 3), generator=gen, device=cuda)
+             * w[:, None],
+             "friction": torch.randn(n, generator=gen, device=cuda) * w}
+    args = (st, wc, bb, bs, ss, grads)
+    kg = contacts.narrowphase_backward_cuda(*args, shapes=True)
+    again = contacts.narrowphase_backward_cuda(*args, shapes=True)
+    pose = contacts.narrowphase_backward_cuda(*args)
+    tg = contacts.narrowphase_backward_plain(*args, shapes=True)
+    names = ("box_pos", "box_quat", "sph_pos") + contacts.SHAPE_LEAVES
+    assert len(kg) == len(tg) == len(names)
+    for name, x, y, z in zip(names, kg, again, tg):
+        assert torch.equal(x, y), name
+        assert bool(torch.isfinite(x).all()), name
+        err = float((x - z).abs().max())
+        assert err <= SETUP_RTOL * max(float(z.abs().max()), 1e-30), (name,
+                                                                       err)
+    for x, y in zip(kg[:3], pose):
+        assert torch.equal(x, y)
+    if spheres:
+        assert int(bs.valid.sum() + ss.valid.sum()) > 0
+        assert float(kg[5].abs().max()) > 0.0    # the radii
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(CARD_CASES))
+def test_setup_mass_backward_kernel_matches_plain(cuda, case):
+    """setup's backward kernel's mass instance and its 17-column per-body
+    sums against autograd of the twin, every GRAD_INPUTS adjoint, twice
+    bitwise; the other inputs' adjoints bitwise the instance without."""
+    cfg, bodies, man, warm, pwarm, col, order = _card_inputs(cuda, case)
+    m, n = man.valid.shape[0], bodies.pos.shape[0]
+    live = torch.arange(m, device=cuda) < order.offsets[cfg.max_colors]
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    d_rows = torch.randn((solver_kernel.ROWS, m), generator=gen,
+                         device=cuda) * live
+    d_rows[solver_kernel.ROW_OFFSET["relax"]:] = 0.0
+    d_work = torch.randn((solver_kernel.WORK_ROWS, m), generator=gen,
+                         device=cuda) * live
+    d_work[16:] = 0.0
+    d_frame = torch.randn((2, m, 3), generator=gen, device=cuda) \
+        * man.valid[None, :, None]
+    d_velw = torch.randn((n, solver_kernel.VEL_ROW), generator=gen,
+                         device=cuda)
+    args = (bodies, man, warm, pwarm, col[2], order, cfg,
+            setup_kernel.uses_pwarm(pwarm, cfg), d_rows, d_work, d_frame,
+            d_velw)
+    kg = setup_kernel.setup_backward_cuda(*args, mass=True)
+    again = setup_kernel.setup_backward_cuda(*args, mass=True)
+    without = setup_kernel.setup_backward_cuda(*args)
+    tg = setup_kernel.setup_backward_plain(bodies, man, warm, cfg, col,
+                                           pwarm, order, d_rows, d_work,
+                                           d_frame, d_velw)
+    assert len(kg) == len(setup_kernel.GRAD_INPUTS) == len(tg)
+    for name, x, y in zip(setup_kernel.GRAD_INPUTS, kg, without):
+        assert torch.equal(x, y), name
+    for name, x, y, z in zip(setup_kernel.GRAD_INPUTS, kg, again, tg):
+        assert torch.equal(x, y), name
+        assert bool(torch.isfinite(x).all()), name
+        err = float((x - z).abs().max())
+        assert err <= SETUP_RTOL * float(z.abs().max()), (name, err)
+    static = bodies.inv_mass == 0.0
+    assert float(kg[-3][static].abs().max()) > 0.0   # a static body's
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(CARD_CASES))
+def test_solve_mass_backward_kernel_matches_plain(cuda, case):
+    """The solve's reverse-sweep kernel's mass instance (a static side's
+    running adjoint in adj_velw) against autograd of `solve_plain` in
+    float64: every row's adjoint, the im rows and a static side's j rows
+    too, and the velocities' and accumulators'."""
+    import dataclasses
+
+    cfg, bodies, man, warm, pwarm, col, order = _card_inputs(cuda, case)
+    con, velw, acc = setup_kernel.setup_plain(bodies, man, warm, cfg, col,
+                                              pwarm)
+    m, n = man.valid.shape[0], bodies.pos.shape[0]
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    g_v = torch.randn((n, solver_kernel.VEL_ROW), generator=gen, device=cuda)
+    g_o = torch.randn((4, m, 4), generator=gen, device=cuda) \
+        * man.valid[None, :, None]
+    tv, tf, ta = solver_kernel.solve_backward_plain(velw, con, acc, cfg, g_v,
+                                                    g_o)
+    fields = list(tf)
+    qv, qf, qa = solver_kernel.solve_backward_plain(
+        velw.double(), con.replace(**{f: getattr(con, f).double()
+                                      for f in fields}),
+        tuple(x.double() for x in acc), cfg, g_v.double(), g_o.double())
+
+    def kernel():
+        leaves = {f: getattr(con, f).detach().requires_grad_()
+                  for f in fields}
+        v = velw.detach().requires_grad_()
+        a = [x.detach().requires_grad_() for x in acc]
+        packed, work = setup_kernel.pack_constraints(
+            con.replace(**leaves), tuple(a), order)
+        packed = dataclasses.replace(packed, mass_grad=True)
+        vo, ao, po = solver_kernel.solve_cuda(v, packed, work, cfg)
+        return torch.autograd.grad([vo, *ao, po], [v, *leaves.values(), *a],
+                                   [g_v, *g_o], allow_unused=True)
+
+    kg, again = kernel(), kernel()
+    for x, y in zip(kg, again):
+        assert (x is None and y is None) or torch.equal(x, y)
+    pairs = [("velw", kg[0], tv, qv)]
+    for i, f in enumerate(fields):
+        if f == "relax":
+            continue
+        x = kg[1 + i]
+        pairs.append((f, torch.zeros_like(tf[f]) if x is None else x, tf[f],
+                      qf[f]))
+    pairs += [(f"acc{i}", kg[-3 + i], ta[i], qa[i]) for i in range(3)]
+    for name, x, y, z in pairs:
+        assert bool(torch.isfinite(x).all()), name
+        big = float(z.abs().max())
+        far = (x.double() - z).abs() > SOLVE_RTOL * big
+        corner = (x - y).abs() <= SOLVE_CORNER * big
+        assert not bool((far & ~corner).any()), (
+            name, float((x.double() - z).abs().max()), big)
+    static = (con.im_a == 0.0) & con.valid
+    assert float(qf["im_a"][static].abs().max()) > 0.0

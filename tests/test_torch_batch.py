@@ -2,7 +2,7 @@
 (`scenes.scene_pile_batch`, `scene_pile_megachunks`, `scene_pile_stacked`
 and the on-device jitter) and `parallel.mesh`, held against the JAX
 package's on the XLA path, and the cases of tests/test_parallel.py that
-need no device mesh."""
+need no device mesh (those that do: tests/test_torch_parallel.py)."""
 
 import dataclasses
 
@@ -199,14 +199,6 @@ def test_scene_independence():
         pmesh.make_scene_batch([states[probe]]))
     assert_states_equal(pmesh.take(rolled, probe), pmesh.take(solo, 0),
                         "scene 3")
-
-
-def test_sharding_is_not_ported():
-    batch, cfg = pscenes.scene_pile_megachunks(2, 2, 8, device="cpu")
-    with pytest.raises(NotImplementedError):
-        pmesh.shard_scene_batch(batch, object())
-    with pytest.raises(NotImplementedError):
-        pmesh.megabatch_simulate(cfg, 2, mesh=object())
 
 
 # --- across packages ----------------------------------------------------------

@@ -65,17 +65,20 @@ def test_package_imports_no_jax():
 
 @pytest.mark.parametrize("knob", [dict(mesh=object())])
 def test_unported_modes_raise(knob):
-    """What is still not ported (multi-device sharding) raises instead of
-    running a partial path; the differentiable mode runs
-    (tests/test_torch_autodiff.py)."""
+    """Every mode is ported now: the differentiable mode runs
+    (tests/test_torch_autodiff.py) and so does sharding
+    (tests/test_torch_parallel.py); what sharding cannot place, a mesh that
+    is not a torch.distributed DeviceMesh, raises instead of running a
+    partial path."""
     b = pscenes.scene_single_box()
     cfg = b.auto_config(differentiable=True)
     st = b.finalize(cfg, device="cpu")
     pengine.step(st, cfg)
-    with pytest.raises(NotImplementedError):
-        pmesh.megabatch_simulate(cfg, steps=1, **knob)
-    with pytest.raises(NotImplementedError):
-        pmesh.shard_scene_batch(pmesh.make_scene_batch([st]), **knob)
+    batch = pmesh.make_scene_batch([st])
+    with pytest.raises(TypeError):
+        pmesh.megabatch_simulate(cfg, steps=1, **knob)(batch)
+    with pytest.raises(TypeError):
+        pmesh.shard_scene_batch(batch, **knob)
 
 
 def _pressed_pile(n=120):
