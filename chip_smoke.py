@@ -39,14 +39,16 @@ no result):
   4. config 1: one box dropped on the ground, 500 steps, held to the rest
      gates of tests/test_engine.py;
   5. the awake pile: the 20,480-box pile (bench.tuned_config capacities,
-     every body awake) for 150 steps through nudge_tpu_torch.engine.simulate,
-     with every kernel's launch count;
+     every body awake) for 150 steps through nudge_tpu_torch.engine.simulate
+     (the compiled rollout: the step captured once as a CUDA graph and
+     replayed), with every kernel's launch count;
   6. config 3: the 2,048-body mixed pile (25% spheres, walls) for 300 steps,
      its spheres held above the ground;
   7. fresh coloring: the 20,480-box pile with persistent_coloring=False for
      60 steps from the state of phase 3, the coloring kernel once a step;
-  8. determinism: two 30-step runs of the pile, and two of config 3, are
-     bitwise equal;
+  8. determinism: two 30-step compiled runs of the pile, and two of config
+     3, are bitwise equal, and bitwise equal to 30 eager engine.step calls
+     (every state leaf, every step's metrics);
   9. config 1 asleep and parked: the single box in the reference mode
      (sleeping + persistent broadphase) for 300 steps: asleep, velocity
      exactly 0, at rest height, and the all-asleep park taken on some steps
@@ -57,7 +59,9 @@ no result):
  11. the slice: the 20,480-box pile in the reference mode (bench.py's
      reference mode: tuned_config capacities, sleeping and the persistent
      broadphase) on r5_c4_fidelity's scene (seed 3) from spawn for 3,000
-     steps in windows of 100, held in every window to no overflow, a
+     eager engine.step calls (the yardstick of phase 21) in windows of
+     100, box-box, setup and the solve once per active step and no kernel
+     on a parked one, held in every window to no overflow, a
      finite state, every sleeper's velocity exactly 0 under its awake
      load, max depth < 0.5 and, from step 300 on, a total energy that does
      not rise; at the end to a max depth (last window, and the
@@ -69,9 +73,10 @@ no result):
      and two 30-step runs from its final state, bitwise equal;
  13. config 3 in the reference mode for 1,500 steps: spheres above the
      ground, total energy that does not rise from step 600 on;
- 14. profile: torch.profiler over 10 steps of the awake pile (phase 3's
-     state) and of the fidelity scene at step 2,150 of phase 11 (settling,
-     ~700 awake): device events a step, the device's busy share, and the
+ 14. profile: torch.profiler over 10 eager steps of the awake pile (phase
+     3's state) and of the fidelity scene at step 2,150 of phase 11
+     (settling, ~700 awake): device events a step, the device's busy share,
+     the host's kernel and graph launch calls a step, and the
      solve's, setup's and box-box's device time and launches a step, with
      how many of the port's kernel launches the profiler recorded (it
      drops some at times: then these are lower bounds; nothing is gated);
@@ -88,9 +93,11 @@ no result):
      footprint by scenes.cover_footprint) for 30 steps through
      parallel.mesh.megabatch_simulate in windows of 5, each window held to
      no overflow, a finite state, max depth < 0.5, no cross-scene
-     manifold, box-box, setup and the solve launched once a chunk-step and
-     the one-point and coloring kernels not at all, chunks 0 and 127
-     bitwise equal to themselves stepped alone, chunks 0 and 1 apart;
+     manifold (the gates' totals kept on the card by the watched step, in
+     the chunk's graph), box-box, setup and the solve launched once a
+     chunk-step and the one-point and coloring kernels not at all, chunks
+     0 and 127 bitwise equal to themselves stepped alone by the eager
+     engine.step, chunks 0 and 1 apart;
      build seconds, steps/s, body-steps/s and peak memory (the rates
      include the gates' per-step device reductions: Config5Watch); at
      chunk 0 of the last step box-box, setup and the solve against their
@@ -100,14 +107,17 @@ no result):
      gates and the same comparisons at its chunk 0;
  17. the stacked batch, the API and the environments: scene_pile_stacked(
      8, 512) for 10 steps through batched_simulate (batched_step_chunked
-     bitwise equal to batched_step, scene 3 to itself alone), then
+     bitwise equal to batched_step, scene 3 to itself stepped alone by the
+     eager engine.step), then
      box-box, setup and the solve against their twins at scene 3's next
      step; the nudge-parity API's step on config 3 after 30 steps against
      engine.step (persistent_coloring=False, as the API colors; positions
      and velocities within 1e-6, cache ids exact, one launch of each
      kernel); 16 BoxPushEnvs for 20 vec_steps of a damped push toward
-     their goals, every reward up by more than 0.5, then the three kernels
-     against their twins at env 0's next step (2 bodies, sleeping on).
+     their goals, every reward up by more than 0.5, envs 0 and 15 bitwise
+     equal to themselves stepped by the eager engine.step, then the three
+     kernels against their twins at env 0's next step (2 bodies, sleeping
+     on).
  18. the differentiable mode: each backward kernel against autograd of
      its twin on the same inputs and a seeded output adjoint, twice
      bitwise, with its device time and device operations a call (setup's
@@ -141,11 +151,24 @@ no result):
      last metrics; then two gloo ranks on the one
      card (NCCL refuses two ranks on one device), 4 chunks of 32 scenes
      for 10 steps, each rank's chunks Shard(0) and bitwise the same chunks
-     stepped alone in its own process;
+     stepped alone by the eager engine.step in its own process;
  20. the demo (nudge_tpu_torch.examples.demo --no-render, its first 300
-     steps): its steps/s beside the card.
+     steps): its steps/s beside the card;
+ 21. the compiled rollout: phase 11's fidelity scene from spawn for 3,000
+     steps through engine.simulate (the step captured once as a CUDA
+     graph; the all-asleep park, the persistent broadphase's rebuild,
+     sleeping's three skips and the cached coloring's claim rounds
+     conditional nodes of the graph), with phase 11's window and end
+     gates, bitwise phase 11's eager run (end state, every step's metrics,
+     parks and rebuilds by window), box-box, setup and the solve once per
+     active step and nothing on a parked one; its impact and settled
+     steps/s beside phase 11's eager ones; at step 2,150 10 compiled steps
+     under the profiler as phase 14 (busy share, device events a step, one
+     graph launch a step), the device operations a replay runs, 10
+     replays under torch.cuda.set_sync_debug_mode("error") (no host
+     read), and the warm-up's and the capture's seconds.
 
-Phases 5-7, 9-13, 15-20 each zero the kernels' launch counts
+Phases 5-7, 9-13, 15-21 each zero the kernels' launch counts
 before they run and read them after, and run with the plain twins (in 18
 also the backward kernels' plain versions) replaced by functions that
 raise: the main paths go through the kernels only. The record line gives
@@ -154,7 +177,13 @@ backward kernels': phase 18's pile, and config 3 for the one-point one),
 on each path of phases 16-20 (`launches_by_path`) and its comparison with
 its twin on each of those paths (`compare_by_path`; its `max_abs_err` is
 the largest of every comparison). Nothing is cut: every phase runs at the
-size its docstring gives.
+size its docstring gives. On the card engine.simulate, step_jit and the
+parallel.mesh rollouts run the compiled step (nudge_tpu_torch/control.py);
+phases 11-14 step eagerly (`eager_simulate`), and every "stepped alone"
+comparison is against the eager engine.step. Every torch.profiler window
+(phases 14, 15, 16 and 21) runs last, after phase 21, on copies of the
+states its phase saw: a profiler session leaves CUPTI attached to the
+process and slows every later launch, so no timed phase runs after one.
 
 The last line of standard output is one JSON object
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
@@ -345,7 +374,7 @@ DEVICE_KERNELS = ("box_box_kernel", "pairs_1pt_kernel", "setup_kernel",
                   "warm_apply_kernel", "solve_kernel", "color_kernel",
                   "box_box_bwd_kernel", "pairs_1pt_bwd_kernel",
                   "setup_bwd_kernel", "setup_body_sum_kernel", "solve_bwd_kernel",
-                  "segment_sum_kernel")
+                  "segment_sum_kernel", "set_if_kernel")
 # kernels that must keep every value in registers: no stack frame, no spill
 NO_SPILL_KERNELS = ("box_box_kernel", "solve_bwd_kernel", "setup_bwd_kernel",
                     "box_box_bwd_kernel", "pairs_1pt_bwd_kernel")
@@ -1071,6 +1100,33 @@ def need_launches(label, launches, kernels):
             raise AssertionError(f"{label}: kernel {k} was not launched")
 
 
+def eager_simulate(st, cfg, steps):
+    """`steps` eager engine.step calls (a Python loop, each step with its
+    predicate reads), the metrics stacked as engine.simulate stacks them:
+    the yardstick the compiled rollout is held to."""
+    import torch
+
+    from nudge_tpu_torch import engine
+
+    ms = []
+    for _ in range(steps):
+        st, m = engine.step(st, cfg)
+        ms.append(m)
+    return st, type(ms[0])(**{k: torch.stack([getattr(m, k) for m in ms])
+                              for k in vars(ms[0])})
+
+
+def per_active_step(label, launches, active):
+    """Box-box, setup and the solve once per active step; the one-point and
+    the coloring kernels not at all (the reference pile's path)."""
+    want = {"box_box": active, "setup": active, "solve": active,
+            "pairs_1pt": 0, "coloring": 0}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, not {want} "
+                             f"({active} active steps)")
+
+
 def phase_slice(card, dev):
     from nudge_tpu_torch import scenes
 
@@ -1129,8 +1185,9 @@ def phase_fresh(card, st):
 
 
 def repeat(card, label, b, cfg, dev):
-    """Two REPEAT_STEPS-step runs from the same start must be bitwise
-    equal."""
+    """Two REPEAT_STEPS-step compiled runs (engine.simulate) from the same
+    start must be bitwise equal, and equal, bit for bit in every state leaf
+    and every step's metrics, to REPEAT_STEPS eager engine.step calls."""
     import torch
 
     from nudge_tpu_torch import engine
@@ -1139,6 +1196,7 @@ def repeat(card, label, b, cfg, dev):
     for _ in range(2):
         st, m = engine.simulate(b.finalize(cfg, device=dev), cfg, REPEAT_STEPS)
         runs.append((st, m))
+    eager = eager_simulate(b.finalize(cfg, device=dev), cfg, REPEAT_STEPS)
     torch.cuda.synchronize()
     (a, ma), (c, mc) = runs
     for f in ("pos", "quat", "vel", "angvel"):
@@ -1149,8 +1207,12 @@ def repeat(card, label, b, cfg, dev):
             raise AssertionError(f"{label} repeat runs differ in cache.{f}")
     if not torch.equal(ma.kinetic_energy, mc.kinetic_energy):
         raise AssertionError(f"{label} repeat runs differ in kinetic energy")
+    if not (bitwise(a, eager[0]) and bitwise(ma, eager[1])):
+        raise AssertionError(f"{label}: the compiled run differs from the "
+                             "eager steps")
     log(card, f"determinism: two {REPEAT_STEPS}-step {label} runs bitwise "
-        "equal")
+        f"equal; compiled equals eager, bitwise (every state leaf, every "
+        f"step's metrics)")
 
 
 def phase_repeat(card, dev):
@@ -1257,22 +1319,24 @@ def phase_wake(card, dev):
 
 
 def run_reference(card, label, st, cfg, steps, energy_from, spheres=False,
-                  keep_at=None):
-    """Steps `st` in the reference mode in windows of REF_WINDOW, syncing
+                  keep_at=None, sim=eager_simulate):
+    """Steps `st` in the reference mode through `sim` (the eager steps, or
+    engine.simulate's compiled rollout) in windows of REF_WINDOW, syncing
     every REF_HALF steps, and holds every window to no overflow, a finite
     state, sleepers at exactly zero velocity, max depth < 0.5, total energy that does not rise from step
     `energy_from` on (ENERGY_RTOL) and, with `spheres`, every dynamic
     sphere's centre above SPHERE_MIN_Y. Returns (state, dict of the
     trajectory: cumulative seconds at every REF_HALF steps, awake count,
-    rebuilds and parks per window, the last window's max depth, and a copy
-    of the state after `keep_at` steps, a multiple of REF_HALF)."""
+    rebuilds and parks per window, the last window's max depth, every
+    step's metrics by REF_HALF, and a copy of the state after `keep_at`
+    steps, a multiple of REF_HALF)."""
     import torch
 
     from nudge_tpu_torch import engine
     from nudge_tpu_torch.ops import persistent_bp
     from nudge_tpu_torch.utils.debug import finite_state
 
-    times, awake, rebuilds, parks = [0.0], [], [], []
+    times, awake, rebuilds, parks, metrics = [0.0], [], [], [], []
     kept = None
     e_prev = depth = None
     sp_body = st.spheres.body[st.spheres.valid].long()
@@ -1283,10 +1347,11 @@ def run_reference(card, label, st, cfg, steps, energy_from, spheres=False,
         ms = []
         for h in range(REF_WINDOW // REF_HALF):
             t0 = time.perf_counter()
-            st, m = engine.simulate(st, cfg, REF_HALF)
+            st, m = sim(st, cfg, REF_HALF)
             torch.cuda.synchronize()
             times.append(times[-1] + time.perf_counter() - t0)
             ms.append(m)
+            metrics.append(m)
             if w0 + (h + 1) * REF_HALF == keep_at:
                 kept = clone_state(st)
         w1 = w0 + REF_WINDOW
@@ -1334,7 +1399,7 @@ def run_reference(card, label, st, cfg, steps, energy_from, spheres=False,
             f"E {energy:.10g}, spill {spill}{low}")
         e_prev = energy
     return st, dict(times=times, awake=awake, rebuilds=rebuilds,
-                    parks=parks, depth=depth, kept=kept)
+                    parks=parks, depth=depth, kept=kept, metrics=metrics)
 
 
 def next_step_conflicts(st, cfg):
@@ -1410,13 +1475,15 @@ def resting_depth(st, cfg):
     return float(depth), bool(man.overflow)
 
 
-def reference_pile(card, label, dev, seed, fidelity, keep_at=None):
+def reference_pile(card, label, dev, seed, fidelity, keep_at=None,
+                   sim=eager_simulate):
     """The 20,480 pile in the reference mode from spawn for REF_STEPS
-    steps, with run_reference's window gates, then awake < AWAKE_END, no
-    coloring conflict and no dead body at the end; with `fidelity` also
-    the last window's max depth and the final state's resting depth at
-    most REF_DEPTH_END. Returns (launch counts, final state, config, the
-    state after `keep_at` steps)."""
+    steps through `sim`, with run_reference's window gates, box-box, setup
+    and the solve once per active step and no other kernel, then awake <
+    AWAKE_END, no coloring conflict and no dead body at the end; with
+    `fidelity` also the last window's max depth and the final state's
+    resting depth at most REF_DEPTH_END. Returns (launch counts, final
+    state, config, run_reference's trajectory)."""
     from nudge_tpu_torch import scenes
 
     b = scenes.scene_pile(N_PILE, seed=seed)
@@ -1424,8 +1491,8 @@ def reference_pile(card, label, dev, seed, fidelity, keep_at=None):
     st = b.finalize(cfg, device=dev)
     with KernelsOnly() as run:
         st, tr = run_reference(card, label, st, cfg, REF_STEPS,
-                               REF_ENERGY_FROM, keep_at=keep_at)
-    need_launches(label, run.launches, ("box_box", "setup", "solve"))
+                               REF_ENERGY_FROM, keep_at=keep_at, sim=sim)
+    per_active_step(label, run.launches, REF_STEPS - sum(tr["parks"]))
     t = tr["times"]
     impact = IMPACT_STEPS / t[IMPACT_STEPS // REF_HALF]
     settled = SETTLED_TAIL / (t[-1] - t[-1 - SETTLED_TAIL // REF_HALF])
@@ -1452,17 +1519,18 @@ def reference_pile(card, label, dev, seed, fidelity, keep_at=None):
             f"conflicts {conflicts}, dead {dead}"
             + (f", max depth {tr['depth']} and resting depth {rest} (<= "
                f"{REF_DEPTH_END})" if fidelity else ""))
-    return run.launches, st, cfg, tr["kept"]
+    return run.launches, st, cfg, tr
 
 
 def phase_reference_pile(card, dev):
     """The slice, on r5_c4_fidelity's own scene (scene_pile(20480, seed=3),
-    scripts/debug_limit_cycle.py): every end gate. Returns (launch counts,
-    its state at step SETTLED_AT, config)."""
-    launches, _, cfg, settled = reference_pile(
+    scripts/debug_limit_cycle.py), stepped eagerly: every end gate.
+    Returns (launch counts, its state at step SETTLED_AT, config, the
+    eager run: its final state and trajectory, phase 21's yardstick)."""
+    launches, st, cfg, tr = reference_pile(
         card, "reference pile", dev, FIDELITY_SEED, fidelity=True,
         keep_at=SETTLED_AT)
-    return launches, settled, cfg
+    return launches, tr["kept"], cfg, dict(state=st, **tr)
 
 
 def phase_bench_pile(card, dev):
@@ -1500,24 +1568,53 @@ def phase_reference_mixed(card, dev):
     return run.launches
 
 
-def profile_steps(card, label, st, cfg, steps=PROFILE_STEPS):
-    """torch.profiler over `steps` unsynchronised steps from a copy of
+# Profiler windows queued by profile_steps, run by run_profiles after every
+# timed phase: a torch.profiler session leaves CUPTI attached to the
+# process, and every later launch pays for it
+# (scripts/torch_profiler_residue.py on an H100 80GB HBM3 at 700 W: 50
+# parked compiled steps of the 20,480 pile 6.00-6.57 ms before a session,
+# 28.83-30.52 ms after it; 50 eager ones 6.29-7.90 and 7.80-10.27 ms).
+DEFERRED = []
+
+
+def profile_steps(card, label, st, cfg, steps=PROFILE_STEPS,
+                  sim=eager_simulate, check=None):
+    """Queue profile_now on a copy of `st`, and `check` (if given) on what
+    it returns, for run_profiles."""
+    st = clone_state(st)
+
+    def run():
+        got = profile_now(card, label, st, cfg, steps, sim)
+        if check is not None:
+            check(got)
+
+    DEFERRED.append(run)
+
+
+def run_profiles():
+    while DEFERRED:
+        DEFERRED.pop(0)()
+
+
+def profile_now(card, label, st, cfg, steps, sim):
+    """torch.profiler over `steps` unsynchronised steps through `sim` (the
+    eager steps, or engine.simulate's compiled rollout) from a copy of
     `st` (after one step outside it): device events a step, the device's
-    busy share of the host-clock window, and the device time a step of the
-    solve, of setup and of the box-box narrowphase, with their launches.
+    busy share of the host-clock window, the host's launch calls a step
+    (kernel launches and graph launches, from the CUDA runtime events),
+    and the device time a step of the solve, of setup and of the box-box
+    narrowphase, with their launches.
 
     The profiler drops device events early in a window at times
     (nudge_tpu_torch/utils/timing.py), so the window opens PROFILE_LEAD_S
     before the steps, and the line says how many of the port's kernel
     launches, counted by their wrappers, the profiler recorded: where it
     recorded fewer, every number of the line is a lower bound. Nothing
-    here is gated."""
+    here is gated (phase 21 gates its graph launches a step)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from nudge_tpu_torch import engine
-
-    s, _ = engine.simulate(clone_state(st), cfg, 1)
+    s, _ = sim(clone_state(st), cfg, 1)
     torch.cuda.synchronize()
     ours = {"box_box": ("box_box_kernel",), "pairs_1pt": ("pairs_1pt_kernel",),
             "coloring": ("color_kernel",), "solve": ("solve_kernel",),
@@ -1527,13 +1624,21 @@ def profile_steps(card, label, st, cfg, steps=PROFILE_STEPS):
                              ProfilerActivity.CUDA]) as prof:
         time.sleep(PROFILE_LEAD_S)
         t0 = time.perf_counter()
-        s, m = engine.simulate(s, cfg, steps)
+        s, m = sim(s, cfg, steps)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     launched = sum((fn.launches - before[k]) * len(ours[k])
                    for k, fn in counters().items())
     ev = [e for e in prof.events()
           if e.device_type == torch.autograd.DeviceType.CUDA]
+    calls = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA and \
+                e.name.startswith(("cudaLaunchKernel", "cudaGraphLaunch",
+                                   "cuLaunchKernel", "cudaMemcpyAsync",
+                                   "cudaMemsetAsync")):
+            name = e.name.split("_v")[0]     # cudaGraphLaunch_v10000
+            calls[name] = calls.get(name, 0) + 1
     recorded = sum(1 for e in ev
                    if short_name(e.name) in sum(ours.values(), ()))
     busy_ms = sum(e.time_range.elapsed_us() for e in ev) / 1e3
@@ -1557,11 +1662,16 @@ def profile_steps(card, label, st, cfg, steps=PROFILE_STEPS):
         f"launches; awake {int(m.awake_count[-1])}, manifolds "
         f"{int(m.manifold_demand[-1])}, spill {int(m.spill_count.max())}; "
         f"the profiler recorded {recorded} of the {launched} device kernels "
-        f"that the port's wrappers launched in the window")
+        f"that the port's wrappers launched in the window; host launch "
+        f"calls a step " + ", ".join(f"{k} {n / per:.1f}"
+                                     for k, n in sorted(calls.items())))
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
     log(card, f"profile {label}: top device kernels (launches, ms over "
         f"{per} steps): " + "; ".join(f"{k} {n} {t:.3f}"
                                       for k, (n, t) in top))
+    return dict(ms=wall_ms / per, events=len(ev) / per,
+                busy=100 * busy_ms / wall_ms,
+                graph_launches=calls.get("cudaGraphLaunch", 0) / per)
 
 
 def phase_profile(card, pile_state, settled, ref_cfg):
@@ -1647,54 +1757,74 @@ def same_state(a, b):
     return all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
 
 
+def bitwise(a, b):
+    """True iff two trees have the same leaves bit for bit (floats by
+    their bits: -0.0 and NaN payloads too)."""
+    import torch
+
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+    la, lb = leaves(a), leaves(b)
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and torch.equal(bits(x), bits(y))
+        for x, y in zip(la, lb))
+
+
 class Config5Watch:
     """While active, each step that parallel.mesh runs adds to device
     totals, read once on exit: its overflow bits, its max depth, and the
     cross-scene manifolds of its contacts (both bodies dynamic and in
-    different scenes; scene i holds bodies [1 + i*k, 1 + (i+1)*k))."""
+    different scenes; scene i holds bodies [1 + i*k, 1 + (i+1)*k)). The
+    totals are updated in place by the watched step, so they count in the
+    chunk's captured graph as they would in the eager step; one watch
+    serves a layout's windows (its step is the graph's cache key)."""
 
-    def __init__(self, k):
-        self.k = k
-        self.cross = self.over = self.depth = None
-        self.saved = []
-
-    def __enter__(self):
+    def __init__(self, k, dev):
         import torch
 
         from nudge_tpu_torch import engine
         from nudge_tpu_torch.parallel import mesh
 
+        self.k = k
+        self.cross = self.over = self.depth = None
+        self.totals = (torch.zeros((), dtype=torch.int64, device=dev),
+                       torch.zeros((), dtype=torch.int32, device=dev),
+                       torch.zeros((), dtype=torch.float32, device=dev))
         real_collide, real_step = engine.collide, mesh.step
+        cross, over, depth = self.totals
 
         def collide(state, cfg, rebuild=None):
             man, bp = real_collide(state, cfg, rebuild=rebuild)
             a, b = man.body_a.long(), man.body_b.long()
             scene_a = torch.div(a - 1, self.k, rounding_mode="floor")
             scene_b = torch.div(b - 1, self.k, rounding_mode="floor")
-            n = torch.sum(man.valid & (a > 0) & (b > 0) & (scene_a != scene_b))
-            self.cross = n if self.cross is None else self.cross + n
+            cross.add_(torch.sum(man.valid & (a > 0) & (b > 0)
+                                 & (scene_a != scene_b)))
             return man, bp
 
         def step(state, cfg):
             state, m = real_step(state, cfg)
-            if self.over is None:
-                self.over, self.depth = m.overflow_bits, m.max_depth
-            else:
-                self.over = self.over | m.overflow_bits
-                self.depth = torch.maximum(self.depth, m.max_depth)
+            over.bitwise_or_(m.overflow_bits)
+            torch.maximum(depth, m.max_depth, out=depth)
             return state, m
 
-        self.saved = [(engine, "collide", real_collide),
-                      (mesh, "step", real_step)]
-        engine.collide, mesh.step = collide, step
+        self.real = [(engine, "collide", real_collide),
+                     (mesh, "step", real_step)]
+        self.watched = [(engine, "collide", collide), (mesh, "step", step)]
+
+    def __enter__(self):
+        for t in self.totals:
+            t.zero_()
+        for mod, name, fn in self.watched:
+            setattr(mod, name, fn)
         return self
 
     def __exit__(self, *exc):
-        for mod, name, fn in self.saved:
+        for mod, name, fn in self.real:
             setattr(mod, name, fn)
-        if self.cross is not None:
-            self.cross, self.over, self.depth = (
-                int(self.cross), int(self.over), float(self.depth))
+        self.cross, self.over, self.depth = (
+            int(self.totals[0]), int(self.totals[1]), float(self.totals[2]))
         return False
 
 
@@ -1766,10 +1896,11 @@ def config5_layout(card, dev, spc, steps, keep=None):
         f"chunk; stack {stack_gb:.3f} GB")
     last = n_chunks - 1
     t_all, launches = 0.0, {}
+    watch = Config5Watch(C5_BODIES, dev)
     for w0 in range(0, steps, C5_WINDOW):
         w1 = w0 + C5_WINDOW
         alone = {c: clone_state(mesh.take(batch, c)) for c in (0, last)}
-        with KernelsOnly() as run, Config5Watch(C5_BODIES) as watch:
+        with KernelsOnly() as run, watch:
             t0 = time.perf_counter()
             batch, m = mesh.megabatch_simulate(cfg, C5_WINDOW)(batch)
             torch.cuda.synchronize()
@@ -1795,11 +1926,11 @@ def config5_layout(card, dev, spc, steps, keep=None):
             raise AssertionError(f"{label}: {watch.cross} cross-scene "
                                  f"manifolds in steps {w0}..{w1}")
         for c, st in alone.items():
-            st, _ = engine.simulate(st, cfg, C5_WINDOW)
-            if not same_state(mesh.take(batch, c), st):
+            st, _ = eager_simulate(st, cfg, C5_WINDOW)
+            if not bitwise(mesh.take(batch, c), st):
                 raise AssertionError(f"{label}: chunk {c} in the stack differs "
-                                     f"from chunk {c} stepped alone in steps "
-                                     f"{w0}..{w1}")
+                                     f"from chunk {c} stepped alone (eager "
+                                     f"engine.step) in steps {w0}..{w1}")
         if torch.equal(batch.bodies.pos[0], batch.bodies.pos[1]):
             raise AssertionError(f"{label}: chunks 0 and 1 are equal")
         log(card, f"{label} steps {w0}-{w1}: {C5_WINDOW / dt:.3f} steps/s "
@@ -1810,7 +1941,8 @@ def config5_layout(card, dev, spc, steps, keep=None):
             f"{int(m.pair_demand.sum())}, max depth {watch.depth:.4f}, KE "
             f"{float(m.kinetic_energy.sum()):.6g}, spill "
             f"{int(m.spill_count.max())}; 0 cross-scene manifolds; chunks 0 "
-            f"and {last} bitwise equal to themselves stepped alone")
+            f"and {last} bitwise equal to themselves stepped alone by the "
+            f"eager engine.step")
     rate = steps / t_all
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(card, f"{label}: {steps} steps in {t_all:.2f} s: {rate:.4f} steps/s, "
@@ -1862,6 +1994,26 @@ def api_step(st, cfg):
     return bodies, cache
 
 
+def env_push(obs):
+    """tests/test_envs.py's push along the bearing, damped by the velocity
+    so that no agent overshoots its goal (obs [..., 9])."""
+    import torch
+
+    d, v = obs[..., 6:9], obs[..., 3:6]
+    return (1.5 * torch.stack([d[..., 0], d[..., 2]], -1)
+            - torch.stack([v[..., 0], v[..., 2]], -1))
+
+
+def eager_env(env, s, obs, steps):
+    """One environment stepped `steps` env steps by env_push, each env
+    step's physics steps by the eager engine.step."""
+    for _ in range(steps):
+        sim = env._push(s.sim, env_push(obs))
+        sim, _ = eager_simulate(sim, env.cfg, env.frame_skip)
+        s, obs, _, _, _ = env._finish(s, sim)
+    return s
+
+
 def phase_batch_api_envs(card, dev):
     """The stacked batch, the API and the environments on the card, the
     plain twins raising: scene_pile_stacked(8, 512) for STACKED_STEPS
@@ -1904,17 +2056,18 @@ def phase_batch_api_envs(card, dev):
             and torch.equal(m1.contact_count, m2.contact_count)):
         raise AssertionError(f"{label}: batched_step_chunked differs from "
                              "batched_step")
-    alone, _ = engine.simulate(clone_state(mesh.take(batch, STACKED_PROBE)),
-                               cfg, STACKED_STEPS)
-    if not same_state(mesh.take(rolled, STACKED_PROBE), alone):
+    alone, _ = eager_simulate(clone_state(mesh.take(batch, STACKED_PROBE)),
+                              cfg, STACKED_STEPS)
+    if not bitwise(mesh.take(rolled, STACKED_PROBE), alone):
         raise AssertionError(f"{label}: scene {STACKED_PROBE} differs from "
-                             "itself stepped alone")
+                             "itself stepped alone (eager engine.step)")
     launches[label] = run.launches
     log(card, f"{label}: {STACKED_STEPS} steps in {dt:.2f} s "
         f"({STACKED_STEPS / dt:.3f} steps/s), contacts "
         f"{m.contact_count[-1].tolist()}; batched_step_chunked(2) bitwise "
         f"equal to batched_step; scene {STACKED_PROBE} bitwise equal to "
-        f"itself alone; launches {run.launches}")
+        f"itself stepped alone by the eager engine.step; launches "
+        f"{run.launches}")
     records[label], _ = compare_step(
         card, f"{label} scene {STACKED_PROBE}, step {STACKED_STEPS}",
         clone_state(mesh.take(rolled, STACKED_PROBE)), cfg)
@@ -1948,17 +2101,19 @@ def phase_batch_api_envs(card, dev):
     with KernelsOnly() as run:
         t0 = time.perf_counter()
         states, obs = envs.vec_reset(env, gens)
+        start = (clone_state(states), obs.clone())
         first = None
         for _ in range(ENV_STEPS):
-            # tests/test_envs.py's push along the bearing, damped by the
-            # velocity so that no agent overshoots its goal
-            d, v = obs[:, 6:9], obs[:, 3:6]
-            a = 1.5 * torch.stack([d[:, 0], d[:, 2]], -1) \
-                - torch.stack([v[:, 0], v[:, 2]], -1)
-            states, obs, rew, done, _ = envs.vec_step(env, states, a)
+            states, obs, rew, done, _ = envs.vec_step(env, states,
+                                                      env_push(obs))
             first = rew if first is None else first
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+    for i in (0, N_ENVS - 1):
+        alone = eager_env(env, mesh.take(start[0], i), start[1][i], ENV_STEPS)
+        if not bitwise(mesh.take(states, i), alone):
+            raise AssertionError(f"environments: env {i} differs from itself "
+                                 "stepped by the eager engine.step")
     need_launches("environments", run.launches, ("box_box", "setup", "solve"))
     gain = rew - first
     if float(gain.min()) <= ENV_GAIN or bool(done.any()) \
@@ -1971,7 +2126,9 @@ def phase_batch_api_envs(card, dev):
         f"(frame_skip {env.frame_skip}) in {dt:.2f} s; reward from "
         f"{float(first.min()):.3f}..{float(first.max()):.3f} to "
         f"{float(rew.min()):.3f}..{float(rew.max()):.3f}, smallest gain "
-        f"{float(gain.min()):.3f}; launches {run.launches}")
+        f"{float(gain.min()):.3f}; envs 0 and {N_ENVS - 1} bitwise equal to "
+        f"themselves stepped by the eager engine.step; launches "
+        f"{run.launches}")
     env0 = api.wake(clone_state(mesh.take(states.sim, 0)), env._agent)
     records[f"environments ({N_ENVS})"], _ = compare_step(
         card, f"environment 0, step {ENV_STEPS}", env0, env.cfg)
@@ -3026,7 +3183,8 @@ def sharded_on(tree, mesh):
 def mesh_rank(rank, port, out_path):
     """One rank of the two-rank gloo group on the one card: its two chunks
     of the stack through megabatch_simulate(mesh=), the kernels only,
-    against the same chunks stepped unsharded in this process, bitwise.
+    against the same chunks stepped alone by the eager engine.step in this
+    process, bitwise.
     Writes what it found to out_path.format(rank)."""
     sys.path.insert(0, REPO)
     import datetime
@@ -3046,12 +3204,17 @@ def mesh_rank(rank, port, out_path):
     k = MESH2_CHUNKS // 2
     with KernelsOnly() as run:
         out, mt = mesh.megabatch_simulate(cfg, MESH2_STEPS, mesh=m)(batch)
-    alone, ma = mesh.megabatch_simulate(cfg, MESH2_STEPS)(
-        tree_map(lambda x: x[rank * k:(rank + 1) * k], batch))
+    local, local_m = mesh.local_batch(out), mesh.local_batch(mt)
+    equal = True
+    for j in range(k):
+        alone, ma = eager_simulate(clone_state(mesh.take(batch, rank * k + j)),
+                                   cfg, MESH2_STEPS)
+        equal = (equal and bitwise(mesh.take(local, j), alone)
+                 and bitwise(tree_map(lambda x: x[j], local_m),
+                             tree_map(lambda x: x[-1], ma)))
     res = dict(rank=rank, launches=run.launches,
                sharded=sharded_on(out, m) and sharded_on(mt, m),
-               equal=same_state(mesh.local_batch(out), alone)
-               and same_state(mesh.local_batch(mt), ma),
+               equal=equal,
                contacts=int(mesh.local_batch(mt).contact_count.sum()))
     with open(out_path.format(rank), "w") as f:
         json.dump(res, f)
@@ -3151,6 +3314,114 @@ def phase_demo(card):
     return {"demo (256 boxes)": run.launches}
 
 
+def host_reads_free(graph, st, steps):
+    """`steps` replays of a compiled step from `st` under
+    torch.cuda.set_sync_debug_mode("error"): any operation that waits on
+    the device between the rollout's start and its end raises."""
+    import torch
+
+    graph.start()
+    graph.load(st)
+    old = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        graph.replay(steps)
+    finally:
+        torch.cuda.set_sync_debug_mode(old)
+    return graph.finish()
+
+
+def rates(times):
+    """(impact steps/s over the first IMPACT_STEPS, settled steps/s over the
+    last SETTLED_TAIL) from run_reference's cumulative times."""
+    return (IMPACT_STEPS / times[IMPACT_STEPS // REF_HALF],
+            SETTLED_TAIL / (times[-1] - times[-1 - SETTLED_TAIL // REF_HALF]))
+
+
+def phase_compiled(card, dev, eager):
+    """Phase 21, the compiled rollout: phase 11's fidelity scene from spawn
+    for REF_STEPS steps through engine.simulate (the step captured once as
+    a CUDA graph, the park, the rebuild, sleeping's skips and the claim
+    rounds conditional nodes), in phase 11's windows with its gates and
+    end gates, the kernels only; every REF_HALF steps' metrics and the end
+    state bitwise phase 11's eager run (`eager`), the same parks and
+    rebuilds in every window, box-box, setup and the solve once per active
+    step and nothing on a parked step; its impact and settled steps/s
+    beside phase 11's; at step SETTLED_AT PROFILE_STEPS compiled steps
+    under the profiler as phase 14 profiles the eager ones (device busy
+    share, device events a step, host launch calls a step: one graph
+    launch), the device operations a replay runs (utils/timing.graph_ops),
+    and as many replays under the sync debug mode "error" (no host read);
+    the warm-up's and the capture's seconds. Returns the launches."""
+    import torch
+
+    from nudge_tpu_torch import control, engine, scenes
+    from nudge_tpu_torch.utils import timing
+
+    control.clear()
+    torch.cuda.empty_cache()
+    b = scenes.scene_pile(N_PILE, seed=FIDELITY_SEED)
+    cfg = reference_config(b, N_PILE)
+    st0 = b.finalize(cfg, device=dev)
+    with KernelsOnly():
+        torch.cuda.synchronize()
+        reserved = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        graph = control.compiled(engine.step, cfg, st0)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        pool_gb = (torch.cuda.memory_reserved() - reserved) / 1e9
+    del st0
+    nodes = timing._node_kinds(graph.graph.raw_cuda_graph())
+    for body in graph.bodies:
+        for k, n in timing._node_kinds(body.graph).items():
+            nodes[k] = nodes.get(k, 0) + n
+    label = "compiled reference pile"
+    launches, st, _, tr = reference_pile(card, label, dev, FIDELITY_SEED,
+                                         fidelity=True, keep_at=SETTLED_AT,
+                                         sim=engine.simulate)
+    if not bitwise(st, eager["state"]):
+        raise AssertionError(f"{label}: the end state differs from phase 11's "
+                             "eager run")
+    for k, (a, e) in enumerate(zip(tr["metrics"], eager["metrics"])):
+        if not bitwise(a, e):
+            w0, w1 = k * REF_HALF, (k + 1) * REF_HALF
+            raise AssertionError(f"{label}: steps {w0}..{w1}: metrics differ "
+                                 "from phase 11's eager run")
+    if (tr["parks"], tr["rebuilds"]) != (eager["parks"], eager["rebuilds"]):
+        raise AssertionError(f"{label}: parks {tr['parks']} and rebuilds "
+                             f"{tr['rebuilds']} by window, not phase 11's "
+                             f"{eager['parks']} and {eager['rebuilds']}")
+    impact, settled = rates(tr["times"])
+    e_impact, e_settled = rates(eager["times"])
+    log(card, f"{label}: {REF_STEPS} steps bitwise phase 11's eager run (end "
+        f"state, every step's metrics, parks and rebuilds by window); "
+        f"{REF_STEPS} steps in {tr['times'][-1]:.2f} s against "
+        f"{eager['times'][-1]:.2f} s eager; impact steps 0-{IMPACT_STEPS} "
+        f"{impact:.3f} steps/s (eager {e_impact:.3f}); last {SETTLED_TAIL} "
+        f"steps {settled:.3f} steps/s (eager {e_settled:.3f}); warm-up and "
+        f"capture {build_s:.2f} s, of it the capture {graph.capture_s:.2f} "
+        f"s, memory it reserved {pool_gb:.3f} GB; {len(graph.bodies)} "
+        f"conditional bodies; nodes captured (top graph and bodies) "
+        f"{nodes}; launches {launches}")
+    def one_launch(prof):
+        if prof["graph_launches"] != 1.0:
+            raise AssertionError(f"{label}: {prof['graph_launches']} graph "
+                                 "launches a step under the profiler, not 1")
+
+    profile_steps(card, f"compiled reference pile (step {SETTLED_AT})",
+                  tr["kept"], cfg, sim=engine.simulate, check=one_launch)
+    ran = host_reads_free(graph, clone_state(tr["kept"]), PROFILE_STEPS)
+    ops = timing.graph_ops(graph)
+    taken = {k: v for k, v in sorted(ran.items()) if v}
+    log(card, f"{label} at step {SETTLED_AT}: {PROFILE_STEPS} replays under "
+        f"the sync debug mode 'error': 0 host reads a step; device "
+        f"operations a replay "
+        + ", ".join(f"{k} {v:.1f}" for k, v in sorted(ops.items()))
+        + f"; conditional bodies run {taken}")
+    return launches
+
+
 def main():
     sys.path.insert(0, REPO)
     import torch
@@ -3168,7 +3439,7 @@ def main():
     phase_config1_parked(card, dev)
     phase_wake(card, dev)
     # the slice's main path
-    launches, settled, ref_cfg = phase_reference_pile(card, dev)
+    launches, settled, ref_cfg, eager = phase_reference_pile(card, dev)
     # box-box where few slots are live: the fidelity scene settling
     low = compare_box_box(card, f"reference pile, step {SETTLED_AT}",
                           *box_box_inputs(settled, ref_cfg))
@@ -3197,6 +3468,11 @@ def main():
     # this slice's paths: the mesh, then the demo
     by_path.update(phase_mesh(card, dev, kept))
     by_path.update(phase_demo(card))
+    # this slice's path: the compiled rollout
+    by_path[f"compiled reference pile ({REF_STEPS} steps)"] = phase_compiled(
+        card, dev, eager)
+    # the profiler windows of phases 14-16 and 21, after every timed phase
+    run_profiles()
     kernels = []
     for k in TPU_KERNEL_OF:
         rec = dict(name=k, route="cuda", source=SOURCE_OF[k],

@@ -51,6 +51,8 @@ _SIGNATURES = {
     "nudge_setup_bwd": [_P] * 17 + [_I] * 2 + [_F] * 9 + [_I] * 3 + [_P] * 12
                        + [_P],
     "nudge_setup_body_sum": [_P] * 9 + [_I] * 2 + [_P] * 6 + [_P],
+    "nudge_if_begin": [_P] * 4,
+    "nudge_if_end": [_P],
 }
 
 

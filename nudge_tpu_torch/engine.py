@@ -4,15 +4,23 @@
 `step` runs on whatever device the state lives on: on CUDA tensors both
 narrowphases, the fresh coloring's claim rounds, setup and solve go
 through the hand-written kernels (the solve in one launch, with no host
-read), on CPU tensors through their plain twins. `simulate` is a Python
-loop over steps.
+read), on CPU tensors through their plain twins. `step` is the eager
+step, the reference's un-jitted `step`.
+
+`simulate` and `step_jit` are the reference's compiled rollout and step
+(`lax.scan` over `step_jit`, donated state): on the card the step is
+captured once as a CUDA graph (`control.compiled`) and replayed, one graph
+launch a step, with no host read until the rollout ends; on the CPU they
+loop over the eager step. The graph's replays are the eager step's bits.
 
 It runs boxes and spheres, with the cached or the fresh coloring, with or
 without sleeping and the persistent broadphase (together: the reference
-mode of the JAX bench). The reference's two `lax.cond`s that depend only
-on the state a step starts from (any dynamic body awake: step or park;
-`persistent_bp.needs_rebuild`: fat rebuild or reuse) are Python branches
-here, on flags read to the host in one transfer per step.
+mode of the JAX bench). The reference's data-dependent branches (any
+dynamic body awake: step or park; `persistent_bp.needs_rebuild`: fat
+rebuild or reuse; sleeping's three skips; the cached coloring's claim
+rounds) go through `control.cond` and `control.bounded_while`: Python
+branches on a predicate read in the eager step, conditional nodes of the
+graph in the compiled one.
 
 The differentiable mode (`cfg.differentiable`): `step` and `simulate` build
 an autograd graph from whatever state tensors require grad, as the
@@ -35,18 +43,18 @@ import dataclasses
 
 import torch
 
+from . import control
 from .config import SimConfig
 from .mathx import dot
 from .ops import setup_kernel, solver_kernel
 from .ops.cache import read_cached_impulses, write_cached_impulses
 from .ops.contacts import collide
 from .ops.integrate import advance, apply_gravity, apply_position_correction
-from .ops.persistent_bp import needs_rebuild
 from .ops.sleeping import update_sleep
 from .ops.solver import (
     accumulated_world_impulse, color_manifolds, color_manifolds_cached,
 )
-from .state import SimState
+from .state import SimState, flatten
 
 @dataclasses.dataclass
 class StepMetrics:
@@ -69,19 +77,11 @@ def step(state: SimState, cfg: SimConfig):
     With sleeping on, a scene whose every dynamic body is asleep skips the
     whole contact pipeline (the park): nothing inside the engine can wake
     an all-asleep scene, so the skip is exact."""
-    rebuild = None
-    if cfg.sleeping or cfg.persistent_broadphase:
-        flags = []
-        if cfg.sleeping:
-            flags.append(torch.any(state.sleep.awake & state.bodies.dynamic))
-        if cfg.persistent_broadphase:
-            flags.append(needs_rebuild(state, cfg))
-        host = torch.stack(flags).tolist()       # one host read for both
-        if cfg.sleeping and not host[0]:
-            return _step_parked(state)
-        if cfg.persistent_broadphase:
-            rebuild = host[-1]
-    return _step_active(state, cfg, rebuild)
+    if cfg.sleeping:
+        awake = torch.any(state.sleep.awake & state.bodies.dynamic)
+        return control.cond(awake, lambda s: _step_active(s, cfg),
+                            _step_parked, (state,), name="awake")
+    return _step_active(state, cfg)
 
 
 def _step_parked(state: SimState):
@@ -99,9 +99,9 @@ def _step_parked(state: SimState):
     return state.replace(step_count=state.step_count + 1), metrics
 
 
-def _step_active(state: SimState, cfg: SimConfig, rebuild):
+def _step_active(state: SimState, cfg: SimConfig):
     bodies = apply_gravity(state.bodies, state.sleep, cfg)
-    contacts, bp = collide(state, cfg, rebuild=rebuild)
+    contacts, bp = collide(state, cfg)
     warm, pwarm = read_cached_impulses(state.cache, contacts, cfg)
     if cfg.sleeping:
         # sleepers are static for coloring, setup and solve, so the solver
@@ -153,35 +153,57 @@ def _step_active(state: SimState, cfg: SimConfig, rebuild):
     ke = 0.5 * torch.sum(torch.where(
         dyn, dot(bodies.vel, bodies.vel) / torch.clamp_min(bodies.inv_mass,
                                                             1e-12), 0.0))
+    i32 = torch.int32      # torch sums integers to int64; the metrics are i32
     metrics = StepMetrics(
-        contact_count=contacts.contact_count,
+        contact_count=contacts.contact_count.to(i32),
         max_depth=torch.amax(torch.where(contacts.point_valid, contacts.depth,
                                          0.0)),
-        spill_count=con.spill_count,
+        spill_count=con.spill_count.to(i32),
         overflow=contacts.overflow,
-        awake_count=torch.sum((dyn & sleep.awake).to(torch.int32)),
+        awake_count=torch.sum((dyn & sleep.awake).to(i32)).to(i32),
         kinetic_energy=ke,
-        overflow_bits=contacts.overflow_bits,
-        manifold_demand=contacts.count,
-        pair_demand=contacts.pair_demand,
+        overflow_bits=contacts.overflow_bits.to(i32),
+        manifold_demand=contacts.count.to(i32),
+        pair_demand=contacts.pair_demand.to(i32),
     )
     return new_state, metrics
 
 
-step.parked = 0
+control.counter(step, "parked")
+
+
+def _wants_grad(state: SimState, cfg: SimConfig) -> bool:
+    return (cfg.differentiable and torch.is_grad_enabled()
+            and any(t.requires_grad for t in flatten(state)[0]))
 
 
 def simulate(state: SimState, cfg: SimConfig, steps: int):
-    """Run `steps` steps. Returns (state, StepMetrics with [steps] fields)."""
-    per_step = []
-    for _ in range(steps):
-        state, m = step(state, cfg)
-        per_step.append(m)
-    stacked = {f.name: torch.stack([getattr(m, f.name) for m in per_step])
-               for f in dataclasses.fields(StepMetrics)}
-    return state, StepMetrics(**stacked)
+    """Run `steps` steps. Returns (state, StepMetrics with [steps] fields).
+
+    On the card the step is replayed from its captured graph: the state is
+    copied into the graph's input buffers once, each replay carries its
+    outputs onto them and writes its metrics into a row on the device,
+    and the state that comes back is cloned out of the buffers. On the CPU,
+    and in the differentiable mode with a state leaf that requires grad
+    (autograd records the eager step; a captured step would give it no
+    graph), it is a loop over `step`."""
+    if state.device.type != "cuda" or _wants_grad(state, cfg):
+        per_step = []
+        for _ in range(steps):
+            state, m = step(state, cfg)
+            per_step.append(m)
+        stacked = {f.name: torch.stack([getattr(m, f.name) for m in per_step])
+                   for f in dataclasses.fields(StepMetrics)}
+        return state, StepMetrics(**stacked)
+    return control.compiled(step, cfg, state).rollout(state, steps)
 
 
 def step_jit(state: SimState, cfg: SimConfig):
-    """The reference's jitted single step; PyTorch runs eagerly."""
-    return step(state, cfg)
+    """The reference's jitted single step: one replay of the captured step
+    on the card (see `simulate`), `step` on the CPU. Returns (new_state,
+    StepMetrics)."""
+    if state.device.type != "cuda" or _wants_grad(state, cfg):
+        return step(state, cfg)
+    state, m = control.compiled(step, cfg, state).rollout(state, 1)
+    return state, StepMetrics(**{f.name: getattr(m, f.name)[0]
+                                 for f in dataclasses.fields(StepMetrics)})

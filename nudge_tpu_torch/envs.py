@@ -5,8 +5,11 @@ BASELINE config 5 frames the scene batch as "RL-style rollouts"; this is
 the user-facing shape of that: `BoxPushEnv.reset` / `step` on one
 environment, `vec_reset` / `vec_step` on a batch of them (an `EnvState`
 with a leading env axis on every leaf) through `parallel.mesh`, so on the
-card every physics step of every env goes through the kernels. Everything
-rides the public API: `engine.step`, `api.apply_impulse`, `api.wake`.
+card every physics step of every env goes through the kernels. An env
+step's `frame_skip` physics steps are the reference's scan: on the card
+the captured step replayed (`engine.simulate`, and `batched_simulate` for
+a batch). Everything rides the public API: `engine.simulate`,
+`api.apply_impulse`, `api.wake`.
 
 Where the reference takes a `jax.random` key, `reset` takes a
 `torch.Generator`. With `BoxPushEnv(differentiable=True, sleeping=False)`
@@ -25,7 +28,7 @@ import torch
 
 from .api import apply_impulse, wake
 from .config import SimConfig
-from .engine import step as _phys_step
+from .engine import simulate
 from .parallel.mesh import batched_simulate, make_scene_batch
 from .scenes import SceneBuilder
 from .state import SimState
@@ -117,8 +120,7 @@ class BoxPushEnv:
     def step(self, s: EnvState, action):
         """(EnvState, obs, reward, done, info) after one env step."""
         sim = self._push(s.sim, action)
-        for _ in range(self.frame_skip):
-            sim, _ = _phys_step(sim, self.cfg)
+        sim, _ = simulate(sim, self.cfg, self.frame_skip)
         return self._finish(s, sim)
 
 

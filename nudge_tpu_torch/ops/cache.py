@@ -49,7 +49,7 @@ def _join(c_ga, c_gb, c_feat, c_imp, c_valid, k_ga, k_gb, k_feat, k_valid):
     """f32[K,W] payloads for the current keys (zeros on miss). Valid
     current keys must be unique."""
     dev = c_ga.device
-    sent = torch.tensor(_SENTINEL, dtype=torch.int32, device=dev)
+    sent = torch.full((), _SENTINEL, dtype=torch.int32, device=dev)
     c_ga = torch.where(c_valid, c_ga, sent)
     c_gb = torch.where(c_valid, c_gb, sent)
     c_feat = torch.where(c_valid, c_feat, sent)
@@ -75,7 +75,7 @@ def _join(c_ga, c_gb, c_feat, c_imp, c_valid, k_ga, k_gb, k_feat, k_valid):
 
     prev_match = ((src == 1) & (_roll1(src) == 0) & (ga == _roll1(ga))
                   & (gb == _roll1(gb)) & (feat == _roll1(feat)))
-    prev_match[0] = False
+    prev_match[0].fill_(False)
     matched = torch.where(prev_match[:, None], _roll1(payload), 0.0)
     out = _scatter_rows(n_cur, orig, src == 1, matched)
     return torch.where(k_valid[:, None], out, 0.0)
@@ -85,7 +85,7 @@ def join_i32(c_key, c_payload, c_valid, k_key, k_valid):
     """Single-i32-key join: the i32 payload of the valid cache row with the
     same key for each valid current key (0 on miss). Keys < 2^30."""
     dev = c_key.device
-    big = torch.tensor(2 ** 30 - 1, dtype=torch.int32, device=dev)
+    big = torch.full((), 2 ** 30 - 1, dtype=torch.int32, device=dev)
     ck = torch.where(c_valid, c_key, big)
     kk = torch.where(k_valid, k_key, big)
     n_cur = kk.shape[0]
@@ -96,7 +96,7 @@ def join_i32(c_key, c_payload, c_valid, k_key, k_valid):
     key2, order = torch.sort(key2, stable=True)
     payload, orig = payload[order], orig[order]
     match = ((key2 & 1) == 1) & (key2 == _roll1(key2) + 1)
-    match[0] = False
+    match[0].fill_(False)
     matched = torch.where(match, _roll1(payload), 0)
     out = _scatter_rows(n_cur, orig, (key2 & 1) == 1, matched)
     return torch.where(k_valid, out, 0)

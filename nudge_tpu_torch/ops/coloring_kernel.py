@@ -27,7 +27,8 @@ from __future__ import annotations
 
 import torch
 
-from .. import _build
+from .. import _build, control
+
 
 INF_I32 = 2 ** 31 - 1
 
@@ -126,4 +127,4 @@ def color_rounds(body_a, body_b, valid, dyn, n_bodies: int, max_colors: int):
     raise NotImplementedError(f"coloring: no kernel for device {dev}")
 
 
-color_rounds.launches = 0
+control.counter(color_rounds)

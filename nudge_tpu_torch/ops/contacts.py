@@ -283,7 +283,8 @@ def compact_manifolds(slots: dict, cfg: SimConfig, pair_overflow,
     if n <= cap:
         idx, valid, count = compact_mask(has_contact, cap)
     else:
-        neg_inf = torch.tensor(-float("inf"), device=dev)
+        neg_inf = torch.full((), -float("inf"), dtype=torch.float32,
+                             device=dev)
         depth = torch.amax(
             torch.where(slots["point_valid"], slots["depth"], neg_inf), -1)
         key = torch.where(has_contact, -depth, -neg_inf)   # deepest first
@@ -299,8 +300,8 @@ def compact_manifolds(slots: dict, cfg: SimConfig, pair_overflow,
     def take(x, fill=0):
         out = x[idx]
         mask = valid.reshape(valid.shape + (1,) * (out.ndim - 1))
-        return torch.where(mask, out, torch.as_tensor(fill, dtype=out.dtype,
-                                                      device=dev))
+        return torch.where(mask, out, torch.full((), fill, dtype=out.dtype,
+                                                 device=dev))
 
     over = count > cap
     return Manifolds(
@@ -335,8 +336,8 @@ def _base_broadphase(cfg: SimConfig):
 def collide(state: SimState, cfg: SimConfig, rebuild=None):
     """Broadphase + narrowphase + compaction for one step. Returns
     (Manifolds, BPCache): the cache threads the persistent broadphase
-    between steps (ops/persistent_bp; `rebuild` is the host's copy of its
-    rebuild decision, read there when None)."""
+    between steps (ops/persistent_bp; `rebuild` forces its rebuild
+    decision, which is otherwise its device flag)."""
     wc = world_colliders(state)
     base = _base_broadphase(cfg)
     if cfg.persistent_broadphase:

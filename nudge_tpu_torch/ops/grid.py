@@ -27,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import control
 from ..config import SimConfig
 from ..state import SimState
 from .broadphase import (
@@ -78,7 +79,7 @@ def grid_broadphase(state: SimState, wc: WorldColliders, cfg: SimConfig):
     med = _median_or_one(ext, valid)
     big = valid & (ext > 2.0 * med)
     if cfg.grid_cell > 0.0:
-        cell = torch.tensor(cfg.grid_cell, dtype=torch.float32, device=dev)
+        cell = torch.full((), cfg.grid_cell, dtype=torch.float32, device=dev)
         big = valid & (2.0 * ext > cell)
     else:
         cell = 2.0 * torch.amax(torch.where(valid & ~big, ext, 0.0))
@@ -86,7 +87,7 @@ def grid_broadphase(state: SimState, wc: WorldColliders, cfg: SimConfig):
     in_grid = valid & ~big
 
     ex, ey, ez = cfg.grid_table_dims
-    dims = torch.tensor([ex, ey, ez], dtype=torch.int32, device=dev)
+    dims = control.constant([ex, ey, ez], torch.int32, dev)
     coords_abs = torch.floor(center / cell).to(torch.int32)
     n_in = torch.clamp_min(torch.sum(in_grid.to(torch.float32)), 1.0)
     cmean = torch.floor(
@@ -109,7 +110,7 @@ def grid_broadphase(state: SimState, wc: WorldColliders, cfg: SimConfig):
     end_tbl = torch.zeros((tbl_size + 2,), dtype=torch.int32, device=dev)
     end_tbl.scatter_reduce_(0, li, pos_arr + 1, "amax")
 
-    off = torch.as_tensor(_OFFSETS, dtype=torch.int32, device=dev)  # [14,3]
+    off = control.constant(_OFFSETS, torch.int32, dev)              # [14,3]
     n_off = off.shape[0]
     ncoords = coords[:, None, :] + off[None, :, :]                   # [G,14,3]
     in_ext = torch.all((ncoords >= 0) & (ncoords < dims), dim=-1)

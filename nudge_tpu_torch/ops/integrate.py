@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import control
 from ..config import SimConfig
 from ..mathx import quat_integrate
 from ..state import Bodies, SleepState
@@ -15,7 +16,7 @@ from ..state import Bodies, SleepState
 def apply_gravity(bodies: Bodies, sleep: SleepState, cfg: SimConfig) -> Bodies:
     """v += g·dt on dynamic awake bodies (before the solve, so resting
     contacts cancel gravity each frame)."""
-    g = torch.tensor(cfg.gravity, dtype=torch.float32, device=bodies.vel.device)
+    g = control.constant(cfg.gravity, torch.float32, bodies.vel.device)
     move = (bodies.dynamic & sleep.awake)[:, None]
     return bodies.replace(
         vel=torch.where(move, bodies.vel + g * cfg.dt, bodies.vel))

@@ -29,7 +29,8 @@ from __future__ import annotations
 
 import torch
 
-from .. import _build
+from .. import _build, control
+
 from ..state import Boxes, Spheres
 from . import narrowphase as nps
 from .broadphase import CandidatePairs, WorldColliders
@@ -124,7 +125,7 @@ def pairs_1pt_slots_cuda(bx: Boxes, sp: Spheres, wc: WorldColliders,
     return out
 
 
-pairs_1pt_slots_cuda.launches = 0
+control.counter(pairs_1pt_slots_cuda)
 
 
 def pairs_1pt_adjoint_cuda(bx: Boxes, sp: Spheres, wc: WorldColliders,
@@ -169,4 +170,4 @@ def pairs_1pt_adjoint_cuda(bx: Boxes, sp: Spheres, wc: WorldColliders,
     return out
 
 
-pairs_1pt_adjoint_cuda.launches = 0
+control.counter(pairs_1pt_adjoint_cuda)

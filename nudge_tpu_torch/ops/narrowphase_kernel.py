@@ -23,7 +23,8 @@ from __future__ import annotations
 
 import torch
 
-from .. import _build
+from .. import _build, control
+
 from ..state import Boxes
 from . import narrowphase as nps
 from .broadphase import CandidatePairs, WorldColliders
@@ -191,7 +192,7 @@ def box_box_adjoint_cuda(bx: Boxes, wc: WorldColliders, bb: CandidatePairs,
     return out
 
 
-box_box_adjoint_cuda.launches = 0
+control.counter(box_box_adjoint_cuda)
 
 
 def first_max_model(x):
@@ -221,4 +222,4 @@ def box_box_slots(bx: Boxes, wc: WorldColliders, bb: CandidatePairs):
     raise NotImplementedError(f"box_box: no kernel for device {dev}")
 
 
-box_box_slots.launches = 0
+control.counter(box_box_slots)

@@ -12,10 +12,9 @@ fat set against the current AABBs and the live filters (sleep, the kill
 plane, connections) and compacts it to the tight per-class capacity.
 
 Translation notes against the reference:
-  - the reference picks rebuild or reuse with `lax.cond`; here the engine
-    reads `needs_rebuild` to the host (in the same transfer as the
-    all-asleep flag) and passes the decision in, so `persistent_broadphase`
-    branches in Python;
+  - the reference picks rebuild or reuse with `lax.cond`; here
+    `control.cond` on the device flag `needs_rebuild` (a predicate read in
+    the eager step, two conditional graph nodes in the compiled one);
   - the tight-list memo (`bb_code`, `tight_bb_*`, `memo_ok`) serves only the
     reference's `aligned_fast_path`, which the port does not have: with it
     off the reference always runs `two_tier_compact`, and reads the memo
@@ -31,6 +30,7 @@ import dataclasses
 
 import torch
 
+from .. import control
 from ..config import SimConfig
 from ..state import SimState, _Replace
 from .broadphase import (
@@ -182,14 +182,20 @@ def persistent_broadphase(state: SimState, wc: WorldColliders,
                           cfg: SimConfig, base_broadphase, rebuild=None):
     """Returns ((bb, bs, ss), new BPCache). `base_broadphase(state, wc, cfg)`
     is the full rebuild (grid or all-pairs), run under `fat_cfg`. `rebuild`
-    is the host's copy of `needs_rebuild` (read here when None)."""
+    forces the decision (a bool, or a 0-d bool tensor); by default it is
+    `needs_rebuild`, on the device."""
     if rebuild is None:
-        rebuild = bool(needs_rebuild(state, cfg))
-    if rebuild:
-        bp = _rebuild(state, wc, cfg, base_broadphase)
+        rebuild = needs_rebuild(state, cfg)
+    elif isinstance(rebuild, bool):
+        rebuild = torch.full((), rebuild, dtype=torch.bool,
+                             device=state.bodies.pos.device)
+
+    def fat(s, w):
         persistent_broadphase.rebuilds += 1
-    else:
-        bp = state.bp
+        return _rebuild(s, w, cfg, base_broadphase)
+
+    bp = control.cond(rebuild, fat, lambda s, w: s.bp, (state, wc),
+                      name="rebuild")
 
     bodies, sleep, conn = state.bodies, state.sleep, state.connections
     bx, sp = state.boxes, state.spheres
@@ -225,4 +231,4 @@ def persistent_broadphase(state: SimState, wc: WorldColliders,
     return (bb, bs, ss), bp
 
 
-persistent_broadphase.rebuilds = 0
+control.counter(persistent_broadphase, "rebuilds")

@@ -17,7 +17,8 @@ from __future__ import annotations
 
 import torch
 
-from .. import _build
+from .. import _build, control
+
 
 _I32_MAX = 2 ** 31 - 1
 
@@ -73,4 +74,4 @@ def segment_sum(keys, perm, vals, n_out: int, init=None):
     raise NotImplementedError(f"segment_sum: no kernel for device {dev}")
 
 
-segment_sum.launches = 0
+control.counter(segment_sum)

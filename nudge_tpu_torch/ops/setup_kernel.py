@@ -32,7 +32,8 @@ import dataclasses
 
 import torch
 
-from .. import _build
+from .. import _build, control
+
 from ..config import CONTACT_POINTS, SimConfig
 from ..state import Bodies, flatten
 from . import solver
@@ -297,7 +298,7 @@ def setup_backward_cuda(bodies: Bodies, man: Manifolds, warm, pwarm, relax,
     return out
 
 
-setup_backward_cuda.launches = 0
+control.counter(setup_backward_cuda)
 
 
 class SetupFn(torch.autograd.Function):
@@ -410,4 +411,4 @@ def setup(bodies: Bodies, man: Manifolds, warm, cfg: SimConfig,
     raise NotImplementedError(f"setup: no kernel for device {dev}")
 
 
-setup.launches = 0
+control.counter(setup)

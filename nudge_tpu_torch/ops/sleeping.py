@@ -10,13 +10,14 @@ Translation notes against the reference:
   - `.at[].min` / `.at[].max` over int32 and bool become
     `scatter_reduce_(..., "amin"/"amax")` over int32 (order-free, so
     deterministic on the GPU);
-  - the reference skips the asleep flood when no body is a candidate, and
-    the wake flood when no body was woken (`lax.cond`). Both skips leave an
-    identity in the result (no candidate: nothing can fall asleep; no wake
-    seed: the flood of all-False is all-False), so the port runs both
-    floods unconditionally and pays no host read for them;
-  - the parked-pair rebuild is kept only where a body fell asleep or woke,
-    as the reference's `lax.cond` does, through a select on the device;
+  - the reference skips the asleep flood when no body is a candidate, the
+    wake flood when no body was woken, and the parked-pair rebuild when no
+    body fell asleep or woke (`lax.cond`); here `control.cond` (a
+    predicate read in the eager step, conditional graph nodes in the
+    compiled one). Each skipped branch returns its input, which is the
+    identity the flood would give (no candidate: nothing can fall asleep;
+    no wake seed: the flood of all-False is all-False; no change: the list
+    stands);
   - `jnp.nonzero(size=, fill_value=0)` is `compact_mask` plus explicit fill.
 """
 
@@ -24,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import control
 from ..config import SimConfig
 from ..mathx import dot
 from ..state import Bodies, SleepState
@@ -104,7 +106,10 @@ def update_sleep(bodies: Bodies, man: Manifolds, sleep: SleepState,
     lbl = torch.where(dyn & awake & ~candidate, -1, 0).to(torch.int32)
     lbl = torch.where(dyn, lbl, _BIG)
     edge = live & dyn[ba] & dyn[bb]
-    lbl = asleep_flood(lbl, ba, bb, edge, cfg.island_sweeps)
+    lbl = control.cond(
+        torch.any(candidate),
+        lambda x: asleep_flood(x, ba, bb, edge, cfg.island_sweeps),
+        lambda x: x, (lbl,), name="asleep_flood")
     falls_asleep = candidate & ~(lbl < 0)
     awake = awake & ~falls_asleep
 
@@ -119,9 +124,12 @@ def update_sleep(bodies: Bodies, man: Manifolds, sleep: SleepState,
     woken = _scatter(woken, ba, (live & moving[bb] & ~awake[ba]
                                  & dyn[ba]).to(torch.int32), "amax")
     pa, pb = sleep.pairs[:, 0], sleep.pairs[:, 1]
-    wake_flag = wake_flood(woken, torch.clamp_min(pa, 0).long(),
-                           torch.clamp_min(pb, 0).long(), pa >= 0,
-                           cfg.island_sweeps)
+    wake_flag = control.cond(
+        torch.any(woken > 0),
+        lambda w: wake_flood(w, torch.clamp_min(pa, 0).long(),
+                             torch.clamp_min(pb, 0).long(), pa >= 0,
+                             cfg.island_sweeps),
+        lambda w: w, (woken,), name="wake_flood")
     wake_flag = (wake_flag > 0) & dyn & ~awake
     awake = awake | wake_flag
     idle = torch.where(wake_flag | falls_asleep, 0, idle)
@@ -136,9 +144,9 @@ def update_sleep(bodies: Bodies, man: Manifolds, sleep: SleepState,
     # --- parked pairs: rebuilt only on a step where a body fell asleep or
     # woke (otherwise the list stands, as in the reference) ---
     changed = torch.any(falls_asleep) | torch.any(wake_flag)
-    pairs = torch.where(changed,
-                        rebuild_pairs(sleep.pairs, dyn & ~awake, ba, bb, live),
-                        sleep.pairs)
+    pairs = control.cond(
+        changed, lambda p: rebuild_pairs(p, dyn & ~awake, ba, bb, live),
+        lambda p: p, (sleep.pairs,), name="parked_pairs")
 
     fz = falls_asleep[:, None]
     bodies = bodies.replace(vel=torch.where(fz, 0.0, bodies.vel),

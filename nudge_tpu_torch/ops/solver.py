@@ -20,6 +20,7 @@ import dataclasses
 
 import torch
 
+from .. import control
 from ..config import CONTACT_POINTS, SimConfig
 from ..mathx import cross, dot, orthonormal_basis, quat_rotate, quat_rotate_inv
 from ..state import Bodies, ColorCache
@@ -91,7 +92,7 @@ def order_colors_by_height(color, man: Manifolds, cfg: SimConfig):
     along -gravity, ascending); empty colors last, parked sentinel fixed."""
     K = cfg.max_colors
     dev = color.device
-    g = torch.tensor(cfg.gravity, dtype=torch.float32, device=dev)
+    g = control.constant(cfg.gravity, torch.float32, dev)
     up = -g / torch.clamp_min(torch.sqrt(dot(g, g)), 1e-9)
     h = man.pos[..., 0] * up[0] + man.pos[..., 1] * up[1] \
         + man.pos[..., 2] * up[2]
@@ -108,7 +109,7 @@ def order_colors_by_height(color, man: Manifolds, cfg: SimConfig):
     order = torch.sort(mean, stable=True).indices
     rank = torch.zeros(K + 1, dtype=torch.int32, device=dev)
     rank[order] = torch.arange(K, dtype=torch.int32, device=dev)
-    rank[K] = K
+    rank[K].fill_(K)
     return rank[_i64(torch.clamp(color, 0, K))]
 
 
@@ -201,11 +202,14 @@ def color_manifolds_cached(man: Manifolds, bodies: Bodies, cfg: SimConfig,
                            "amax")
 
     idx = torch.arange(m, dtype=torch.int32, device=dev)
-    c = 0
-    while c < K - 1 and bool(torch.any(man.valid & (color < 0))):
+
+    def uncolored(c, carry):
+        return torch.any(man.valid & (carry[0] < 0))
+
+    def claim_round(c, carry):
+        color, forbid = carry
         token = idx ^ round_hash(c)
-        uncolored = man.valid & (color < 0)
-        elig = (uncolored
+        elig = (man.valid & (color < 0)
                 & ((forbid[ba * K + c] == 0) | ~dyn_a)
                 & ((forbid[bb * K + c] == 0) | ~dyn_b))
         token_a = torch.where(elig & dyn_a, token, INF_I32)
@@ -214,12 +218,16 @@ def color_manifolds_cached(man: Manifolds, bodies: Bodies, cfg: SimConfig,
         ok_a = ~dyn_a | (claim[man.body_a] == token)
         ok_b = ~dyn_b | (claim[man.body_b] == token)
         win = elig & ok_a & ok_b
-        color = torch.where(win, c, color)
         forbid.scatter_reduce_(0, ba * K + c, (win & dyn_a).to(torch.int32),
                                "amax")
         forbid.scatter_reduce_(0, bb * K + c, (win & dyn_b).to(torch.int32),
                                "amax")
-        c += 1
+        return torch.where(win, c, color), forbid
+
+    # the reference's lax.while_loop: a round after the last uncolored
+    # manifold claims nothing, so the static bound K - 1 is exact
+    color, forbid = control.bounded_while(K - 1, uncolored, claim_round,
+                                          (color, forbid), name="claim")
 
     color, relax, spilled = _spill_relax(man, color, dyn_a, dyn_b, n_bodies,
                                          cfg)

@@ -30,7 +30,8 @@ import dataclasses
 
 import torch
 
-from .. import _build
+from .. import _build, control
+
 from ..config import CONTACT_POINTS, SimConfig
 from ..state import flatten
 from . import solver
@@ -291,7 +292,7 @@ def solve_backward_cuda(rows, tape, con, cfg: SimConfig, d_velw, d_out,
     return adj_velw, adj_rows, d_work
 
 
-solve_backward_cuda.launches = 0
+control.counter(solve_backward_cuda)
 
 
 class SolveFn(torch.autograd.Function):
@@ -363,4 +364,4 @@ def solve(velw, con, acc, cfg: SimConfig):
     raise NotImplementedError(f"solve: no kernel for device {dev}")
 
 
-solve.launches = 0
+control.counter(solve)

@@ -8,16 +8,20 @@ the device. BASELINE config 5 runs 4,096 scenes of 512 bodies as 128 chunks
 (flattened mega-scenes) of 32 scenes (`megabatch_simulate`).
 
 `torch.vmap` cannot trace the hand-written kernels, so every function here
-runs the unbatched `engine.step` on one scene or chunk at a time, on views
-of the batch's leaves, and writes the result back into the batch it
-returns: what the reference's `lax.map` body does for megachunks. A
+runs the unbatched step on one scene or chunk at a time and writes the
+result into the batch it returns: what the reference's `lax.map` body does
+for megachunks. On the card that is the step captured once as a CUDA graph
+(`control.compiled`): every scene or chunk of a batch has the same shapes,
+so one graph serves them all; it copies the scene in, replays, and copies
+it out. On the CPU, and for a batch that carries a gradient, it is the
+eager `engine.step` on views of the batch's leaves. A
 scene's step reads and writes nothing of another scene's arrays, so each
 scene's trajectory is the one it has alone, bit for bit, and a chunked
 variant equals the unchunked one bit for bit. Each scene runs all of a
 call's steps before the next starts (the reference maps scenes inside its
 scan over steps; the results are the same).
 
-The kernels read the views in place: a view starts at a multiple of its
+On the eager path the kernels read the views in place: a view starts at a multiple of its
 leaf's per-scene size, 4-byte aligned, and every kernel reads body and
 collider arrays one element at a time; what a kernel reads or writes as
 16-byte words it allocates itself (setup's velw and rows, the narrowphase
@@ -52,9 +56,10 @@ import os
 
 import torch
 
+from .. import control
 from ..config import SimConfig
 from ..engine import StepMetrics, step
-from ..state import tree_map
+from ..state import flatten, tree_map
 
 SCENE_AXIS = "scenes"
 
@@ -201,12 +206,29 @@ def _requires_grad(state_b) -> bool:
 
 
 def _rollout(cfg: SimConfig, state_b, steps: int, every_step: bool):
-    """Each scene of a copy of `state_b` stepped `steps` times, written
-    back (stacked anew when the batch carries a gradient). Returns (batch,
-    metrics): [steps, scenes] fields with `every_step`, else the last
-    step's [scenes]."""
+    """Each scene of `state_b` stepped `steps` times, into a new batch.
+    Returns (batch, metrics): [steps, scenes] fields with `every_step`,
+    else the last step's [scenes]. On the card every scene goes through
+    one captured step (`control.compiled`: the scenes share its shapes):
+    the scene is copied into the graph's inputs, replayed `steps` times and
+    copied out into the new batch. On the CPU, or when the batch carries a
+    gradient, the eager step runs on views of a copy (stacked anew with a
+    gradient)."""
     _refuse_dtensors(state_b, "_rollout")
     grad = _requires_grad(state_b)
+    if state_b.bodies.pos.is_cuda and not grad:
+        out = tree_map(torch.empty_like, state_b)
+        graph = control.compiled(step, cfg, take(state_b, 0))
+        graph.start()
+        per_scene = []
+        for i in range(_batch_size(out)):
+            graph.load(take(state_b, i))
+            m = graph.replay(steps)
+            graph.store(flatten(take(out, i))[0])
+            per_scene.append(m if every_step else tree_map(lambda x: x[-1], m))
+        graph.finish()
+        return out, _stack_metrics(per_scene, 1 if every_step else 0)
+
     out = state_b if grad else tree_map(torch.clone, state_b)
     per_scene, stepped = [], []
     for i in range(_batch_size(out)):

@@ -2,7 +2,10 @@
 profiler.
 
     device_ms(fn)    mean device milliseconds a call of `fn`;
-    device_ops(fn)   {kind: count} of what one call puts on the stream.
+    device_ops(fn)   {kind: count} of what one call puts on the stream;
+    graph_ops(c)     {kind: count} of what one replay of a compiled step
+                     (control.Compiled) runs on the device, on average over
+                     its last rollout.
 
 `torch.profiler` on the H100 drops device events that fall early in its
 window, more often the longer the process has run: of three calls of one
@@ -30,7 +33,7 @@ import torch
 SPIN_CYCLES = 100_000_000
 SPIN_TRIES = 4
 # CUgraphNodeType (cuda.h)
-_NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset"}
+_NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset", 13: "conditional"}
 
 
 def device_ms(fn, reps: int = 5) -> float:
@@ -99,3 +102,16 @@ def _node_kinds(raw_graph: int) -> dict:
         kind = _NODE_KINDS.get(t.value, "other")
         kinds[kind] = kinds.get(kind, 0) + 1
     return kinds
+
+
+def graph_ops(compiled) -> dict:
+    """{kind: count} of the device operations one replay of a compiled step
+    runs, on average over its last rollout: the nodes of its graph outside
+    the conditional nodes, plus each conditional body's nodes times the
+    share of replays that ran it (control.Compiled.finish)."""
+    total = dict(_node_kinds(compiled.graph.raw_cuda_graph()))
+    for body, count in zip(compiled.bodies, compiled.counts_read):
+        share = count / max(compiled.replays, 1)
+        for kind, n in _node_kinds(body.graph).items():
+            total[kind] = total.get(kind, 0) + n * share
+    return total

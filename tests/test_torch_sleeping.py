@@ -1,8 +1,8 @@
 """The port's sleeping against the JAX package: `update_sleep` fed the same
 bodies, manifolds, sleep state and wake mask in both packages (falling
-asleep, waking through parked pairs, the kill plane, a quiet step), the
-reference's three skips shown to be identities where the port does not
-take them, and port mirrors of tests/test_sleeping.py at CPU sizes."""
+asleep, waking through parked pairs, the kill plane, a quiet step, the
+steps where the reference's skips are taken), the three skips shown to be
+identities, and port mirrors of tests/test_sleeping.py at CPU sizes."""
 
 import jax
 import jax.numpy as jnp
@@ -37,7 +37,8 @@ def _sleep_inputs(case):
     pcfg, jcfg, jst, _ = pressed_mixed_pile(48, **over)
     jman, _ = jax.jit(lambda s: jcontacts.collide(s, jcfg))(jst)
     rng = np.random.default_rng({"fall_asleep": 1, "wake": 2,
-                                 "kill_plane": 3, "quiet": 4}[case])
+                                 "kill_plane": 3, "quiet": 4,
+                                 "no_candidate": 5, "no_wake_seed": 6}[case])
     n = pcfg.max_bodies
     pos = np.asarray(jst.bodies.pos)
     dyn = np.asarray(jst.bodies.inv_mass) > 0
@@ -51,7 +52,7 @@ def _sleep_inputs(case):
     valid = np.asarray(jman.valid).copy()
     ba, bb = np.asarray(jman.body_a), np.asarray(jman.body_b)
     fast = None
-    if case in ("wake", "kill_plane", "quiet"):
+    if case in ("wake", "kill_plane", "quiet", "no_wake_seed"):
         # the wake case: the two bottom layers sleep under an awake top
         # layer; the others: one half of the pile's columns sleeps
         asleep = dyn & ((pos[:, 1] < 2.0) if case == "wake"
@@ -63,9 +64,9 @@ def _sleep_inputs(case):
         vel[asleep] = 0.0
         angvel[asleep] = 0.0
         fast = awake & (rng.uniform(size=n) < 0.5)
-    if case in ("wake", "quiet"):            # no candidate
+    if case in ("wake", "quiet", "no_candidate"):     # no candidate
         idle[:] = 0
-    if case == "quiet":                      # and no wake seed
+    if case in ("quiet", "no_wake_seed"):             # no wake seed
         fast = np.zeros(n, bool)
     bodies = dict(pos=pos, quat=np.asarray(jst.bodies.quat), vel=vel,
                   angvel=angvel, inv_mass=np.asarray(jst.bodies.inv_mass),
@@ -118,6 +119,43 @@ def test_update_sleep_matches_reference(case):
     else:
         assert not fell.any() and not woke.any()
         assert_equal(psl.pairs, sleep["pairs"], "pairs kept")
+
+
+# which of update_sleep's three skips each case takes: (asleep flood,
+# wake flood, parked-pair rebuild) run
+_SKIPS = {"no_candidate": (False, False, False),
+          "no_wake_seed": (True, False, True)}
+
+
+@pytest.mark.parametrize("case", sorted(_SKIPS))
+def test_update_sleep_skips_match_reference(case, monkeypatch):
+    """A step with no candidate (nothing can fall asleep, nobody sleeps)
+    and one with no wake seed (sleepers, candidates, no fast body): the
+    port skips the floods there as the reference's lax.conds do, and gives
+    the reference's result, integers exactly, floats to assert_equal's
+    tolerance."""
+    ran = {}
+    for name in ("asleep_flood", "wake_flood", "rebuild_pairs"):
+        fn = getattr(psleeping, name)
+
+        def record(*a, _fn=fn, _name=name, **k):
+            ran[_name] = True
+            return _fn(*a, **k)
+
+        monkeypatch.setattr(psleeping, name, record)
+    (_, bodies, sleep, _, _), (jsl, jbo), (psl, pbo) = _run_both(case)
+    for f in ("idle", "awake", "pairs"):
+        assert_equal(getattr(psl, f), getattr(jsl, f), f)
+    assert_equal(pbo.vel, jbo.vel, "vel")
+    assert_equal(pbo.angvel, jbo.angvel, "angvel")
+    assert tuple(ran.get(n, False) for n in (
+        "asleep_flood", "wake_flood", "rebuild_pairs")) == _SKIPS[case]
+    dyn = bodies["inv_mass"] > 0
+    fell = sleep["awake"] & dyn & ~np_(psl.awake)
+    if case == "no_wake_seed":
+        assert fell.sum() > 0 and (~sleep["awake"] & dyn).sum() > 3
+    else:
+        assert not fell.any() and np_(psl.awake)[dyn].all()
 
 
 def test_asleep_flood_skip_is_identity():
