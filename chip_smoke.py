@@ -166,9 +166,25 @@ no result):
      under the profiler as phase 14 (busy share, device events a step, one
      graph launch a step), the device operations a replay runs, 10
      replays under torch.cuda.set_sync_debug_mode("error") (no host
-     read), and the warm-up's and the capture's seconds.
+     read), and the warm-up's and the capture's seconds;
+ 22. the compiled gradient: engine.simulate with a leaf that requires
+     grad (one _RolloutFn node: the captured step's replays forward, a
+     captured backward step replayed once a step in reverse) against the
+     eager engine.step loop under autograd, the eager loop first and the
+     compiled gradient twice: the 20,480 pile for 5 steps from step 40
+     (phase 18's cell), d/d vel and pos bitwise, the same launches of
+     every kernel, the backward replays under the sync debug mode "error"
+     (no host read), one graph launch a backward step, forward and
+     backward ms a step, peak memory, capture seconds and the device
+     operations of a backward replay; config 3 for 3 steps from step 120;
+     the 4-body pile w.r.t. the inverse masses and frictions (within 1e-6
+     of the largest element); a resting box that parks in the window; the
+     512-box reference-mode pile with a rebuild in the window; the pile's
+     gradient over 60 steps (time and memory). Phase 18's examples run the
+     compiled gradient (diff_throw through engine.simulate, policy_grad
+     through vec_step), one eager iteration of diff_throw timed beside.
 
-Phases 5-7, 9-13, 15-21 each zero the kernels' launch counts
+Phases 5-7, 9-13, 15-22 each zero the kernels' launch counts
 before they run and read them after, and run with the plain twins (in 18
 also the backward kernels' plain versions) replaced by functions that
 raise: the main paths go through the kernels only. The record line gives
@@ -181,7 +197,7 @@ size its docstring gives. On the card engine.simulate, step_jit and the
 parallel.mesh rollouts run the compiled step (nudge_tpu_torch/control.py);
 phases 11-14 step eagerly (`eager_simulate`), and every "stepped alone"
 comparison is against the eager engine.step. Every torch.profiler window
-(phases 14, 15, 16 and 21) runs last, after phase 21, on copies of the
+(phases 14, 15, 16 and 21) runs last, after phase 22, on copies of the
 states its phase saw: a profiler session leaves CUPTI attached to the
 process and slows every later launch, so no timed phase runs after one.
 
@@ -3061,17 +3077,35 @@ def phase_grad_examples(card):
 
     from nudge_tpu_torch.examples import diff_throw, policy_grad
 
+    import torch
+
+    from nudge_tpu_torch import engine
+
     launches = {}
     with KernelsOnly(backward=True) as run:
         throw = diff_throw.main(["--device", "cuda"])
     launches["diff_throw"] = run.launches
     if not throw["final_loss"] < THROW_LOSS:
         raise AssertionError(f"diff_throw: final loss {throw['final_loss']}")
+    # one iteration as the eager loop, for its time
+    st0, cfg = diff_throw.build("cuda")
+    v = torch.tensor(throw["v"], device=st0.device, requires_grad=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = st0.replace(bodies=st0.bodies.replace(vel=torch.cat(
+        [st0.bodies.vel[:1], v[None], st0.bodies.vel[2:]])))
+    for _ in range(diff_throw.STEPS):
+        st, _ = engine.step(st, cfg)
+    torch.autograd.grad(st.bodies.pos[1].sum(), v)
+    torch.cuda.synchronize()
+    t_eager = time.perf_counter() - t0
     log(card, f"diff_throw: {len(throw['loss'])} iterations of "
         f"{diff_throw.STEPS} steps, loss " + " ".join(
             f"{x:.4g}" for x in throw["loss"])
         + f", final {throw['final_loss']:.3g}; "
-        f"{np.mean(throw['seconds']):.3f} s an iteration; launches "
+        f"{np.mean(throw['seconds']):.3f} s an iteration (compiled "
+        f"gradient; the first {throw['seconds'][0]:.3f} s with the "
+        f"captures), the eager loop {t_eager:.3f} s for one; launches "
         f"{run.launches}")
     with KernelsOnly(backward=True) as run:
         pg = policy_grad.main(["--device", "cuda"])
@@ -3085,7 +3119,8 @@ def phase_grad_examples(card):
     log(card, f"policy_grad: {len(pg['return'])} updates of "
         f"{policy_grad.BATCH} rollouts, mean return " + " ".join(
             f"{x:.3f}" for x in pg["return"])
-        + f" (gain {gain:.3f}); {np.mean(pg['seconds']):.3f} s an update; "
+        + f" (gain {gain:.3f}); {np.mean(pg['seconds']):.3f} s an update "
+        f"(compiled gradient; the first {pg['seconds'][0]:.3f} s); "
         f"launches {run.launches}")
     return launches
 
@@ -3422,6 +3457,279 @@ def phase_compiled(card, dev, eager):
     return launches
 
 
+# --- phase 22: the compiled gradient -------------------------------------
+# engine.simulate with a state leaf that requires grad: one _RolloutFn
+# node, its forward the captured step's replays (each step's input state
+# kept as a checkpoint), its backward a captured backward step
+# (control.GradStep: the step recomputed from its checkpoint with grad
+# enabled, then autograd.grad into the adjoints) replayed once a step in
+# reverse. Each check is against the eager loop (engine.step in a Python
+# loop, autograd over it). The leaves every step rewrites (vel, pos) must
+# agree bit for bit. A leaf the step passes on unchanged (the inverse
+# masses, the frictions) collects one term a step, which the loop may add
+# in another order: within CARRIED_RTOL of the loop's largest element.
+CARRIED_RTOL = 1e-6
+GRAD_LONG_STEPS = 60       # the pile's long gradient: time and memory only
+KE_WEIGHT = 1e-3           # the pile's loss adds the summed kinetic energy
+SLEEP_GRAD_STEPS = 8       # the resting box, asleep after 3 steps
+REBUILD_GRAD_STEPS = 6     # the 512-box reference-mode pile, from spawn
+
+
+def grad_rollout(st0, cfg, steps, loss_fn, keys, compiled, audit=False):
+    """`steps` steps from `st0` with its (part, field) leaves `keys`
+    requiring grad, then d loss_fn(state, metrics) / d those leaves:
+    through engine.simulate (`compiled`: the compiled gradient) or the
+    eager loop. With `audit` the backward runs under the sync debug mode
+    "error" (the backward's one host read, the body counters at its end,
+    deferred until after it). Returns {loss, grads, state, fwd, bwd (s),
+    peak (GB allocated above the start), reserved (GB the allocator
+    reserved anew)}."""
+    import torch
+
+    from nudge_tpu_torch import control, engine
+
+    leaves = {k: getattr(getattr(st0, k[0]), k[1]).detach().clone()
+              .requires_grad_() for k in keys}
+    parts = {}
+    for (part, field), x in leaves.items():
+        parts.setdefault(part, {})[field] = x
+    st = st0.replace(**{p: getattr(st0, p).replace(**kw)
+                        for p, kw in parts.items()})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    if compiled:
+        st, m = engine.simulate(st, cfg, steps)
+    else:
+        ms = []
+        for _ in range(steps):
+            st, mm = engine.step(st, cfg)
+            ms.append(mm)
+        m = engine.StepMetrics(**{k: torch.stack([getattr(x, k) for x in ms])
+                                  for k in vars(ms[0])})
+    loss = loss_fn(st, m)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    deferred = []
+    if audit:
+        finish = control.GradStep.finish
+        control.GradStep.finish = lambda step: deferred.append(step)
+        old = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        g = torch.autograd.grad(loss, list(leaves.values()))
+    finally:
+        if audit:
+            torch.cuda.set_sync_debug_mode(old)
+            control.GradStep.finish = finish
+            for step in deferred:
+                finish(step)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return dict(loss=loss.detach(), grads=dict(zip(keys, g)),
+                state=st, fwd=t1 - t0, bwd=t2 - t1,
+                peak=(torch.cuda.max_memory_allocated() - base) / 1e9,
+                reserved=(torch.cuda.memory_reserved() - reserved) / 1e9)
+
+
+def same_grads(label, want, got, keys, carried=()):
+    """Raise unless `got`'s loss and gradients are `want`'s bit for bit
+    (those in `carried`: within CARRIED_RTOL of the largest element).
+    Returns {key: max abs difference}."""
+    import torch
+
+    if not bitwise(want["loss"], got["loss"]):
+        raise AssertionError(f"{label}: the loss differs from the eager "
+                             "loop's")
+    diffs = {}
+    for k in keys:
+        a, b = want["grads"][k], got["grads"][k]
+        if not bool(torch.isfinite(b).all()):
+            raise AssertionError(f"{label}: d/d{k[1]} not finite")
+        d = diffs[k[1]] = float((a - b).abs().max())
+        if k in carried:
+            if not d <= CARRIED_RTOL * float(a.abs().max()):
+                raise AssertionError(f"{label}: d/d{k[1]} {d:.3g} from the "
+                                     f"loop's (max {float(a.abs().max()):.4g})")
+        elif not bitwise(a, b):
+            raise AssertionError(f"{label}: d/d{k[1]} differs from the eager "
+                                 f"loop's by up to {d:.3g}")
+    return diffs
+
+
+def grad_case(label, st0, cfg, steps, loss_fn, keys, carried=(),
+              kernels=()):
+    """The eager loop, then the compiled gradient twice (the first call
+    captures), the kernels only: the same loss and gradients, the same
+    launches of every kernel. Returns (eager, first, second runs, the
+    launches)."""
+    from nudge_tpu_torch import engine
+    from nudge_tpu_torch.ops import persistent_bp
+
+    runs, launches, events = [], [], []
+    for compiled in (False, True, True):
+        p0 = engine.step.parked
+        r0 = persistent_bp.persistent_broadphase.rebuilds
+        with KernelsOnly(backward=True) as run:
+            runs.append(grad_rollout(clone_state(st0), cfg, steps, loss_fn,
+                                     keys, compiled, audit=compiled))
+        launches.append(run.launches)
+        events.append((engine.step.parked - p0,
+                       persistent_bp.persistent_broadphase.rebuilds - r0))
+    need_launches(label, launches[0], kernels)
+    for k, (run, n, ev) in enumerate(zip(runs[1:], launches[1:], events[1:])):
+        same_grads(f"{label} (compiled run {k + 1})", runs[0], run, keys,
+                   carried)
+        if n != launches[0] or ev != events[0]:
+            raise AssertionError(f"{label}: compiled run {k + 1} launched "
+                                 f"{n}, parks and rebuilds {ev}; the eager "
+                                 f"loop {launches[0]}, {events[0]}")
+    if not bitwise(runs[0]["state"], runs[1]["state"]):
+        raise AssertionError(f"{label}: the compiled forward's state differs "
+                             "from the eager loop's")
+    return runs, launches[0], events[0]
+
+
+def phase_compiled_grad(card, dev, pile_state, mixed_state):
+    """Phase 22, the compiled gradient: engine.simulate with a leaf that
+    requires grad, against the eager loop (see grad_case): the 20,480
+    pile for DIFF_STEPS steps from step COMPARE_AFTER (phase 18's cell,
+    loss the summed height plus KE_WEIGHT x the summed kinetic energy,
+    d/d vel and pos bitwise, two compiled runs bitwise, every backward
+    replay under the sync debug mode "error", one graph launch a backward
+    step, the backward graph's device operations, capture seconds, times
+    and memory); config 3 for 3 steps from step MIXED_COMPARE_AFTER; the
+    4-body pile w.r.t. the inverse masses and the boxes' frictions; a
+    resting box that falls asleep and parks in the window; the 512-box
+    reference-mode pile with a rebuild in the window; then GRAD_LONG_STEPS
+    steps of the pile's gradient (time and memory; it must finish
+    finite). Returns the launches by path."""
+    import torch
+
+    from nudge_tpu_torch import control, engine, scenes
+    from nudge_tpu_torch.state import flatten
+    from nudge_tpu_torch.utils import timing
+
+    t_phase = time.perf_counter()
+    vp = (("bodies", "vel"), ("bodies", "pos"))
+    b = scenes.scene_pile(N_PILE)
+    cfg = pile_config(b, N_PILE).replace(differentiable=True)
+
+    def pile_loss(st, m):
+        return dynamic_height(st) + KE_WEIGHT * m.kinetic_energy.sum()
+
+    runs, launches, _ = grad_case(
+        "compiled pile gradient", pile_state, cfg, DIFF_STEPS, pile_loss, vp,
+        kernels=("box_box", "setup", "solve", "box_box_bwd", "setup_bwd",
+                 "solve_bwd"))
+    need = [t is pile_state.bodies.vel or t is pile_state.bodies.pos
+            for t in flatten(pile_state)[0]]
+    graph = control.compiled_grad(engine.step, cfg, pile_state, need)
+    if graph.replays != DIFF_STEPS:
+        raise AssertionError(f"compiled pile gradient: {graph.replays} "
+                             f"backward graph launches for {DIFF_STEPS} "
+                             "steps")
+    ops = timing.graph_ops(graph)
+    fwd_graph = control.compiled(engine.step, cfg, pile_state)
+    e, c1, c2 = runs
+    log(card, f"compiled pile gradient: {DIFF_STEPS} steps of the {N_PILE} "
+        f"pile from step {COMPARE_AFTER}, d/dv and d/dx bitwise the eager "
+        f"loop's in both compiled runs (max |d/dv| "
+        f"{float(e['grads'][vp[0]].abs().max()):.4g}, max |d/dx| "
+        f"{float(e['grads'][vp[1]].abs().max()):.4g}), the forward's state "
+        f"bitwise; 0 host reads over the backward replays (sync debug mode "
+        f"'error'); {graph.replays} launches of one backward graph for "
+        f"{DIFF_STEPS} steps; forward / backward ms a step: eager "
+        f"{1e3 * e['fwd'] / DIFF_STEPS:.2f} / {1e3 * e['bwd'] / DIFF_STEPS:.2f}"
+        f", compiled first call (captures) {1e3 * c1['fwd'] / DIFF_STEPS:.2f}"
+        f" / {1e3 * c1['bwd'] / DIFF_STEPS:.2f}, second "
+        f"{1e3 * c2['fwd'] / DIFF_STEPS:.2f} / "
+        f"{1e3 * c2['bwd'] / DIFF_STEPS:.2f}; peak GB allocated above the "
+        f"state: eager {e['peak']:.3f}, compiled first {c1['peak']:.3f} "
+        f"(reserved anew {c1['reserved']:.3f}), second {c2['peak']:.3f} "
+        f"(reserved anew {c2['reserved']:.3f}); capture s: forward graph "
+        f"{fwd_graph.capture_s:.2f}, backward graph {graph.capture_s:.2f} "
+        f"({len(graph.bodies)} conditional bodies); device "
+        f"operations a backward replay "
+        + ", ".join(f"{k} {v:.1f}" for k, v in sorted(ops.items()))
+        + f"; launches {launches}")
+    by_path = {f"compiled pile gradient ({DIFF_STEPS} steps)": launches}
+
+    _, mcfg = mixed_scene()
+    _, launches, _ = grad_case(
+        "compiled config 3 gradient", mixed_state,
+        mcfg.replace(differentiable=True), 3, lambda st, m: dynamic_height(st),
+        vp, kernels=("box_box", "pairs_1pt", "setup", "solve", "box_box_bwd",
+                     "pairs_1pt_bwd", "setup_bwd", "solve_bwd"))
+    log(card, f"compiled config 3 gradient: 3 steps from step "
+        f"{MIXED_COMPARE_AFTER}, d/dv and d/dx bitwise the eager loop's, "
+        f"launches {launches}")
+    by_path["compiled config 3 gradient (3 steps)"] = launches
+
+    b = scenes.scene_pile(4, seed=0)
+    scfg = b.auto_config(differentiable=True, max_colors=8, solver_iters=12)
+    target = torch.tensor(AUTODIFF_TARGET, device=dev)
+    params = (("bodies", "inv_mass"), ("boxes", "friction"))
+    runs, launches, _ = grad_case(
+        "compiled 4-body gradient", b.finalize(scfg, device=dev), scfg,
+        AUTODIFF_STEPS,
+        lambda st, m: torch.sum((st.bodies.pos[1] - target) ** 2), params,
+        carried=params, kernels=("setup_bwd", "solve_bwd"))
+    d = same_grads("compiled 4-body gradient", runs[0], runs[1], params,
+                   params)
+    log(card, "compiled 4-body gradient with respect to the inverse masses "
+        "and the boxes' frictions: " + ", ".join(
+            f"d/d{k} within {v:.3g} of the loop's (max "
+            f"{float(runs[0]['grads'][key].abs().max()):.4g}; bitwise "
+            f"{bitwise(runs[0]['grads'][key], runs[1]['grads'][key])})"
+            for (k, v), key in zip(d.items(), params))
+        + f"; launches {launches}")
+
+    b = scenes.scene_single_box(0.5)
+    scfg = b.auto_config(differentiable=True, sleeping=True, sleep_frames=2,
+                         max_colors=4, solver_iters=4)
+    _, launches, (parks, _) = grad_case(
+        "compiled gradient, resting box", b.finalize(scfg, device=dev), scfg,
+        SLEEP_GRAD_STEPS,
+        lambda st, m: torch.sum(st.bodies.pos ** 2) + m.kinetic_energy.sum(),
+        vp)
+    if parks < 1:
+        raise AssertionError("compiled gradient, resting box: no park")
+    log(card, f"compiled gradient, a resting box asleep ({SLEEP_GRAD_STEPS} "
+        f"steps, {parks} parked): d/dv and d/dx bitwise the eager loop's; "
+        f"launches {launches}")
+
+    b = scenes.scene_pile(512, seed=1)
+    scfg = b.auto_config(differentiable=True, sleeping=True,
+                         persistent_broadphase=True, sleep_frames=4)
+    _, launches, (_, rebuilds) = grad_case(
+        "compiled gradient, reference-mode pile", b.finalize(scfg, device=dev),
+        scfg, REBUILD_GRAD_STEPS,
+        lambda st, m: dynamic_height(st) + m.max_depth.sum(), vp)
+    if rebuilds < 1:
+        raise AssertionError("compiled gradient, reference-mode pile: no "
+                             "rebuild")
+    log(card, f"compiled gradient, the 512-box pile in the reference mode "
+        f"({REBUILD_GRAD_STEPS} steps from spawn, {rebuilds} rebuilds): "
+        f"d/dv and d/dx bitwise the eager loop's; launches {launches}")
+
+    with KernelsOnly(backward=True) as run:
+        long = grad_rollout(clone_state(pile_state), cfg, GRAD_LONG_STEPS,
+                            pile_loss, vp, compiled=True)
+    if not all(bool(torch.isfinite(g).all()) for g in long["grads"].values()):
+        raise AssertionError(f"compiled pile gradient, {GRAD_LONG_STEPS} "
+                             "steps: not finite")
+    log(card, f"compiled pile gradient, {GRAD_LONG_STEPS} steps: forward "
+        f"{1e3 * long['fwd'] / GRAD_LONG_STEPS:.2f} ms a step, backward "
+        f"{1e3 * long['bwd'] / GRAD_LONG_STEPS:.2f} ms a step, "
+        f"{long['fwd'] + long['bwd']:.2f} s in all; peak {long['peak']:.3f} "
+        f"GB allocated above the state (reserved anew "
+        f"{long['reserved']:.3f}); launches {run.launches}")
+    log(card, f"phase 22: {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
 def main():
     sys.path.insert(0, REPO)
     import torch
@@ -3471,6 +3779,8 @@ def main():
     # this slice's path: the compiled rollout
     by_path[f"compiled reference pile ({REF_STEPS} steps)"] = phase_compiled(
         card, dev, eager)
+    # this slice's path: the compiled gradient
+    by_path.update(phase_compiled_grad(card, dev, pile_state, mixed_state))
     # the profiler windows of phases 14-16 and 21, after every timed phase
     run_profiles()
     kernels = []

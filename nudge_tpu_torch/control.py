@@ -8,6 +8,11 @@ of compiled functions, for CUDA graphs.
                                                static bound on its trips
     compiled(fn, cfg, state)                   fn(state, cfg) captured
                                                once as a CUDA graph
+    compiled_grad(fn, cfg, state, need)        the backward of one step of
+                                               fn, captured once a set of
+                                               leaves that require grad
+                                               (the reverse of jax.jit of a
+                                               scan's value_and_grad)
 
 Outside a capture (every CPU tensor, and an eager step on the card) `cond`
 and `bounded_while` are Python branches on a predicate read to the host
@@ -50,6 +55,27 @@ failed capture raises; nothing falls back to the eager call. A replay
 ends with the outputs copied onto the inputs inside the graph (the scan's
 carry) and the call's 0-d metrics written, as int32 bits, into row `k` of
 a metrics buffer, `k` a device counter: one graph launch a step.
+
+With grad enabled and an operand that requires grad, `cond` is
+`_CondFn`, an autograd Function whose backward is a cond again: in a
+capture each branch's backward runs in an IF body of its own, on the
+forward's predicate and on the body stream its forward ran on (autograd
+runs a node's backward on its forward's stream), so a captured backward
+takes the branch the predicate takes when it replays. Its outputs are
+fresh tensors each body writes, never a branch's result written in place.
+`bounded_while`'s carry and a plain cond's outputs must not require grad
+under a capture: the check raises.
+
+`compiled_grad` (`GradStep`) captures the body of a rollout's
+backward a step at a time: the step recomputed from static input buffers
+(a checkpoint is copied in) with grad enabled, then `torch.autograd.grad`
+into static adjoint buffers, the reverse scan's carry. autograd runs a
+backward's nodes on its worker thread for the device, so the capture runs
+there too (`_on_device_thread`: inside the backward of a one-node graph,
+where a nested backward runs on the same thread), and the thread's
+allocations, the recompute's and the backward's, go to the graph's pool.
+The recompute's launches do not count (`_Capture.mark`): the forward
+counted them; the backward's do, as the eager loop's backward would.
 
 Launch accounting. The kernels' wrappers count their launches in Python
 (`counter`); inside a graph they run once, at capture. So each IF node's
@@ -122,6 +148,7 @@ class _Body:
     inner: list          # launches captured in its nested bodies
     own: list = None     # launches captured in it, outside nested bodies
     graph: int = None    # its body graph (cudaGraph_t)
+    counted: bool = True  # its launches count (not a backward's recompute)
 
 
 class _Capture:
@@ -134,6 +161,14 @@ class _Capture:
         self.bodies: list = []
         self.stack: list = []
         self.inner = [0] * len(_COUNTERS)
+        self.marked = None
+
+    def mark(self):
+        """From here on the launches count: those captured before (outside
+        every body, and in the bodies opened so far) do not."""
+        for body in self.bodies:
+            body.counted = False
+        self.marked = (_snapshot(), list(self.inner))
 
     def open(self, name: str) -> _Body:
         if len(self.bodies) == self.counts.shape[0]:
@@ -161,9 +196,11 @@ class _Capture:
         return self.streams[depth]
 
     def top(self) -> list:
-        """Launches captured outside every body."""
-        return [n - s - i for n, s, i in zip(_snapshot(), self.start,
-                                              self.inner)]
+        """Launches captured outside every body (since the mark, if one was
+        made)."""
+        start, inner0 = self.marked or (self.start, [0] * len(self.inner))
+        return [n - s - (i - i0) for n, s, i, i0 in zip(
+            _snapshot(), start, self.inner, inner0)]
 
 
 @contextlib.contextmanager
@@ -217,7 +254,13 @@ def _copy_all(dsts, srcs):
 def cond(pred, true_fn, false_fn, operands=(), name: str = "cond"):
     """true_fn(*operands) if pred else false_fn(*operands), `pred` a 0-d
     bool tensor: a Python branch outside a capture, two IF nodes inside
-    one (see the module docstring)."""
+    one (see the module docstring). With grad enabled and an operand that
+    requires grad it is `_CondFn`, whose backward is a cond again."""
+    leaves, build_in = flatten(operands)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
+        spec = {"fns": (true_fn, false_fn, build_in, name)}
+        outs = _CondFn.apply(pred, spec, *leaves)
+        return spec["build"](list(outs))
     if _WARM:
         t_out = true_fn(*operands)
         f_out = false_fn(*operands)
@@ -226,7 +269,7 @@ def cond(pred, true_fn, false_fn, operands=(), name: str = "cond"):
         return true_fn(*operands) if _read(pred) else false_fn(*operands)
 
     pred = pred.reshape(()).to(torch.bool)
-    taken = _storages(flatten(operands)[0])
+    taken = _storages(leaves)
     with _if_body(pred, name + ":true"):
         t_out = true_fn(*operands)
     t_leaves, build = flatten(t_out)
@@ -236,14 +279,8 @@ def cond(pred, true_fn, false_fn, operands=(), name: str = "cond"):
     select, dsts, srcs = [], [], []
     with _if_body(torch.logical_not(pred), name + ":false"):
         f_leaves, _ = flatten(false_fn(*operands))
-        if len(f_leaves) != len(t_leaves):
-            raise ValueError(f"cond {name}: the branches return different "
-                             "trees")
+        _same_tree(name, t_leaves, f_leaves)
         for k, (t, f) in enumerate(zip(t_leaves, f_leaves)):
-            if t.shape != f.shape or t.dtype != f.dtype:
-                raise ValueError(
-                    f"cond {name}: leaf {k} is {t.dtype} {tuple(t.shape)} "
-                    f"in one branch, {f.dtype} {tuple(f.shape)} in the other")
             if t is f:
                 continue
             if owned[k]:
@@ -252,10 +289,121 @@ def cond(pred, true_fn, false_fn, operands=(), name: str = "cond"):
             else:
                 select.append(k)
         _copy_all(dsts, srcs)
+    _no_grad_out(name, t_leaves + f_leaves)
     out = list(t_leaves)
     for k in select:
         out[k] = torch.where(pred, t_leaves[k], f_leaves[k])
     return build(out)
+
+
+def _same_tree(name, t_leaves, f_leaves):
+    if len(f_leaves) != len(t_leaves):
+        raise ValueError(f"cond {name}: the branches return different trees")
+    for k, (t, f) in enumerate(zip(t_leaves, f_leaves)):
+        if t.shape != f.shape or t.dtype != f.dtype:
+            raise ValueError(
+                f"cond {name}: leaf {k} is {t.dtype} {tuple(t.shape)} in one "
+                f"branch, {f.dtype} {tuple(f.shape)} in the other")
+
+
+def _no_grad_out(name, leaves):
+    """Under a capture a branch's autograd nodes run on its body's stream,
+    which is not capturing when a backward runs: only `_CondFn` may hand a
+    gradient out of a body."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
+        raise RuntimeError(
+            f"{name}: a branch returns a tensor that requires grad while no "
+            "operand does; pass the tensors it differentiates as operands")
+
+
+@contextlib.contextmanager
+def _branch(pred, flag: bool, name: str, mode: str):
+    """The body of one branch: an IF node on `pred` (on `~pred` for the
+    false branch) in a capture, the Python code itself otherwise."""
+    if mode != "graph":
+        yield
+        return
+    p = pred if flag else torch.logical_not(pred)
+    with _if_body(p, f"{name}:{'true' if flag else 'false'}"):
+        yield
+
+
+class _CondFn(torch.autograd.Function):
+    """The differentiable cond (torch's CondAutogradOp,
+    torch/_higher_order_ops/cond.py, is the model). The forward runs a
+    branch with grad enabled on detached operands inside its IF body (in
+    a capture: both bodies, both IF nodes; in the warm-up: both branches;
+    otherwise the taken one) and copies its leaves into fresh outputs
+    there, so autograd never sees an in-place write into a branch's
+    result; it keeps each branch's results with their autograd graphs. The
+    backward is a cond again: in each branch's IF body, on the predicate
+    and the body stream of the forward's, `torch.autograd.grad` of that
+    branch's results, whose nodes then run on the stream they ran on. An
+    output is differentiable when it is in a branch that ran; the input
+    adjoints are zero where the branch that ran gives none."""
+
+    @staticmethod
+    def forward(ctx, pred, spec, *leaves):
+        true_fn, false_fn, build, name = spec["fns"]
+        need = ctx.needs_input_grad[2:]
+        xs = [t.detach().requires_grad_() if n else t.detach()
+              for t, n in zip(leaves, need)]
+        mode = ("warm" if _WARM else "graph" if _capturing(pred)
+                else "eager")
+        pred = pred.reshape(()).to(torch.bool)
+        taken = None if mode == "graph" else _read(pred)
+        outs, results = None, {}
+        for flag, fn in ((True, true_fn), (False, false_fn)):
+            if mode == "eager" and flag != taken:
+                continue
+            with _branch(pred, flag, name, mode):
+                with torch.enable_grad():
+                    got, out_build = flatten(fn(*build(xs)))
+                if outs is None:
+                    outs = [torch.empty_like(t) for t in got]
+                    spec["build"] = out_build
+                _same_tree(name, outs, got)
+                if mode != "warm" or flag == taken:
+                    _copy_all(outs, got)
+            results[flag] = got
+        ctx.pred, ctx.taken, ctx.mode, ctx.name = pred, taken, mode, name
+        ctx.xs, ctx.need, ctx.results = xs, need, results
+        ctx.set_materialize_grads(False)
+        ctx.mark_non_differentiable(*[
+            o for k, o in enumerate(outs)
+            if not any(r[k].requires_grad for r in results.values())])
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *g_outs):
+        wrt = [x for x, n in zip(ctx.xs, ctx.need) if n]
+        graph = ctx.mode == "graph"
+        gi = [torch.zeros_like(x) for x in wrt] if graph else None
+        got = {}
+        for flag, leaves in ctx.results.items():
+            pairs = [(y, g) for y, g in zip(leaves, g_outs)
+                     if g is not None and y.requires_grad]
+            got[flag] = [None] * len(wrt)
+            if not pairs:
+                continue
+            with _branch(ctx.pred, flag, ctx.name + ":grad", ctx.mode):
+                with torch.enable_grad():
+                    got[flag] = list(torch.autograd.grad(
+                        [y for y, _ in pairs], wrt, [g for _, g in pairs],
+                        allow_unused=True))
+                if graph:
+                    done = [(d, g) for d, g in zip(gi, got[flag])
+                            if g is not None]
+                    _copy_all([d for d, _ in done], [g for _, g in done])
+        ctx.results = ctx.xs = None
+        if graph:
+            some = [any(got[f][j] is not None for f in got)
+                    for j in range(len(wrt))]
+            mine = [d if s else None for d, s in zip(gi, some)]
+        else:
+            mine = got[ctx.taken]
+        it = iter(mine)
+        return (None, None, *[next(it) if n else None for n in ctx.need])
 
 
 def bounded_while(n_max: int, pred_fn, body_fn, carry, name: str = "while"):
@@ -275,6 +423,7 @@ def bounded_while(n_max: int, pred_fn, body_fn, carry, name: str = "while"):
             leaves = flatten(carry)[0]
             with _if_body(p, f"{name}:{c}"):
                 new = flatten(body_fn(c, carry))[0]
+                _no_grad_out(name, new)
                 changed = [k for k, n in enumerate(new) if n is not leaves[k]]
                 _copy_all([leaves[k] for k in changed],
                           [new[k] for k in changed])
@@ -336,12 +485,116 @@ def _sync_debug_error():
         torch.cuda.set_sync_debug_mode(old)
 
 
-class Compiled:
+class _Accounted:
+    """A captured graph's launch accounting: `counts` (a device counter a
+    conditional body), `bodies`, `top` (launches a replay outside every
+    body), `replays` since `start`."""
+
+    def start(self):
+        self.counts.zero_()
+        self.replays = 0
+
+    def account(self, counts: list) -> dict:
+        """Add the launches of the replays since `start` to the Python
+        counters, from the bodies' counts read back (`counts`). Returns
+        {body name: times it ran}."""
+        self.counts_read = counts
+        total = [self.replays * n for n in self.top]
+        for body, c in zip(self.bodies, counts):
+            if body.counted:
+                for k, n in enumerate(body.own):
+                    total[k] += c * n
+        for (h, a), n in zip(_COUNTERS, total):
+            if n:
+                setattr(h, a, getattr(h, a) + n)
+        ran = {}
+        for body, c in zip(self.bodies, counts):
+            ran[body.name] = ran.get(body.name, 0) + c
+        self.ran = ran
+        return ran
+
+    def finish(self) -> dict:
+        """Read the body counters back (one host read) and `account`."""
+        return self.account(self.counts[:len(self.bodies)].tolist())
+
+
+def _warm_up(dev, run):
+    """`run()` once with every cond's branches and every while's trips, on
+    the capture's stream; the Python counters are as they were afterwards.
+    Returns its result."""
+    global _WARM
+    side = _streams(dev)[0]
+    side.wait_stream(torch.cuda.current_stream(dev))
+    saved = _snapshot()
+    _WARM = True
+    try:
+        with torch.cuda.stream(side):
+            got = run()
+    finally:
+        _WARM = False
+        _restore(saved)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    torch.cuda.synchronize(dev)
+    return got
+
+
+@contextlib.contextmanager
+def _capture(graph, dev, pool, counts):
+    """Capture into `graph` on the capture's stream, under the sync debug
+    mode "error", with a `_Capture` of the bodies; every allocation of this
+    thread (the bodies' too) goes to `pool`. The Python counters are as
+    they were afterwards. Yields the `_Capture`."""
+    global _CAPTURE
+    streams = _streams(dev)
+    saved = _snapshot()
+    cap = _CAPTURE = _Capture(counts, streams[1:])
+    routed = False
+    try:
+        with torch.cuda.graph(graph, pool=pool, stream=streams[0]), \
+                _sync_debug_error():
+            torch._C._cuda_endAllocateToPool(dev.index, pool)
+            torch._C._cuda_beginAllocateCurrentThreadToPool(dev.index, pool)
+            routed = True
+            yield cap
+    finally:
+        _CAPTURE = None
+        _restore(saved)
+        if routed:      # beginAllocate took a reference on the pool
+            torch._C._cuda_releasePool(dev.index, pool)
+
+
+class _OnDeviceThread(torch.autograd.Function):
+    """Runs `holder["fn"]()` in its backward."""
+
+    @staticmethod
+    def forward(ctx, x, holder):
+        ctx.holder = holder
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.holder["out"] = ctx.holder["fn"]()
+        return g, None
+
+
+def _on_device_thread(fn, device):
+    """fn() on autograd's worker thread for the CUDA `device`: a backward
+    called there runs on that thread too (reentrant), so a capture made
+    there can route the allocations of its one thread to its pool, the
+    backward's included."""
+    holder = {"fn": fn}
+    with torch.enable_grad():
+        x = torch.zeros(1, device=device, requires_grad=True)
+        y = _OnDeviceThread.apply(x, holder)
+        torch.autograd.grad(y, x, torch.ones_like(y))
+    return holder["out"]
+
+
+class Compiled(_Accounted):
     """fn(state, cfg) -> (state, metrics of 0-d tensors) captured once as
     a CUDA graph on static input buffers. `rollout` replays it."""
 
     def __init__(self, fn, cfg, state):
-        global _WARM, _CAPTURE
         leaves, self._build = flatten(state)
         dev = leaves[0].device
         self.inputs = [torch.empty(t.shape, dtype=t.dtype, device=dev)
@@ -349,82 +602,47 @@ class Compiled:
         torch._foreach_copy_(self.inputs, leaves)
         self.counts = torch.zeros(MAX_BODIES, dtype=torch.int64, device=dev)
         self.row = torch.zeros(1, dtype=torch.int64, device=dev)
-        saved = _snapshot()
 
-        # warm-up: every branch and trip once, on the capture's stream
-        streams = _streams(dev)
-        side = streams[0]
-        side.wait_stream(torch.cuda.current_stream(dev))
-        _WARM = True
-        try:
-            with torch.cuda.stream(side):
-                _, m = fn(self._build(self.inputs), cfg)
-                n_metrics = len(flatten(m)[0])
-        finally:
-            _WARM = False
-        torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)
+        n_metrics = _warm_up(dev, lambda: len(flatten(
+            fn(self._build(self.inputs), cfg)[1])[0]))
         self.rows = torch.zeros((METRIC_ROWS, n_metrics), dtype=torch.int32,
                                 device=dev)
 
         start = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
-        pool = torch.cuda.graph_pool_handle()
-        cap = _CAPTURE = _Capture(self.counts, streams[1:])
-        routed = False
-        try:
-            with torch.cuda.graph(self.graph, pool=pool, stream=side), \
-                    _sync_debug_error():
-                # the bodies' streams allocate from the graph's pool as
-                # well: every allocation of this thread goes there
-                torch._C._cuda_endAllocateToPool(dev.index, pool)
-                torch._C._cuda_beginAllocateCurrentThreadToPool(dev.index,
-                                                                pool)
-                routed = True
-                out, metrics = fn(self._build(self.inputs), cfg)
-                outs = flatten(out)[0]
-                if len(outs) != len(self.inputs):
-                    raise ValueError("compiled: the state's tree changed")
-                mine = _storages(self.inputs)
-                carry_dst, carry_src = [], []
-                for i, o in zip(self.inputs, outs):
-                    if o is i:
-                        continue
-                    if o.untyped_storage().data_ptr() in mine:
-                        o = o.clone()         # a view of an input
-                    carry_dst.append(i)
-                    carry_src.append(o)
-                _copy_all(carry_dst, carry_src)
-                self.rows.index_copy_(0, self.row, _pack(metrics)[None])
-                self.row.add_(1)
+        with _capture(self.graph, dev, torch.cuda.graph_pool_handle(),
+                      self.counts) as cap:
+            out, metrics = fn(self._build(self.inputs), cfg)
+            outs = flatten(out)[0]
+            if len(outs) != len(self.inputs):
+                raise ValueError("compiled: the state's tree changed")
+            _carry(self.inputs, outs)
+            self.rows.index_copy_(0, self.row, _pack(metrics)[None])
+            self.row.add_(1)
             self.top = cap.top()
-        finally:
-            _CAPTURE = None
-            _restore(saved)
-            if routed:      # beginAllocate took a reference on the pool
-                torch._C._cuda_releasePool(dev.index, pool)
         self.graph.instantiate()
         self.bodies = cap.bodies
         self._metrics = metrics
         self.capture_s = time.perf_counter() - start
 
     # --- a rollout: start, then load / replay / store per state, finish ---
-    def start(self):
-        self.counts.zero_()
-        self.replays = 0
-
     def load(self, state):
         torch._foreach_copy_(self.inputs, flatten(state)[0])
 
-    def replay(self, steps: int):
-        """`steps` replays; the metrics as a tree of [steps] tensors."""
+    def replay(self, steps: int, before=None):
+        """`steps` replays; the metrics as a tree of [steps] tensors.
+        `before(k)`, when given, runs before replay k (on the host, as it
+        queues the replays: device work it queues runs before the
+        replay)."""
         out = torch.empty((steps, self.rows.shape[1]), dtype=torch.int32,
                           device=self.rows.device)
         done = 0
         while done < steps:
             n = min(METRIC_ROWS, steps - done)
             self.row.zero_()
-            for _ in range(n):
+            for k in range(done, done + n):
+                if before is not None:
+                    before(k)
                 self.graph.replay()
             out[done:done + n].copy_(self.rows[:n])
             done += n
@@ -438,24 +656,6 @@ class Compiled:
     def store(self, dst_leaves):
         torch._foreach_copy_(dst_leaves, self.inputs)
 
-    def finish(self) -> dict:
-        """Read the body counters back (one host read) and add the
-        rollout's launches to the Python counters. Returns {body name:
-        times it ran}."""
-        counts = self.counts_read = self.counts[:len(self.bodies)].tolist()
-        total = [self.replays * n for n in self.top]
-        for body, c in zip(self.bodies, counts):
-            for k, n in enumerate(body.own):
-                total[k] += c * n
-        for (h, a), n in zip(_COUNTERS, total):
-            if n:
-                setattr(h, a, getattr(h, a) + n)
-        ran = {}
-        for body, c in zip(self.bodies, counts):
-            ran[body.name] = ran.get(body.name, 0) + c
-        self.ran = ran
-        return ran
-
     def rollout(self, state, steps: int):
         """(state after `steps` replays, metrics with [steps] leaves)."""
         self.start()
@@ -464,6 +664,160 @@ class Compiled:
         out = self.state()
         self.finish()
         return out, metrics
+
+
+def _carry(dsts, srcs):
+    """dst <- src for each pair, in place and in one go: a source that is
+    its destination is skipped, and one that lies in another destination's
+    storage is cloned first (the copies run in no fixed order)."""
+    mine = _storages(dsts)
+    dst, src = [], []
+    for d, o in zip(dsts, srcs):
+        if o is d or (o.data_ptr() == d.data_ptr()
+                      and o.stride() == d.stride() and o.shape == d.shape):
+            continue
+        if o.untyped_storage().data_ptr() in mine:
+            o = o.clone()
+        dst.append(d)
+        src.append(o)
+    _copy_all(dst, src)
+
+
+# --- the compiled gradient -------------------------------------------------
+# A rollout's backward, a step at a time in reverse, as a CUDA graph: the
+# counterpart of the reverse of `jax.jit(jax.value_and_grad(...lax.scan...))`.
+# `GradStep` holds, for one function, config, device, state shape and set of
+# input leaves that require grad, the static buffers every backward step
+# reads and writes: the step's input state (a checkpoint is copied in), the
+# adjoint of each float leaf (the reverse scan's carry) and of each float
+# metric. With grad enabled it recomputes the step from the static inputs
+# (those in `mask` detached and requiring grad), then takes
+# `torch.autograd.grad` of the outputs that require grad and the float
+# metrics, from the adjoints, and writes the input adjoints into the
+# adjoint buffers. `mask` is the same at every step: the caller's leaves
+# and every leaf a step derives from one in the set, with every cond's
+# branches (`_closure`), so one graph serves the whole rollout. On the card
+# that body is captured once (after a warm-up that runs it, every cond's
+# branches and both branches' backward) and replayed; on the CPU it runs as
+# it is.
+
+
+class GradStep(_Accounted):
+    """The backward of one step of fn (see above): `run` is one replay of
+    its graph on the card, the body itself on the CPU. `next_mask` and
+    `metric_mask` are the state's and the metrics' leaves that require
+    grad after a step; `capture_s` is the capture's seconds (the card)."""
+
+    def __init__(self, fn, cfg, state, need):
+        leaves, self.build = flatten(state)
+        dev = self.device = leaves[0].device
+        self.fn, self.cfg = fn, cfg
+        self.inputs = [torch.empty(t.shape, dtype=t.dtype, device=dev)
+                       for t in leaves]
+        torch._foreach_copy_(self.inputs, [t.detach() for t in leaves])
+        self.adj = [torch.zeros(t.shape, dtype=t.dtype, device=dev)
+                    if t.dtype.is_floating_point else None for t in leaves]
+        self.counts = torch.zeros(MAX_BODIES, dtype=torch.int64, device=dev)
+        self.graph, self.bodies, self.replays = None, [], 0
+        self.mask = self._closure(tuple(need))
+        if dev.type == "cuda":
+            self.pool = torch.cuda.graph_pool_handle()
+            _warm_up(dev, self._body)
+            self._capture()
+
+    def _closure(self, mask):
+        """The smallest set of leaves that holds `mask` and every leaf a
+        step makes from one in it (each probe runs the step once, with
+        grad and every cond's branches, and no backward)."""
+        while True:
+            outs, ms = self._probe(mask)
+            grown = tuple(m or o for m, o in zip(mask, outs))
+            if grown == mask:
+                self.next_mask = outs
+                self.metric_mask = tuple(m is not None for m in ms)
+                self.adj_m = ms
+                return mask
+            mask = grown
+
+    def _probe(self, mask):
+        global _WARM
+        saved = _snapshot()
+        _WARM = True
+        try:
+            with torch.enable_grad():
+                _, out, metrics = self._recompute(mask)
+            # the metrics' adjoints (0-d), for those that require grad
+            ms = [torch.zeros((), dtype=m.dtype, device=self.device)
+                  if m.requires_grad else None for m in flatten(metrics)[0]]
+            return tuple(o.requires_grad for o in flatten(out)[0]), ms
+        finally:
+            _WARM = False
+            _restore(saved)
+
+    def _recompute(self, mask):
+        xs = [t.detach().requires_grad_() if m else t
+              for t, m in zip(self.inputs, mask)]
+        out, metrics = self.fn(self.build(xs), self.cfg)
+        if len(flatten(out)[0]) != len(xs):
+            raise ValueError("compiled_grad: the state's tree changed")
+        return xs, out, metrics
+
+    def _body(self):
+        with torch.enable_grad():
+            before = _snapshot()
+            xs, out, metrics = self._recompute(self.mask)
+            # the recompute's launches don't count: the forward counted them
+            if _CAPTURE is not None:
+                _CAPTURE.mark()
+            else:
+                _restore(before)
+            ys, gys = [], []
+            for y, a in zip(flatten(out)[0] + flatten(metrics)[0],
+                            self.adj + self.adj_m):
+                if a is not None and y.requires_grad:
+                    ys.append(y)
+                    gys.append(a)
+            wrt = [x for x, m in zip(xs, self.mask) if m]
+            got = (torch.autograd.grad(ys, wrt, gys, allow_unused=True)
+                   if ys and wrt else [None] * len(wrt))
+        adj = [a for a, m in zip(self.adj, self.mask) if m]
+        zero = [a for a, g in zip(adj, got) if g is None]
+        if zero:
+            torch._foreach_zero_(zero)
+        _carry([a for a, g in zip(adj, got) if g is not None],
+               [g for g in got if g is not None])
+
+    def _capture(self):
+        """The body captured on autograd's worker thread (see
+        `_on_device_thread`): the recompute and the backward's nodes all
+        run there, so all their allocations go to the graph's pool."""
+        start = time.perf_counter()
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+
+        def capture():
+            with _capture(self.graph, self.device, self.pool,
+                          self.counts) as cap:
+                self._body()
+                self.top = cap.top()
+            return cap.bodies
+
+        self.bodies = _on_device_thread(capture, self.device)
+        self.graph.instantiate()
+        self.capture_s = time.perf_counter() - start
+
+    # --- a backward: start, then a checkpoint copied in and run a step ---
+    def run(self):
+        """One backward step on the static buffers."""
+        if self.graph is None:
+            self._body()
+        else:
+            self.graph.replay()
+            self.replays += 1
+
+    def finish(self) -> dict:
+        """On the card: read the body counters back (one host read) and
+        add the backward's launches to the Python counters."""
+        return {} if self.graph is None else super().finish()
 
 
 _STREAMS: dict = {}
@@ -482,20 +836,40 @@ def _streams(device) -> list:
 
 
 _CACHE: dict = {}
+_GRAD_CACHE: dict = {}
+
+
+def _key(fn, cfg, state):
+    leaves = flatten(state)[0]
+    return (fn, cfg, str(leaves[0].device),
+            tuple((tuple(t.shape), t.dtype) for t in leaves))
 
 
 def compiled(fn, cfg, state) -> Compiled:
     """The graph of fn(state, cfg) for this config, device and state shape,
     captured at the first call."""
-    leaves = flatten(state)[0]
-    key = (fn, cfg, str(leaves[0].device),
-           tuple((tuple(t.shape), t.dtype) for t in leaves))
+    key = _key(fn, cfg, state)
     got = _CACHE.get(key)
     if got is None:
         got = _CACHE[key] = Compiled(fn, cfg, state)
     return got
 
 
+def compiled_grad(fn, cfg, state, need=None) -> GradStep:
+    """The backward step of fn(state, cfg) for this config, device, state
+    shape and set of leaves that require grad (`need`, a bool a leaf;
+    by default the state's leaves' `requires_grad`), made at the first
+    call from `state` (on the card: captured)."""
+    if need is None:
+        need = [t.requires_grad for t in flatten(state)[0]]
+    key = _key(fn, cfg, state) + (tuple(bool(n) for n in need),)
+    got = _GRAD_CACHE.get(key)
+    if got is None:
+        got = _GRAD_CACHE[key] = GradStep(fn, cfg, state, key[-1])
+    return got
+
+
 def clear():
     """Drop every cached graph and its memory pool."""
     _CACHE.clear()
+    _GRAD_CACHE.clear()

@@ -22,8 +22,8 @@ rounds) go through `control.cond` and `control.bounded_while`: Python
 branches on a predicate read in the eager step, conditional nodes of the
 graph in the compiled one.
 
-The differentiable mode (`cfg.differentiable`): `step` and `simulate` build
-an autograd graph from whatever state tensors require grad, as the
+The differentiable mode (`cfg.differentiable`): `step` builds an
+autograd graph from whatever state tensors require grad, as the
 reference's jax.grad reverses its step. No stage takes a gradient out of
 the graph: it flows through the narrowphase geometry, the cache's warm
 impulses, setup, the solve, advance and the split-impulse fix; the integer
@@ -34,7 +34,20 @@ the card the kernels run inside autograd Functions whose backward is a
 kernel too (the narrowphases, setup, the solve; the solve keeps its
 dynamic color count, since the passes of unused colors are exact no-ops,
 and records a tape of each visit). Without a gradient to build, the mode's
-forward is the normal one, bit for bit.
+forward is the normal one, bit for bit. A cond whose operands require
+grad is `control._CondFn`, whose backward is a cond again.
+
+`simulate` and `step_jit` with a leaf that requires grad are the
+reference's `jax.jit(jax.value_and_grad(...lax.scan...))`: one
+`_RolloutFn` node over the rollout, with the step rematerialised in
+reverse. Its forward is the normal step (on the card the captured graph's
+replays) with each step's input state kept as a checkpoint; its backward
+takes the steps in reverse, each a `control.GradStep` (on the card one
+replay of a captured graph: the step recomputed from its checkpoint with
+grad enabled, then `torch.autograd.grad` into the adjoints it carries).
+It keeps T states, not T steps of saved tensors; it costs one more
+forward step a backward step. The gradient is the eager `step` loop's,
+bit for bit for the leaves every step rewrites.
 """
 
 from __future__ import annotations
@@ -42,6 +55,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import control
 from .config import SimConfig
@@ -177,33 +191,155 @@ def _wants_grad(state: SimState, cfg: SimConfig) -> bool:
             and any(t.requires_grad for t in flatten(state)[0]))
 
 
+def _stack(per_step) -> StepMetrics:
+    return StepMetrics(**{f.name: torch.stack([getattr(m, f.name)
+                                               for m in per_step])
+                          for f in dataclasses.fields(StepMetrics)})
+
+
 def simulate(state: SimState, cfg: SimConfig, steps: int):
     """Run `steps` steps. Returns (state, StepMetrics with [steps] fields).
 
     On the card the step is replayed from its captured graph: the state is
     copied into the graph's input buffers once, each replay carries its
     outputs onto them and writes its metrics into a row on the device,
-    and the state that comes back is cloned out of the buffers. On the CPU,
-    and in the differentiable mode with a state leaf that requires grad
-    (autograd records the eager step; a captured step would give it no
-    graph), it is a loop over `step`."""
-    if state.device.type != "cuda" or _wants_grad(state, cfg):
+    and the state that comes back is cloned out of the buffers. On the CPU
+    it is a loop over `step`. In the differentiable mode with a state leaf
+    that requires grad it is one `_RolloutFn` node (see the module
+    docstring), on either device."""
+    if _wants_grad(state, cfg):
+        return rollout_grad(state, cfg, steps)
+    if state.device.type != "cuda":
         per_step = []
         for _ in range(steps):
             state, m = step(state, cfg)
             per_step.append(m)
-        stacked = {f.name: torch.stack([getattr(m, f.name) for m in per_step])
-                   for f in dataclasses.fields(StepMetrics)}
-        return state, StepMetrics(**stacked)
+        return state, _stack(per_step)
     return control.compiled(step, cfg, state).rollout(state, steps)
 
 
 def step_jit(state: SimState, cfg: SimConfig):
     """The reference's jitted single step: one replay of the captured step
-    on the card (see `simulate`), `step` on the CPU. Returns (new_state,
-    StepMetrics)."""
-    if state.device.type != "cuda" or _wants_grad(state, cfg):
+    on the card (see `simulate`), `step` on the CPU, `_RolloutFn` over one
+    step with a gradient. Returns (new_state, StepMetrics)."""
+    if _wants_grad(state, cfg):
+        state, m = rollout_grad(state, cfg, 1)
+    elif state.device.type != "cuda":
         return step(state, cfg)
-    state, m = control.compiled(step, cfg, state).rollout(state, 1)
+    else:
+        state, m = control.compiled(step, cfg, state).rollout(state, 1)
     return state, StepMetrics(**{f.name: getattr(m, f.name)[0]
                                  for f in dataclasses.fields(StepMetrics)})
+
+
+def rollout_grad(state: SimState, cfg: SimConfig, steps: int):
+    """`steps` steps as one `_RolloutFn` node: (state, StepMetrics with
+    [steps] fields), differentiable in the state's float leaves that
+    require grad, the float metrics too."""
+    leaves, build = flatten(state)
+    run = _Rollout(cfg, steps, build)
+    outs = _RolloutFn.apply(run, *leaves)
+    n = len(leaves)
+    return build(list(outs[:n])), run.metrics_build(list(outs[n:]))
+
+
+class _RolloutFn(torch.autograd.Function):
+    """A rollout of `step` as one autograd node (`_Rollout` does the work).
+    Once differentiable: the reference's users take first derivatives, and
+    the backward's own graph is not kept."""
+
+    @staticmethod
+    def forward(ctx, run, *leaves):
+        outs = run.forward(leaves, ctx.needs_input_grad[1:])
+        ctx.run = run
+        ctx.mark_non_differentiable(*[o for o, d in zip(outs, run.diff)
+                                      if not d])
+        return outs
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *grads):
+        run, ctx.run = ctx.run, None
+        return (None, *run.backward(grads))
+
+
+class _Rollout:
+    """The forward and backward of `_RolloutFn`. The forward (grad off) runs
+    the normal step, on the card as replays of `control.compiled`, keeping
+    each step's input state in checkpoint slot k of a [steps]-deep buffer
+    a leaf. The backward loads checkpoint k and row k of the metrics'
+    adjoints into the `control.GradStep`'s static inputs and runs it, for
+    k = steps - 1 ... 0, from the adjoints of the final state: on the card
+    one graph launch a step, and the body counters read back once at the
+    end. The GradStep's leaves that require grad are the same at every
+    step: the caller's and every leaf a step derives from one of them."""
+
+    def __init__(self, cfg: SimConfig, steps: int, build):
+        if steps < 1:
+            raise ValueError(f"rollout_grad: {steps} steps")
+        self.cfg, self.steps, self.build = cfg, steps, build
+
+    def forward(self, leaves, need):
+        cfg, steps = self.cfg, self.steps
+        state = self.build(list(leaves))
+        dev = leaves[0].device
+        self.need = need
+        g = self.g = control.compiled_grad(step, cfg, state, need)
+        ckpt = self.ckpt = [torch.empty((steps,) + t.shape, dtype=t.dtype,
+                                        device=dev) for t in leaves]
+
+        def keep(k, now):
+            control._copy_all([c[k] for c in ckpt], now)
+
+        if dev.type == "cuda":
+            graph = control.compiled(step, cfg, state)
+            graph.start()
+            graph.load(state)
+            metrics = graph.replay(steps,
+                                   before=lambda k: keep(k, graph.inputs))
+            out = flatten(graph.state())[0]
+            graph.finish()
+        else:
+            per_step = []
+            for k in range(steps):
+                keep(k, flatten(state)[0])
+                state, m = step(state, cfg)
+                per_step.append(m)
+            metrics = _stack(per_step)
+            ins = {id(t) for t in leaves}
+            out = [t.clone() if id(t) in ins else t
+                   for t in flatten(state)[0]]
+        m_leaves, self.metrics_build = flatten(metrics)
+        self.diff = ([m and t.dtype.is_floating_point
+                      for m, t in zip(g.next_mask, out)]
+                     + list(g.metric_mask))
+        return (*out, *m_leaves)
+
+    def backward(self, grads):
+        g, steps, ckpt = self.g, self.steps, self.ckpt
+        n = len(ckpt)
+        with torch.no_grad():
+            for a, d in zip(g.adj, grads[:n]):
+                if a is not None:
+                    if d is None:
+                        a.zero_()
+                    else:
+                        a.copy_(d)
+            dsts = list(g.inputs)
+            rows = []
+            for a, d in zip(g.adj_m, grads[n:]):
+                if a is not None:
+                    dsts.append(a)
+                    rows.append(torch.zeros(steps, dtype=a.dtype,
+                                            device=a.device)
+                                if d is None else d)
+            g.start()
+            for k in reversed(range(steps)):
+                control._copy_all(dsts, [c[k] for c in ckpt]
+                                  + [r[k] for r in rows])
+                g.run()
+            g.finish()
+            out = [a.clone() if m else None
+                   for a, m in zip(g.adj, self.need)]
+        self.ckpt = None
+        return out

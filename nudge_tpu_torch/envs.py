@@ -15,8 +15,11 @@ Where the reference takes a `jax.random` key, `reset` takes a
 `torch.Generator`. With `BoxPushEnv(differentiable=True, sleeping=False)`
 a rollout differentiates end to end (analytic policy gradients): on the
 CPU through the engine's plain twins, on the card through the kernels and
-their backward kernels; `vec_step` stacks the batch out of place when it
-carries a gradient (`parallel.mesh`).
+their backward kernels. An env step's frame skip with a gradient is one
+`engine._RolloutFn` node, a scene at a time for `vec_step`
+(`parallel.mesh`): on the card the captured step replayed forward and the
+captured backward step replayed in reverse, as the reference's
+`jax.grad` of its scan.
 """
 
 from __future__ import annotations

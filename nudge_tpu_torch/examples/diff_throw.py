@@ -6,9 +6,11 @@ includes ballistic flight, impact, friction sliding and settling, and the
 whole of it is differentiated end to end with torch.autograd: the loss is
 the distance between the box's final position and the target, and the
 optimized parameter is the initial velocity, by gradient descent at the
-reference's rate. `cfg.differentiable=True`: on the card every step runs
-the kernels and the backward runs their backward kernels; on the CPU the
-plain twins.
+reference's rate. `cfg.differentiable=True`: the rollout is one
+`engine.simulate`, the reference's `lax.scan` under `jax.value_and_grad`;
+on the card its steps replay the captured step and its backward replays
+the captured backward step in reverse (the kernels and their backward
+kernels); on the CPU the plain twins.
 
     python -m nudge_tpu_torch.examples.diff_throw [--device cpu]
 """
@@ -21,7 +23,7 @@ import time
 import torch
 
 from nudge_tpu_torch import SceneBuilder
-from nudge_tpu_torch.engine import step
+from nudge_tpu_torch.engine import simulate
 
 TARGET = (4.0, 0.5, 0.0)   # rest on the pad, 4 m downrange
 STEPS = 90                 # 1.5 s at dt=1/60
@@ -42,8 +44,7 @@ def loss_and_grad(st0, cfg, v0):
     v = v0.detach().requires_grad_()
     vel = torch.cat([st0.bodies.vel[:1], v[None], st0.bodies.vel[2:]])
     st = st0.replace(bodies=st0.bodies.replace(vel=vel))
-    for _ in range(STEPS):
-        st, _ = step(st, cfg)
+    st, _ = simulate(st, cfg, STEPS)
     target = torch.tensor(TARGET, dtype=torch.float32, device=v.device)
     loss = torch.sum((st.bodies.pos[1] - target) ** 2)
     (g,) = torch.autograd.grad(loss, v)

@@ -298,7 +298,12 @@ def compact_manifolds(slots: dict, cfg: SimConfig, pair_overflow,
         idx = torch.where(valid, idx, 0)
 
     def take(x, fill=0):
-        out = x[idx]
+        # index_select, not x[idx]: every dropped slot reads row 0, and the
+        # backward of x[idx] (index_put_ with accumulate, sorted) adds those
+        # rows' zeros to row 0 one after another (~5 ms a field at 61,440
+        # manifold slots); index_select's (index_add_) adds them at once.
+        # The sums are the same: one live term a row and exact zeros.
+        out = torch.index_select(x, 0, idx)
         mask = valid.reshape(valid.shape + (1,) * (out.ndim - 1))
         return torch.where(mask, out, torch.full((), fill, dtype=out.dtype,
                                                  device=dev))

@@ -13,16 +13,18 @@ result into the batch it returns: what the reference's `lax.map` body does
 for megachunks. On the card that is the step captured once as a CUDA graph
 (`control.compiled`): every scene or chunk of a batch has the same shapes,
 so one graph serves them all; it copies the scene in, replays, and copies
-it out. On the CPU, and for a batch that carries a gradient, it is the
-eager `engine.step` on views of the batch's leaves. A
+it out. On the CPU it is the eager `engine.step` on views of the batch's
+leaves. A batch that carries a gradient goes a scene at a time through
+`engine.simulate` (in the differentiable mode one `_RolloutFn` node a
+scene, compiled in both directions on the card). A
 scene's step reads and writes nothing of another scene's arrays, so each
 scene's trajectory is the one it has alone, bit for bit, and a chunked
 variant equals the unchunked one bit for bit. Each scene runs all of a
 call's steps before the next starts (the reference maps scenes inside its
 scan over steps; the results are the same).
 
-On the eager path the kernels read the views in place: a view starts at a multiple of its
-leaf's per-scene size, 4-byte aligned, and every kernel reads body and
+The step takes a scene's views (`take`) as they are: a view starts at a
+multiple of its leaf's per-scene size, 4-byte aligned, and every kernel reads body and
 collider arrays one element at a time; what a kernel reads or writes as
 16-byte words it allocates itself (setup's velw and rows, the narrowphase
 slots), and its wrapper checks that alignment.
@@ -58,7 +60,7 @@ import torch
 
 from .. import control
 from ..config import SimConfig
-from ..engine import StepMetrics, step
+from ..engine import StepMetrics, simulate, step
 from ..state import flatten, tree_map
 
 SCENE_AXIS = "scenes"
@@ -211,40 +213,47 @@ def _rollout(cfg: SimConfig, state_b, steps: int, every_step: bool):
     else the last step's [scenes]. On the card every scene goes through
     one captured step (`control.compiled`: the scenes share its shapes):
     the scene is copied into the graph's inputs, replayed `steps` times and
-    copied out into the new batch. On the CPU, or when the batch carries a
-    gradient, the eager step runs on views of a copy (stacked anew with a
-    gradient)."""
+    copied out into the new batch. When the batch carries a gradient each
+    scene is one `engine.simulate` (in the differentiable mode one
+    `_RolloutFn` node, compiled in both directions on the card) and the
+    results are stacked anew. On the CPU without one the eager step runs
+    on views of a copy."""
     _refuse_dtensors(state_b, "_rollout")
-    grad = _requires_grad(state_b)
-    if state_b.bodies.pos.is_cuda and not grad:
-        out = tree_map(torch.empty_like, state_b)
+    dim = 1 if every_step else 0
+
+    def kept(m):
+        return m if every_step else tree_map(lambda x: x[-1], m)
+
+    if _requires_grad(state_b):
+        stepped, per_scene = [], []
+        for i in range(_batch_size(state_b)):
+            st, m = simulate(take(state_b, i), cfg, steps)
+            stepped.append(st)
+            per_scene.append(kept(m))
+        return make_scene_batch(stepped), _stack_metrics(per_scene, dim)
+
+    out = tree_map(torch.empty_like if state_b.bodies.pos.is_cuda
+                   else torch.clone, state_b)
+    per_scene = []
+    if state_b.bodies.pos.is_cuda:
         graph = control.compiled(step, cfg, take(state_b, 0))
         graph.start()
-        per_scene = []
         for i in range(_batch_size(out)):
             graph.load(take(state_b, i))
-            m = graph.replay(steps)
+            per_scene.append(kept(graph.replay(steps)))
             graph.store(flatten(take(out, i))[0])
-            per_scene.append(m if every_step else tree_map(lambda x: x[-1], m))
         graph.finish()
-        return out, _stack_metrics(per_scene, 1 if every_step else 0)
+        return out, _stack_metrics(per_scene, dim)
 
-    out = state_b if grad else tree_map(torch.clone, state_b)
-    per_scene, stepped = [], []
     for i in range(_batch_size(out)):
         st = take(out, i)
         ms = []
         for _ in range(steps):
             st, m = step(st, cfg)
             ms.append(m)
-        if grad:
-            stepped.append(st)
-        else:
-            _put(out, i, st)
-        per_scene.append(_stack_metrics(ms) if every_step else ms[-1])
-    if grad:
-        out = make_scene_batch(stepped)
-    return out, _stack_metrics(per_scene, 1 if every_step else 0)
+        _put(out, i, st)
+        per_scene.append(kept(_stack_metrics(ms)))
+    return out, _stack_metrics(per_scene, dim)
 
 
 def _sharded(run, scene_dim: int):

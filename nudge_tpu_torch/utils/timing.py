@@ -4,8 +4,9 @@ profiler.
     device_ms(fn)    mean device milliseconds a call of `fn`;
     device_ops(fn)   {kind: count} of what one call puts on the stream;
     graph_ops(c)     {kind: count} of what one replay of a compiled step
-                     (control.Compiled) runs on the device, on average over
-                     its last rollout.
+                     (control.Compiled) or of a backward step
+                     (control.GradStep) runs on the device, on average over
+                     its last rollout or backward.
 
 `torch.profiler` on the H100 drops device events that fall early in its
 window, more often the longer the process has run: of three calls of one
@@ -106,9 +107,10 @@ def _node_kinds(raw_graph: int) -> dict:
 
 def graph_ops(compiled) -> dict:
     """{kind: count} of the device operations one replay of a compiled step
-    runs, on average over its last rollout: the nodes of its graph outside
-    the conditional nodes, plus each conditional body's nodes times the
-    share of replays that ran it (control.Compiled.finish)."""
+    or backward step runs, on average over its last rollout: the nodes of
+    its graph outside the conditional nodes, plus each conditional body's
+    nodes times the share of replays that ran it (the body counters read
+    back by control.Compiled.finish or control.GradStep.finish)."""
     total = dict(_node_kinds(compiled.graph.raw_cuda_graph()))
     for body, count in zip(compiled.bodies, compiled.counts_read):
         share = count / max(compiled.replays, 1)

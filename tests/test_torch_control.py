@@ -7,8 +7,9 @@ at most max_colors - 1 claim rounds) the step reads nothing to the host on
 the paths the card runs.
 
 The cases marked `gpu` hold the compiled rollout (`engine.simulate`, the
-mesh's rollouts) to the eager `engine.step`, bit for bit; they skip without
-a CUDA device."""
+mesh's rollouts) to the eager `engine.step`, bit for bit, and the compiled
+gradient to autograd of the eager loop; they skip without a CUDA
+device."""
 
 import collections
 import dataclasses
@@ -335,10 +336,12 @@ def test_replay_reads_nothing_to_the_host():
 
 @pytest.mark.gpu
 @needs_cuda
-def test_differentiable_mode_compiles_only_without_a_gradient():
+def test_differentiable_mode_compiles_with_and_without_a_gradient():
     """The differentiable mode with no leaf that requires grad replays the
-    captured step, bitwise the eager steps; with one it loops over the
-    eager step, so autograd records the rollout."""
+    captured step, bitwise the eager steps; with one it is the compiled
+    gradient (one `_RolloutFn` node: the captured step forward, the
+    captured backward step in reverse), whose positions and gradient are
+    the eager loop's under autograd, bit for bit."""
     b = scenes.scene_pile(4, seed=0)
     cfg = b.auto_config(differentiable=True, max_colors=8, solver_iters=12)
     st = b.finalize(cfg, device="cuda")
@@ -347,9 +350,121 @@ def test_differentiable_mode_compiles_only_without_a_gradient():
     _assert_bitwise(got, want, "state")
     _assert_bitwise(gm, wm, "metrics")
     assert not got.bodies.pos.requires_grad
-    v = st.bodies.vel.clone().requires_grad_()
-    out, _ = engine.simulate(st.replace(bodies=st.bodies.replace(vel=v)),
-                             cfg, 12)
-    (g,) = torch.autograd.grad(out.bodies.pos[1].sum(), v)
-    assert torch.isfinite(g).all() and bool(g.abs().max() > 0)
-    _assert_bitwise(out.bodies.pos.detach(), want.bodies.pos, "positions")
+    grads, nodes = [], []
+    for run in (engine.simulate, _eager):
+        v = st.bodies.vel.clone().requires_grad_()
+        out, _ = run(st.replace(bodies=st.bodies.replace(vel=v)), cfg, 12)
+        nodes.append(type(out.bodies.pos.grad_fn).__name__)
+        (g,) = torch.autograd.grad(out.bodies.pos[1].sum(), v)
+        _assert_bitwise(out.bodies.pos.detach(), want.bodies.pos,
+                        "positions")
+        grads.append(g)
+    assert nodes[0] == "_RolloutFnBackward" != nodes[1]
+    assert torch.isfinite(grads[0]).all() and bool(grads[0].abs().max() > 0)
+    _assert_bitwise(grads[0], grads[1], "gradient")
+
+
+# --- on the card: the compiled gradient against the eager loop ---------------
+
+def _grad_run(st0, cfg, steps, compiled, targets):
+    """(loss, d loss / d the initial vel and pos) of `steps` steps from
+    st0 through engine.simulate (`compiled`) or the eager loop; the loss:
+    the targets' squared distances plus the summed kinetic energy."""
+    v = st0.bodies.vel.clone().requires_grad_()
+    p = st0.bodies.pos.clone().requires_grad_()
+    st = st0.replace(bodies=st0.bodies.replace(vel=v, pos=p))
+    st, m = (engine.simulate if compiled else _eager)(st, cfg, steps)
+    loss = m.kinetic_energy.sum() * 1e-2 + sum(
+        torch.sum((st.bodies.pos[i] - torch.tensor(t, device="cuda")) ** 2)
+        for i, t in targets)
+    return (loss.detach(), *torch.autograd.grad(loss, [v, p]))
+
+
+def _compiled_grad_is_the_loop(st0, cfg, steps, targets):
+    want = _grad_run(st0, cfg, steps, False, targets)
+    for _ in range(2):         # the first call captures
+        _assert_bitwise(_grad_run(st0, cfg, steps, True, targets), want,
+                        "loss and gradients")
+
+
+@pytest.mark.gpu
+@needs_cuda
+def test_compiled_gradient_pile4_is_the_loop():
+    b = scenes.scene_pile(4, seed=0)
+    cfg = b.auto_config(differentiable=True, max_colors=8, solver_iters=12)
+    _compiled_grad_is_the_loop(b.finalize(cfg, device="cuda"), cfg, 12,
+                               [(1, (1.0, 0.0, 3.0))])
+
+
+@pytest.mark.gpu
+@needs_cuda
+def test_compiled_gradient_config3_sized_is_the_loop():
+    """A 2,048-body mixed pile (config 3's scene, auto_config), 3 steps
+    after 60: box-box's and the one-point's backward kernels inside the
+    captured backward step."""
+    b = scenes.scene_pile(2048, sphere_frac=0.25)
+    cfg = b.auto_config(differentiable=True)
+    st0, _ = engine.simulate(b.finalize(cfg, device="cuda"), cfg, 60)
+    _compiled_grad_is_the_loop(st0, cfg, 3, [(1, (1.0, 0.0, 3.0)),
+                                             (7, (0.0, 1.0, 0.0))])
+
+
+@pytest.mark.gpu
+@needs_cuda
+def test_compiled_gradient_env_rollout_is_the_loop():
+    """Two envs through vec_step (each env's frame skip one `_RolloutFn`
+    node): the actions' gradient bitwise each env's alone through the
+    eager loop."""
+    from nudge_tpu_torch.envs import BoxPushEnv, vec_reset, vec_step
+    from nudge_tpu_torch.parallel import mesh
+
+    env = BoxPushEnv(horizon=10, frame_skip=3, differentiable=True,
+                     sleeping=False, device="cuda")
+    states, _ = vec_reset(env, [torch.Generator().manual_seed(5 + i)
+                                for i in range(2)])
+    acts = torch.tensor([[1.0, 0.5], [-0.8, 0.3]], device="cuda",
+                        requires_grad=True)
+    _, _, rew, _, _ = vec_step(env, states, acts)
+    (gb,) = torch.autograd.grad(rew.sum(), acts)
+    for i in range(2):
+        a = acts[i].detach().requires_grad_()
+        s = mesh.take(states, i)
+        sim = env._push(s.sim, a)
+        for _ in range(env.frame_skip):
+            sim, _ = engine.step(sim, env.cfg)
+        _, _, r, _, _ = env._finish(s, sim)
+        (g,) = torch.autograd.grad(r, a)
+        _assert_bitwise(gb[i], g, f"env {i}")
+
+
+@pytest.mark.gpu
+@needs_cuda
+def test_backward_replays_read_nothing_to_the_host():
+    """The compiled gradient's backward under the sync debug mode "error"
+    (its one host read, the body counters at its end, deferred): no
+    operation of the backward waits on the device, and it launches one
+    graph a step. A resting box that parks inside the window, with the
+    persistent broadphase."""
+    b = scenes.scene_single_box(0.5)
+    cfg = b.auto_config(differentiable=True, sleeping=True, sleep_frames=2,
+                        max_colors=4, solver_iters=4,
+                        persistent_broadphase=True)
+    st0 = b.finalize(cfg, device="cuda")
+    for _ in range(2):         # the first call captures
+        v = st0.bodies.vel.clone().requires_grad_()
+        st, m = engine.simulate(st0.replace(bodies=st0.bodies.replace(vel=v)),
+                                cfg, 8)
+        loss = torch.sum(st.bodies.pos ** 2) + m.kinetic_energy.sum()
+        deferred, finish = [], control.GradStep.finish
+        control.GradStep.finish = lambda step: deferred.append(step)
+        old = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            (g,) = torch.autograd.grad(loss, v)
+        finally:
+            torch.cuda.set_sync_debug_mode(old)
+            control.GradStep.finish = finish
+        for step in deferred:
+            finish(step)
+    assert [step.replays for step in deferred] == [8]
+    assert bool(torch.isfinite(g).all())
