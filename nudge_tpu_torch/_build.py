@@ -53,6 +53,7 @@ _SIGNATURES = {
     "nudge_setup_body_sum": [_P] * 9 + [_I] * 2 + [_P] * 6 + [_P],
     "nudge_if_begin": [_P] * 4,
     "nudge_if_end": [_P],
+    "nudge_stamp": [_P, _P] + [_I] * 4 + [_P],
 }
 
 

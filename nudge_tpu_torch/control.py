@@ -45,7 +45,10 @@ memory pool, the bodies' too.
 
 `compiled` keys its cache on the function, the config, the device and
 the state's shapes and dtypes, as `jax.jit` keys on static arguments and
-shapes. It warms up with one eager call on a side stream, in which every
+shapes, and on whether tracing is on (trace.py): a graph captured with
+tracing on is a capture of its own, with stage stamps and live counts in a
+`trace.Recorder`'s rows, and the graph captured without it is left as it
+is. It warms up with one eager call on a side stream, in which every
 `cond` runs both branches and every `bounded_while` all its trips (so the
 kernels are built, the cluster sizes chosen and every per-device constant
 made before the capture), then captures one call on static input buffers
@@ -98,6 +101,7 @@ import time
 
 import torch
 
+from . import trace
 from .state import flatten
 
 # Python counters the capture accounts for: (holder, attribute)
@@ -510,12 +514,15 @@ class _Accounted:
         ran = {}
         for body, c in zip(self.bodies, counts):
             ran[body.name] = ran.get(body.name, 0) + c
-        self.ran = ran
         return ran
 
     def finish(self) -> dict:
-        """Read the body counters back (one host read) and `account`."""
-        return self.account(self.counts[:len(self.bodies)].tolist())
+        """Read the body counters back (one host read) and `account`; a
+        traced graph's rows moved out since `start` are read with them."""
+        ran = self.account(self.counts[:len(self.bodies)].tolist())
+        if self.rec is not None:
+            self.rec.flush()
+        return ran
 
 
 def _warm_up(dev, run):
@@ -592,7 +599,10 @@ def _on_device_thread(fn, device):
 
 class Compiled(_Accounted):
     """fn(state, cfg) -> (state, metrics of 0-d tensors) captured once as
-    a CUDA graph on static input buffers. `rollout` replays it."""
+    a CUDA graph on static input buffers. `rollout` replays it. Captured
+    with tracing on, `rec` holds its trace rows (a row a replay, on the
+    metrics' row counter): a stamp first, the stages fn marks, and `tail`
+    after the carry and the metrics row."""
 
     def __init__(self, fn, cfg, state):
         leaves, self._build = flatten(state)
@@ -607,11 +617,15 @@ class Compiled(_Accounted):
             fn(self._build(self.inputs), cfg)[1])[0]))
         self.rows = torch.zeros((METRIC_ROWS, n_metrics), dtype=torch.int32,
                                 device=dev)
+        self.rec = (trace.Recorder("step", METRIC_ROWS, self.row)
+                    if trace.enabled() else None)
 
         start = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         with _capture(self.graph, dev, torch.cuda.graph_pool_handle(),
-                      self.counts) as cap:
+                      self.counts) as cap, trace.recording(self.rec):
+            if self.rec is not None:
+                self.rec.begin()
             out, metrics = fn(self._build(self.inputs), cfg)
             outs = flatten(out)[0]
             if len(outs) != len(self.inputs):
@@ -619,6 +633,8 @@ class Compiled(_Accounted):
             _carry(self.inputs, outs)
             self.rows.index_copy_(0, self.row, _pack(metrics)[None])
             self.row.add_(1)
+            if self.rec is not None:
+                self.rec.stamp("tail", row_offset=-1)
             self.top = cap.top()
         self.graph.instantiate()
         self.bodies = cap.bodies
@@ -643,8 +659,12 @@ class Compiled(_Accounted):
             for k in range(done, done + n):
                 if before is not None:
                     before(k)
+                if self.rec is not None:
+                    self.rec.next()
                 self.graph.replay()
             out[done:done + n].copy_(self.rows[:n])
+            if self.rec is not None:
+                self.rec.keep()
             done += n
         self.replays += steps
         return _unpack(out, self._metrics)
@@ -658,11 +678,16 @@ class Compiled(_Accounted):
 
     def rollout(self, state, steps: int):
         """(state after `steps` replays, metrics with [steps] leaves)."""
-        self.start()
-        self.load(state)
-        metrics = self.replay(steps)
-        out = self.state()
-        self.finish()
+        with trace.span("rollout"):
+            self.start()
+            with trace.span("load"):
+                self.load(state)
+            with trace.span("launch"):
+                metrics = self.replay(steps)
+            with trace.span("clone"):
+                out = self.state()
+            with trace.span("finish"):
+                self.finish()
         return out, metrics
 
 
@@ -706,7 +731,11 @@ class GradStep(_Accounted):
     """The backward of one step of fn (see above): `run` is one replay of
     its graph on the card, the body itself on the CPU. `next_mask` and
     `metric_mask` are the state's and the metrics' leaves that require
-    grad after a step; `capture_s` is the capture's seconds (the card)."""
+    grad after a step; `capture_s` is the capture's seconds (the card).
+    Captured with tracing on, `rec` holds its trace rows (a row a replay,
+    on a row counter of its own): a stamp first, the stages of the
+    recomputed step, `recompute` after it and `adjoint` after the
+    backward and its carry."""
 
     def __init__(self, fn, cfg, state, need):
         leaves, self.build = flatten(state)
@@ -719,8 +748,13 @@ class GradStep(_Accounted):
                     if t.dtype.is_floating_point else None for t in leaves]
         self.counts = torch.zeros(MAX_BODIES, dtype=torch.int64, device=dev)
         self.graph, self.bodies, self.replays = None, [], 0
+        self.rec = None
         self.mask = self._closure(tuple(need))
         if dev.type == "cuda":
+            if trace.enabled():
+                self.rec = trace.Recorder(
+                    "grad", METRIC_ROWS,
+                    torch.zeros(1, dtype=torch.int64, device=dev))
             self.pool = torch.cuda.graph_pool_handle()
             _warm_up(dev, self._body)
             self._capture()
@@ -766,6 +800,7 @@ class GradStep(_Accounted):
         with torch.enable_grad():
             before = _snapshot()
             xs, out, metrics = self._recompute(self.mask)
+            trace.stage("recompute")
             # the recompute's launches don't count: the forward counted them
             if _CAPTURE is not None:
                 _CAPTURE.mark()
@@ -796,8 +831,13 @@ class GradStep(_Accounted):
 
         def capture():
             with _capture(self.graph, self.device, self.pool,
-                          self.counts) as cap:
+                          self.counts) as cap, trace.recording(self.rec):
+                if self.rec is not None:
+                    self.rec.begin()
                 self._body()
+                if self.rec is not None:
+                    self.rec.row.add_(1)
+                    self.rec.stamp("adjoint", row_offset=-1)
                 self.top = cap.top()
             return cap.bodies
 
@@ -810,9 +850,11 @@ class GradStep(_Accounted):
         """One backward step on the static buffers."""
         if self.graph is None:
             self._body()
-        else:
-            self.graph.replay()
-            self.replays += 1
+            return
+        if self.rec is not None:
+            self.rec.next()
+        self.graph.replay()
+        self.replays += 1
 
     def finish(self) -> dict:
         """On the card: read the body counters back (one host read) and
@@ -842,12 +884,13 @@ _GRAD_CACHE: dict = {}
 def _key(fn, cfg, state):
     leaves = flatten(state)[0]
     return (fn, cfg, str(leaves[0].device),
-            tuple((tuple(t.shape), t.dtype) for t in leaves))
+            tuple((tuple(t.shape), t.dtype) for t in leaves),
+            trace.enabled())
 
 
 def compiled(fn, cfg, state) -> Compiled:
-    """The graph of fn(state, cfg) for this config, device and state shape,
-    captured at the first call."""
+    """The graph of fn(state, cfg) for this config, device, state shape and
+    tracing state, captured at the first call."""
     key = _key(fn, cfg, state)
     got = _CACHE.get(key)
     if got is None:
@@ -857,15 +900,16 @@ def compiled(fn, cfg, state) -> Compiled:
 
 def compiled_grad(fn, cfg, state, need=None) -> GradStep:
     """The backward step of fn(state, cfg) for this config, device, state
-    shape and set of leaves that require grad (`need`, a bool a leaf;
-    by default the state's leaves' `requires_grad`), made at the first
-    call from `state` (on the card: captured)."""
+    shape, tracing state and set of leaves that require grad (`need`, a
+    bool a leaf; by default the state's leaves' `requires_grad`), made at
+    the first call from `state` (on the card: captured)."""
     if need is None:
         need = [t.requires_grad for t in flatten(state)[0]]
-    key = _key(fn, cfg, state) + (tuple(bool(n) for n in need),)
+    need = tuple(bool(n) for n in need)
+    key = _key(fn, cfg, state) + (need,)
     got = _GRAD_CACHE.get(key)
     if got is None:
-        got = _GRAD_CACHE[key] = GradStep(fn, cfg, state, key[-1])
+        got = _GRAD_CACHE[key] = GradStep(fn, cfg, state, need)
     return got
 
 

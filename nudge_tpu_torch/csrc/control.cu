@@ -11,6 +11,11 @@
 //   idle stream) starts capturing into the node's body graph, which is
 //   written to *body_graph.
 // nudge_if_end(body): ends the body's capture.
+// nudge_stamp(rows, row, row_offset, cols, slot, clear, stream): one
+//   thread writes the card's %globaltimer (ns) into rows[r, slot], r =
+//   *row + row_offset (row 0 when `row` is null), after setting slots
+//   [0, clear) of that row to -1: the stage stamps of a traced graph
+//   (nudge_tpu_torch/trace.py).
 //
 // Each returns the cudaError_t of its calls.
 
@@ -38,6 +43,15 @@ cudaError_t capture_info(cudaStream_t s, cudaGraph_t* graph,
   return status == cudaStreamCaptureStatusActive
              ? cudaSuccess
              : cudaErrorIllegalState;
+}
+
+__global__ void stamp_kernel(long long* rows, const long long* row,
+                             int row_offset, int cols, int slot, int clear) {
+  unsigned long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  long long* r = rows + ((row ? *row : 0) + row_offset) * cols;
+  for (int k = 0; k < clear; ++k) r[k] = -1;
+  r[slot] = static_cast<long long>(now);
 }
 
 }  // namespace
@@ -89,4 +103,12 @@ extern "C" int nudge_if_begin(const bool* pred, void* parent_stream,
 extern "C" int nudge_if_end(void* body_stream) {
   cudaGraph_t graph;
   return cudaStreamEndCapture(static_cast<cudaStream_t>(body_stream), &graph);
+}
+
+extern "C" int nudge_stamp(void* rows, const void* row, int row_offset,
+                           int cols, int slot, int clear, void* stream) {
+  stamp_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<long long*>(rows), static_cast<const long long*>(row),
+      row_offset, cols, slot, clear);
+  return cudaGetLastError();
 }

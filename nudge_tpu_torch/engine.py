@@ -37,6 +37,16 @@ and records a tape of each visit). Without a gradient to build, the mode's
 forward is the normal one, bit for bit. A cond whose operands require
 grad is `control._CondFn`, whose backward is a cond again.
 
+Tracing (trace.py): `_step_active` marks the end of each stage with
+`trace.stage`: `collide` (gravity, broadphase, narrowphases, compaction),
+`cache_read`, `coloring` (the coloring and `color_order`), `setup`,
+`solve`, `cache_write` (the world impulses and the cache's write) and
+`advance` (advance, the position fix, sleeping, the kinetic energy and the
+metrics); with tracing on it counts the live manifolds and points, the
+bodies the solve sees and the colors used (the live pairs: `collide`).
+In a traced graph those are stamps and counts in its rows; in an eager
+step, host spans inside the step's span.
+
 `simulate` and `step_jit` with a leaf that requires grad are the
 reference's `jax.jit(jax.value_and_grad(...lax.scan...))`: one
 `_RolloutFn` node over the rollout, with the step rematerialised in
@@ -57,7 +67,7 @@ import dataclasses
 import torch
 from torch.autograd.function import once_differentiable
 
-from . import control
+from . import control, trace
 from .config import SimConfig
 from .mathx import dot
 from .ops import setup_kernel, solver_kernel
@@ -91,11 +101,12 @@ def step(state: SimState, cfg: SimConfig):
     With sleeping on, a scene whose every dynamic body is asleep skips the
     whole contact pipeline (the park): nothing inside the engine can wake
     an all-asleep scene, so the skip is exact."""
-    if cfg.sleeping:
-        awake = torch.any(state.sleep.awake & state.bodies.dynamic)
-        return control.cond(awake, lambda s: _step_active(s, cfg),
-                            _step_parked, (state,), name="awake")
-    return _step_active(state, cfg)
+    with trace.span("step"):
+        if cfg.sleeping:
+            awake = torch.any(state.sleep.awake & state.bodies.dynamic)
+            return control.cond(awake, lambda s: _step_active(s, cfg),
+                                _step_parked, (state,), name="awake")
+        return _step_active(state, cfg)
 
 
 def _step_parked(state: SimState):
@@ -116,7 +127,9 @@ def _step_parked(state: SimState):
 def _step_active(state: SimState, cfg: SimConfig):
     bodies = apply_gravity(state.bodies, state.sleep, cfg)
     contacts, bp = collide(state, cfg)
+    trace.stage("collide")
     warm, pwarm = read_cached_impulses(state.cache, contacts, cfg)
+    trace.stage("cache_read")
     if cfg.sleeping:
         # sleepers are static for coloring, setup and solve, so the solver
         # never writes velocity into them; true mass comes back before
@@ -134,14 +147,23 @@ def _step_active(state: SimState, cfg: SimConfig):
     # the solve's color-sorted order, from the coloring; setup writes the
     # solve's rows in it on the card (the CPU twins keep manifold order)
     order = solver_kernel.color_order(contacts, bodies, coloring, cfg)
+    if trace.enabled():
+        trace.count(manifolds=contacts.valid.sum(),
+                    points=contacts.point_valid.sum(),
+                    bodies=torch.sum(bodies.inv_mass > 0.0),
+                    colors=coloring[1])
+    trace.stage("coloring")
     con, velw, acc = setup_kernel.setup(bodies, contacts, warm, cfg,
                                         coloring=coloring, pwarm=pwarm,
                                         order=order)
+    trace.stage("setup")
     velw, acc, pseudo_acc = solver_kernel.solve(velw, con, acc, cfg)
+    trace.stage("solve")
     bodies = bodies.replace(vel=velw[:, 0:3].contiguous(),
                             angvel=velw[:, 3:6].contiguous())
     cache = write_cached_impulses(contacts, accumulated_world_impulse(con, acc),
                                   pseudo_acc)
+    trace.stage("cache_write")
     if cfg.sleeping:
         bodies = bodies.replace(inv_mass=im0, inv_inertia=ii0)
 
@@ -180,6 +202,7 @@ def _step_active(state: SimState, cfg: SimConfig):
         manifold_demand=contacts.count.to(i32),
         pair_demand=contacts.pair_demand.to(i32),
     )
+    trace.stage("advance")
     return new_state, metrics
 
 
@@ -207,29 +230,31 @@ def simulate(state: SimState, cfg: SimConfig, steps: int):
     it is a loop over `step`. In the differentiable mode with a state leaf
     that requires grad it is one `_RolloutFn` node (see the module
     docstring), on either device."""
-    if _wants_grad(state, cfg):
-        return rollout_grad(state, cfg, steps)
-    if state.device.type != "cuda":
-        per_step = []
-        for _ in range(steps):
-            state, m = step(state, cfg)
-            per_step.append(m)
-        return state, _stack(per_step)
-    return control.compiled(step, cfg, state).rollout(state, steps)
+    with trace.span("simulate"):
+        if _wants_grad(state, cfg):
+            return rollout_grad(state, cfg, steps)
+        if state.device.type != "cuda":
+            per_step = []
+            for _ in range(steps):
+                state, m = step(state, cfg)
+                per_step.append(m)
+            return state, _stack(per_step)
+        return control.compiled(step, cfg, state).rollout(state, steps)
 
 
 def step_jit(state: SimState, cfg: SimConfig):
     """The reference's jitted single step: one replay of the captured step
     on the card (see `simulate`), `step` on the CPU, `_RolloutFn` over one
     step with a gradient. Returns (new_state, StepMetrics)."""
-    if _wants_grad(state, cfg):
-        state, m = rollout_grad(state, cfg, 1)
-    elif state.device.type != "cuda":
-        return step(state, cfg)
-    else:
-        state, m = control.compiled(step, cfg, state).rollout(state, 1)
-    return state, StepMetrics(**{f.name: getattr(m, f.name)[0]
-                                 for f in dataclasses.fields(StepMetrics)})
+    with trace.span("step_jit"):
+        if _wants_grad(state, cfg):
+            state, m = rollout_grad(state, cfg, 1)
+        elif state.device.type != "cuda":
+            return step(state, cfg)
+        else:
+            state, m = control.compiled(step, cfg, state).rollout(state, 1)
+        return state, StepMetrics(**{f.name: getattr(m, f.name)[0]
+                                     for f in dataclasses.fields(StepMetrics)})
 
 
 def rollout_grad(state: SimState, cfg: SimConfig, steps: int):
@@ -250,7 +275,8 @@ class _RolloutFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, run, *leaves):
-        outs = run.forward(leaves, ctx.needs_input_grad[1:])
+        with trace.span("grad_forward"):
+            outs = run.forward(leaves, ctx.needs_input_grad[1:])
         ctx.run = run
         ctx.mark_non_differentiable(*[o for o, d in zip(outs, run.diff)
                                       if not d])
@@ -318,7 +344,7 @@ class _Rollout:
     def backward(self, grads):
         g, steps, ckpt = self.g, self.steps, self.ckpt
         n = len(ckpt)
-        with torch.no_grad():
+        with torch.no_grad(), trace.span("grad_backward"):
             for a, d in zip(g.adj, grads[:n]):
                 if a is not None:
                     if d is None:
@@ -335,8 +361,9 @@ class _Rollout:
                                 if d is None else d)
             g.start()
             for k in reversed(range(steps)):
-                control._copy_all(dsts, [c[k] for c in ckpt]
-                                  + [r[k] for r in rows])
+                with trace.span("ckpt_copy"):
+                    control._copy_all(dsts, [c[k] for c in ckpt]
+                                      + [r[k] for r in rows])
                 g.run()
             g.finish()
             out = [a.clone() if m else None

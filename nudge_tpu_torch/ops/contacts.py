@@ -12,6 +12,7 @@ from typing import Optional
 
 import torch
 
+from .. import trace
 from ..config import SimConfig
 from ..state import SimState, flatten
 from . import narrowphase as nps
@@ -366,6 +367,9 @@ def collide(state: SimState, cfg: SimConfig, rebuild=None):
         bb, bs, ss = base(state, wc, cfg)
         bp = state.bp
     slots = narrowphase_all(state, wc, bb, bs, ss, cfg)
+    if trace.enabled():     # the candidate pairs the narrowphases ran on
+        trace.count(pairs=sum((c.valid.sum() for c in (bs, ss)
+                               if c.a.shape[0] > 0), bb.valid.sum()))
     pair_overflow = bb.overflow
     bits = bb.overflow.to(torch.int32)
     pair_demand = bb.count

@@ -58,7 +58,7 @@ import os
 
 import torch
 
-from .. import control
+from .. import control, trace
 from ..config import SimConfig
 from ..engine import StepMetrics, simulate, step
 from ..state import flatten, tree_map
@@ -217,7 +217,8 @@ def _rollout(cfg: SimConfig, state_b, steps: int, every_step: bool):
     scene is one `engine.simulate` (in the differentiable mode one
     `_RolloutFn` node, compiled in both directions on the card) and the
     results are stacked anew. On the CPU without one the eager step runs
-    on views of a copy."""
+    on views of a copy. Traced (trace.py), the card's loop is a span
+    with one a scene for its load, its replays and its store."""
     _refuse_dtensors(state_b, "_rollout")
     dim = 1 if every_step else 0
 
@@ -236,14 +237,19 @@ def _rollout(cfg: SimConfig, state_b, steps: int, every_step: bool):
                    else torch.clone, state_b)
     per_scene = []
     if state_b.bodies.pos.is_cuda:
-        graph = control.compiled(step, cfg, take(state_b, 0))
-        graph.start()
-        for i in range(_batch_size(out)):
-            graph.load(take(state_b, i))
-            per_scene.append(kept(graph.replay(steps)))
-            graph.store(flatten(take(out, i))[0])
-        graph.finish()
-        return out, _stack_metrics(per_scene, dim)
+        with trace.span("mesh_rollout"):
+            graph = control.compiled(step, cfg, take(state_b, 0))
+            graph.start()
+            for i in range(_batch_size(out)):
+                with trace.span("load"):
+                    graph.load(take(state_b, i))
+                with trace.span("replay"):
+                    per_scene.append(kept(graph.replay(steps)))
+                with trace.span("store"):
+                    graph.store(flatten(take(out, i))[0])
+            with trace.span("finish"):
+                graph.finish()
+            return out, _stack_metrics(per_scene, dim)
 
     for i in range(_batch_size(out)):
         st = take(out, i)
