@@ -28,7 +28,11 @@ no result):
      launches from one input bitwise equal to each other, one device
      kernel a call; the coloring bitwise, ten launches equal, one device
      kernel a call; the solve and the coloring once more with only 4
-     colors, so that the spill paths run at full size; then
+     colors, so that the spill paths run at full size; the cached
+     coloring's claim rounds from the step's joined colors, with 24 and
+     with 4 colors, bitwise their twin, the rounds the kernel counts those
+     the twin's loop ran, ten launches equal, one device kernel a call
+     (again at config 5's chunk 0 in phase 16); then
      contacts.narrowphase_all on config 3 after 120 steps, as the step
      calls it (the box-box and the one-point (box-sphere, sphere-sphere)
      kernels writing one set of buffers), against the joined twins: the
@@ -94,8 +98,9 @@ no result):
      parallel.mesh.megabatch_simulate in windows of 5, each window held to
      no overflow, a finite state, max depth < 0.5, no cross-scene
      manifold (the gates' totals kept on the card by the watched step, in
-     the chunk's graph), box-box, setup and the solve launched once a
-     chunk-step and the one-point and coloring kernels not at all, chunks
+     the chunk's graph), box-box, the cached coloring, setup and the solve
+     launched once a chunk-step and the one-point and fresh coloring
+     kernels not at all, chunks
      0 and 127 bitwise equal to themselves stepped alone by the eager
      engine.step, chunks 0 and 1 apart;
      build seconds, steps/s, body-steps/s and peak memory (the rates
@@ -156,12 +161,12 @@ no result):
      steps): its steps/s beside the card;
  21. the compiled rollout: phase 11's fidelity scene from spawn for 3,000
      steps through engine.simulate (the step captured once as a CUDA
-     graph; the all-asleep park, the persistent broadphase's rebuild,
-     sleeping's three skips and the cached coloring's claim rounds
-     conditional nodes of the graph), with phase 11's window and end
-     gates, bitwise phase 11's eager run (end state, every step's metrics,
-     parks and rebuilds by window), box-box, setup and the solve once per
-     active step and nothing on a parked one; its impact and settled
+     graph; the all-asleep park, the persistent broadphase's rebuild and
+     sleeping's three skips conditional nodes of the graph), with phase
+     11's window and end gates, bitwise phase 11's eager run (end state,
+     every step's metrics, parks and rebuilds by window), box-box, the
+     cached coloring, setup and the solve once per active step and nothing
+     on a parked one; its impact and settled
      steps/s beside phase 11's eager ones; at step 2,150 10 compiled steps
      under the profiler as phase 14 (busy share, device events a step, one
      graph launch a step), the device operations a replay runs, 10
@@ -343,6 +348,9 @@ TPU_KERNEL_OF = {
     "box_box": "nudge_tpu/ops/narrowphase_kernel.py:535",
     "pairs_1pt": "nudge_tpu/ops/narrowphase_kernel.py:762",
     "coloring": "nudge_tpu/ops/coloring_kernel.py:246",
+    # no TPU kernel: the reference's cached coloring runs its claim rounds
+    # as an XLA while loop
+    "coloring_cached": "nudge_tpu/ops/solver.py:202",
     "setup": "nudge_tpu/ops/setup_kernel.py:476",
     "solve": "nudge_tpu/ops/solver_kernel.py:597",
     # the backward kernels supply the gradient the TPU kernels never had
@@ -356,6 +364,7 @@ SOURCE_OF = {
     "box_box": "nudge_tpu_torch/csrc/narrowphase.cu",
     "pairs_1pt": "nudge_tpu_torch/csrc/narrowphase_1pt.cu",
     "coloring": "nudge_tpu_torch/csrc/coloring.cu",
+    "coloring_cached": "nudge_tpu_torch/csrc/coloring.cu",
     "setup": "nudge_tpu_torch/csrc/setup.cu",
     "solve": "nudge_tpu_torch/csrc/solve.cu",
     "box_box_bwd": "nudge_tpu_torch/csrc/narrowphase.cu",
@@ -496,6 +505,7 @@ def counters():
     return {"box_box": npk.box_box_slots,
             "pairs_1pt": narrowphase_1pt.pairs_1pt_slots_cuda,
             "coloring": coloring_kernel.color_rounds,
+            "coloring_cached": coloring_kernel.color_rounds_cached,
             "setup": setup_kernel.setup, "solve": solver_kernel.solve}
 
 
@@ -531,6 +541,7 @@ class KernelsOnly:
                       (narrowphase, "box_sphere"),
                       (narrowphase, "sphere_sphere"),
                       (coloring_kernel, "color_rounds_plain"),
+                      (coloring_kernel, "color_rounds_cached_plain"),
                       (setup_kernel, "setup_plain"),
                       (solver_kernel, "solve_plain")]
         self.counters = counters()
@@ -817,6 +828,100 @@ def compare_coloring(card, man, dyn, max_colors):
     return ms, plain_ms, dev_ms
 
 
+def cached_start(man, bodies, cfg, ccache):
+    """The colors the cached coloring's claim rounds start from at a step:
+    each manifold's color joined from `ccache`, or -1, as
+    solver.color_manifolds_cached hands them to
+    coloring_kernel.color_rounds_cached."""
+    from nudge_tpu_torch.ops import solver
+
+    real, got = solver.color_rounds_cached, []
+
+    def spy(*args):
+        got.append(args[4].clone())
+        return real(*args)
+
+    solver.color_rounds_cached = spy
+    try:
+        solver.color_manifolds_cached(man, bodies, cfg, ccache)
+    finally:
+        solver.color_rounds_cached = real
+    return got[0]
+
+
+def compare_coloring_cached(card, label, man, dyn, start, max_colors):
+    """The cached coloring's kernel against its twin from the same joined
+    start colors, bit for bit, and the rounds it counts (the `claim_rounds`
+    count) against those the twin's loop ran; SOLVE_REPEATS launches from
+    one input equal; one kernel and nothing else enqueued a call. The
+    kernel writes the colors in place, so each call starts from a copy of
+    `start`, and its device time is the copy and the call less the copy
+    alone. Returns the kernel record (bound: bytes of the live rows, the
+    claim tables and the masks)."""
+    import torch
+
+    from nudge_tpu_torch import trace
+    from nudge_tpu_torch.ops import coloring_kernel as ck
+    from nudge_tpu_torch.utils import timing
+
+    n = dyn.shape[0]
+    buf = torch.empty_like(start)
+    what = f"cached coloring ({label}, {max_colors} colors)"
+
+    def call():
+        buf.copy_(start)
+        return ck.color_rounds_cached_cuda(man.body_a, man.body_b, man.valid,
+                                           dyn, buf, n, max_colors)
+
+    with trace.on(), trace.span("coloring_cached"):
+        k = call().clone()
+    rounds = [s.counts["claim_rounds"] for s in trace.collect().spans
+              if "claim_rounds" in s.counts]
+    p = ck.color_rounds_cached_plain(man.body_a, man.body_b, man.valid, dyn,
+                                     start.clone(), n, max_colors)
+    torch.cuda.synchronize()
+    if not torch.equal(k, p):
+        raise AssertionError(f"{what}: {int((k != p).sum())} of {k.shape[0]} "
+                             "raw colors differ from the twin's")
+    new = man.valid & (start < 0)
+    left = int((new & (p < 0)).sum())
+    want = (0 if not bool(new.any()) else max_colors - 1 if left
+            else int(p[new].max()) + 1)
+    if rounds != [want]:
+        raise AssertionError(f"{what}: the kernel counts rounds {rounds}, "
+                             f"the twin's loop ran {want}")
+    for rep in range(1, SOLVE_REPEATS):
+        if not torch.equal(call(), k):
+            raise AssertionError(f"{what}: launch {rep + 1} from the same "
+                                 "input differs")
+    one_kernel(what, timing.device_ops(
+        lambda: ck.color_rounds_cached_cuda(man.body_a, man.body_b,
+                                            man.valid, dyn, buf, n,
+                                            max_colors)))
+    ms = timed(call)
+    plain_ms = timed(lambda: ck.color_rounds_cached_plain(
+        man.body_a, man.body_b, man.valid, dyn, start.clone(), n, max_colors),
+        1, 0)
+    copy_ms = timing.device_ms(lambda: buf.copy_(start), DEVICE_REPS)
+    dev_ms = timing.device_ms(call, DEVICE_REPS) - copy_ms
+    n_live = int(man.valid.sum())
+    words = (max_colors + 31) // 32
+    # per live manifold body ids, start color in, raw color out; the live
+    # flag of every slot; per body the dynamic flag, two claim keys and the
+    # mask words written and read
+    rec = dict(max_abs_err=0, ms=ms, plain_ms=plain_ms, device_ms=dev_ms,
+               **bound(n_live * 16 + man.valid.shape[0]
+                       + n * (1 + 16 + 8 * words), 0))
+    log(card, f"{what}: bitwise equal, {SOLVE_REPEATS} launches equal, one "
+        f"device kernel a call; {n_live} live, {int((start >= 0).sum())} "
+        f"cached, {int(new.sum())} to color, {left} left uncolored; "
+        f"{rounds[0]} rounds (latency floor {rounds[0]} rounds + 2 "
+        f"barriers); kernel {ms:.4f} ms a call with its copy (device "
+        f"{dev_ms:.4f} ms, copy {copy_ms:.4f}), twin {plain_ms:.3f} ms; "
+        f"bound {rec['bound_ms']:.5f} ms ({rec['bound_by']})")
+    return rec
+
+
 def step_inputs(st, cfg):
     """What a step from `st` hands setup and the solve (every body awake):
     (bodies after gravity, manifolds, warm starts, pseudo warm starts, the
@@ -963,6 +1068,15 @@ def phase_compare(card, dev):
                 max_abs_err=0, ms=ms, plain_ms=plain_ms,
                 **bound(n_live * (4 + 4 + 4) + man.valid.shape[0]
                         + dyn.shape[0], 0))
+
+    # --- the cached coloring's rounds from the step's joined colors, bit
+    # for bit (with SPILL_COLORS the cached colors above the last are
+    # clamped to it) ---
+    start = cached_start(man, bodies, cfg, st.colors)
+    for mc in (cfg.max_colors, SPILL_COLORS):
+        rec = compare_coloring_cached(card, label, man, dyn, start, mc)
+        if mc == cfg.max_colors:
+            records["coloring_cached"] = rec
     return records, st
 
 
@@ -1133,10 +1247,11 @@ def eager_simulate(st, cfg, steps):
 
 
 def per_active_step(label, launches, active):
-    """Box-box, setup and the solve once per active step; the one-point and
-    the coloring kernels not at all (the reference pile's path)."""
-    want = {"box_box": active, "setup": active, "solve": active,
-            "pairs_1pt": 0, "coloring": 0}
+    """Box-box, the cached coloring's rounds, setup and the solve once per
+    active step; the one-point kernel and the fresh coloring's not at all
+    (the reference pile's path)."""
+    want = {"box_box": active, "coloring_cached": active, "setup": active,
+            "solve": active, "pairs_1pt": 0, "coloring": 0}
     got = {k: launches[k] for k in want}
     if got != want:
         raise AssertionError(f"{label}: launches {got}, not {want} "
@@ -1633,7 +1748,8 @@ def profile_now(card, label, st, cfg, steps, sim):
     s, _ = sim(clone_state(st), cfg, 1)
     torch.cuda.synchronize()
     ours = {"box_box": ("box_box_kernel",), "pairs_1pt": ("pairs_1pt_kernel",),
-            "coloring": ("color_kernel",), "solve": ("solve_kernel",),
+            "coloring": ("color_kernel",),
+            "coloring_cached": ("color_kernel",), "solve": ("solve_kernel",),
             "setup": ("setup_kernel", "warm_apply_kernel")}
     before = {k: fn.launches for k, fn in counters().items()}
     with profile(activities=[ProfilerActivity.CPU,
@@ -1846,8 +1962,8 @@ class Config5Watch:
 
 def cached_coloring(st, cfg, inputs):
     """(ms a call, the joins it ran) of the cached coloring at a step from
-    `st`: CUDA events around the call, its per-round host reads
-    included."""
+    `st`: CUDA events around the call (the claim rounds one kernel
+    launch)."""
     from nudge_tpu_torch.ops import cache, solver
 
     bodies, man = inputs[0], inputs[1]
@@ -1875,12 +1991,15 @@ def config5_layout(card, dev, spc, steps, keep=None):
     """4,096 scenes as chunks of `spc` scenes, `steps` steps through
     parallel.mesh.megabatch_simulate in windows of C5_WINDOW, each window
     held to no overflow, a finite state, max depth < 0.5, no cross-scene
-    manifold, box-box, setup and the solve launched once a chunk-step and
-    the one-point and coloring kernels not at all, the first and last
+    manifold, box-box, the cached coloring, setup and the solve launched
+    once a chunk-step and the one-point and fresh coloring kernels not at
+    all, the first and last
     chunks bitwise equal to the same chunks stepped alone, chunks 0 and 1
     apart. Then at chunk 0 of the last step: box-box, setup and the solve
     against their twins (compare_step), the cached coloring's time and
-    joins, and one chunk-step under the profiler. With `keep` (a dict),
+    joins, its claim rounds' kernel against its twin at the step's joined
+    colors (compare_coloring_cached), and one chunk-step under the
+    profiler. With `keep` (a dict),
     the stack before its first step and after its last go there with the
     config (phase 19 steps the same stack over a mesh). Returns (launches,
     kernel records)."""
@@ -1925,11 +2044,13 @@ def config5_layout(card, dev, spc, steps, keep=None):
         for k, v in run.launches.items():
             launches[k] = launches.get(k, 0) + v
         want = n_chunks * C5_WINDOW
-        if any(run.launches[k] != want for k in ("box_box", "setup", "solve")) \
+        if any(run.launches[k] != want for k in ("box_box", "coloring_cached",
+                                                 "setup", "solve")) \
                 or run.launches["pairs_1pt"] or run.launches["coloring"]:
             raise AssertionError(f"{label}: launches {run.launches} in steps "
-                                 f"{w0}..{w1}, not {want} of box-box, setup "
-                                 "and the solve and none of the others")
+                                 f"{w0}..{w1}, not {want} of box-box, the "
+                                 "cached coloring, setup and the solve and "
+                                 "none of the others")
         if watch.over:
             raise AssertionError(f"{label}: overflow in steps {w0}..{w1}: "
                                  f"bits {watch.over}")
@@ -1970,9 +2091,15 @@ def config5_layout(card, dev, spc, steps, keep=None):
     where = f"{label} chunk 0, step {steps}"
     records, inputs = compare_step(card, where, st0, cfg)
     col_ms, joins = cached_coloring(st0, cfg, inputs)
-    log(card, f"{where}: cached coloring {col_ms:.3f} ms a call (host reads "
-        f"included), joins {joins}; solve device "
-        f"{records['solve']['device_ms']:.4f} ms")
+    log(card, f"{where}: cached coloring {col_ms:.3f} ms a call, joins "
+        f"{joins}; solve device {records['solve']['device_ms']:.4f} ms")
+    bodies, man = inputs[0], inputs[1]
+    start = cached_start(man, bodies, cfg, st0.colors)
+    for mc in (cfg.max_colors, SPILL_COLORS):
+        rec = compare_coloring_cached(card, where, man, bodies.inv_mass > 0.0,
+                                      start, mc)
+        if mc == cfg.max_colors:
+            records["coloring_cached"] = rec
     profile_steps(card, where, st0, cfg, steps=1)
     return launches, records
 
@@ -2095,10 +2222,11 @@ def phase_batch_api_envs(card, dev):
         ref, _ = engine.step(st, cfg)
     with KernelsOnly() as run:
         bodies, cache = api_step(st, cfg)
+    # the fresh coloring's kernel, so none of the cached one's
     if run.launches != {"box_box": 1, "pairs_1pt": 1, "coloring": 1,
-                        "setup": 1, "solve": 1}:
+                        "coloring_cached": 0, "setup": 1, "solve": 1}:
         raise AssertionError(f"API step: launches {run.launches}, not one of "
-                             "each kernel")
+                             "each kernel that the fresh-coloring step runs")
     err = max(float((bodies.pos - ref.bodies.pos).abs().max()),
               float((bodies.vel - ref.bodies.vel).abs().max()))
     if err > 1e-6 or not all(torch.equal(getattr(cache, f),
@@ -3376,8 +3504,8 @@ def rates(times):
 def phase_compiled(card, dev, eager):
     """Phase 21, the compiled rollout: phase 11's fidelity scene from spawn
     for REF_STEPS steps through engine.simulate (the step captured once as
-    a CUDA graph, the park, the rebuild, sleeping's skips and the claim
-    rounds conditional nodes), in phase 11's windows with its gates and
+    a CUDA graph, the park, the rebuild and sleeping's skips conditional
+    nodes, the claim rounds one kernel launch), in phase 11's windows with its gates and
     end gates, the kernels only; every REF_HALF steps' metrics and the end
     state bitwise phase 11's eager run (`eager`), the same parks and
     rebuilds in every window, box-box, setup and the solve once per active

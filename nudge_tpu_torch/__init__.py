@@ -3,12 +3,12 @@
 The JAX package `nudge_tpu` is the reference. This package runs its box
 and sphere piles, awake or in the reference mode (sleeping + persistent
 broadphase), in PyTorch: plain tensor code everywhere, and hand-written
-CUDA kernels (csrc/) for both narrowphases, the fresh coloring's claim
-rounds, the constraint setup and the iterated solve whenever the state
-lives on a CUDA device. On CPU tensors each kernel's plain PyTorch twin
-runs instead. `parallel.mesh` steps batches of scenes (BASELINE config
-5), `api` is the nudge-parity function set and `envs` the RL
-environments.
+CUDA kernels (csrc/) for both narrowphases, the claim rounds of the fresh
+and the cached coloring, the constraint setup and the iterated solve
+whenever the state lives on a CUDA device. On CPU tensors each kernel's
+plain PyTorch twin runs instead. `parallel.mesh` steps batches of scenes
+(BASELINE config 5), `api` is the nudge-parity function set and `envs`
+the RL environments.
 """
 
 from .config import SimConfig

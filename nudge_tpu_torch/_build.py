@@ -45,6 +45,7 @@ _SIGNATURES = {
     "nudge_solve_cluster": [],
     "nudge_pairs_1pt": [_P] * 15 + [_I] * 3 + [_P] * 10 + [_P],
     "nudge_color_rounds": [_P] * 5 + [_I] * 3 + [_P] * 2 + [_P],
+    "nudge_color_rounds_cached": [_P] * 5 + [_I] * 4 + [_P] * 4 + [_P],
     "nudge_box_box_bwd": [_P] * 7 + [_I] + [_P] * 6 + [_P],
     "nudge_pairs_1pt_bwd": [_P] * 13 + [_I] * 2 + [_P] * 6 + [_P],
     "nudge_segment_sum": [_P] * 3 + [_I] * 4 + [_P] + [_P],

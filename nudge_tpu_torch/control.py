@@ -5,7 +5,8 @@ of compiled functions, for CUDA graphs.
     cond(pred, true_fn, false_fn, operands)    lax.cond
     bounded_while(n_max, pred_fn, body_fn, carry)
                                                lax.while_loop with a
-                                               static bound on its trips
+                                               static bound on its trips,
+                                               eager only
     compiled(fn, cfg, state)                   fn(state, cfg) captured
                                                once as a CUDA graph
     compiled_grad(fn, cfg, state, need)        the backward of one step of
@@ -17,24 +18,22 @@ of compiled functions, for CUDA graphs.
 Outside a capture (every CPU tensor, and an eager step on the card) `cond`
 and `bounded_while` are Python branches on a predicate read to the host
 here, and nowhere else: the step's only host reads are these predicate
-reads. Inside a capture that `compiled` started they read nothing: `cond`
+reads. Inside a capture that `compiled` started `cond` reads nothing: it
 becomes two IF nodes of the graph, on `pred` and on `~pred`, as in
 torch's `if_else_node` (torch/_higher_order_ops/
-cudagraph_conditional_nodes.py), and `bounded_while` becomes `n_max` IF
-nodes in a row, each on the predicate the device computed just before
-it. A trip after the predicate went false must be an exact no-op (the
-claim rounds' are: nothing is eligible, so nothing is claimed), so the
-result is the eager loop's bit for bit.
+cudagraph_conditional_nodes.py). `bounded_while` runs only eagerly: its
+one caller, the cached coloring's claim rounds, is a loop on the CPU
+alone (on the card those rounds are one kernel launch that stops on the
+device, ops/coloring_kernel.py), and a capture of it raises at its
+first predicate read.
 
-A branch returns only tensors it made or was given as `operands` (for
-`bounded_while`, the carry), and both branches return the same tree of
-tensors of the same shapes and dtypes. Under a capture the merged output is the true
+A branch returns only tensors it made or was given as `operands`, and
+both branches return the same tree of tensors of the same shapes and
+dtypes. Under a capture the merged output is the true
 branch's: the false branch's leaves are copied into it inside the false
 body, except where the true branch returned an operand (its leaf is then
 not the branch's to overwrite) or one tensor twice; those leaves are
 selected after both nodes with `torch.where(pred, ...)`, which is exact.
-`bounded_while`'s carry is the loop's own: under a capture each trip
-writes it in place.
 
 The IF nodes come from the kernel library (csrc/control.cu: a conditional
 handle, a one-thread kernel that sets it from the predicate, the node,
@@ -49,7 +48,7 @@ shapes, and on whether tracing is on (trace.py): a graph captured with
 tracing on is a capture of its own, with stage stamps and live counts in a
 `trace.Recorder`'s rows, and the graph captured without it is left as it
 is. It warms up with one eager call on a side stream, in which every
-`cond` runs both branches and every `bounded_while` all its trips (so the
+`cond` runs both branches (so the
 kernels are built, the cluster sizes chosen and every per-device constant
 made before the capture), then captures one call on static input buffers
 under `torch.cuda.set_sync_debug_mode("error")`, so a host read or a
@@ -66,8 +65,8 @@ forward's predicate and on the body stream its forward ran on (autograd
 runs a node's backward on its forward's stream), so a captured backward
 takes the branch the predicate takes when it replays. Its outputs are
 fresh tensors each body writes, never a branch's result written in place.
-`bounded_while`'s carry and a plain cond's outputs must not require grad
-under a capture: the check raises.
+A plain cond's outputs must not require grad under a capture: the check
+raises.
 
 `compiled_grad` (`GradStep`) captures the body of a rollout's
 backward a step at a time: the step recomputed from static input buffers
@@ -410,29 +409,12 @@ class _CondFn(torch.autograd.Function):
         return (None, None, *[next(it) if n else None for n in ctx.need])
 
 
-def bounded_while(n_max: int, pred_fn, body_fn, carry, name: str = "while"):
+def bounded_while(n_max: int, pred_fn, body_fn, carry):
     """while c < n_max and pred_fn(c, carry): carry = body_fn(c, carry);
-    c += 1. `pred_fn` returns a 0-d bool tensor; `c` is static in each
-    trip. Outside a capture the loop stops at the first false predicate;
-    inside one every trip is an IF node on its predicate, whose body writes
-    the carry in place."""
+    c += 1. `pred_fn` returns a 0-d bool tensor, read to the host each
+    trip; `c` is static in each trip. Eager only: nothing captures it."""
     for c in range(n_max):
-        p = pred_fn(c, carry)
-        if _WARM:
-            new = body_fn(c, carry)
-            if _read(p):
-                carry = new
-            continue
-        if _capturing(p):
-            leaves = flatten(carry)[0]
-            with _if_body(p, f"{name}:{c}"):
-                new = flatten(body_fn(c, carry))[0]
-                _no_grad_out(name, new)
-                changed = [k for k, n in enumerate(new) if n is not leaves[k]]
-                _copy_all([leaves[k] for k in changed],
-                          [new[k] for k in changed])
-            continue
-        if not _read(p):
+        if not _read(pred_fn(c, carry)):
             break
         carry = body_fn(c, carry)
     return carry

@@ -1,8 +1,7 @@
 // Conditional nodes of a CUDA graph under stream capture (CUDA 12.4 or
 // newer): the IF node that nudge_tpu_torch/control.py makes of a `cond`
-// branch or a `bounded_while` trip when torch's CUDAGraph cannot capture
-// one itself (CUDAGraph.begin_capture_to_if_node). Graph plumbing, no
-// engine math.
+// branch when torch's CUDAGraph cannot capture one itself
+// (CUDAGraph.begin_capture_to_if_node). Graph plumbing, no engine math.
 //
 // nudge_if_begin(pred, parent, body, body_graph): in the graph `parent` is
 //   capturing, a one-thread kernel that sets a new conditional handle from

@@ -2,10 +2,10 @@
 (PyTorch port of `nudge_tpu.engine`).
 
 `step` runs on whatever device the state lives on: on CUDA tensors both
-narrowphases, the fresh coloring's claim rounds, setup and solve go
-through the hand-written kernels (the solve in one launch, with no host
-read), on CPU tensors through their plain twins. `step` is the eager
-step, the reference's un-jitted `step`.
+narrowphases, the claim rounds of both colorings, setup and solve go
+through the hand-written kernels (the solve and the claim rounds in one
+launch each, with no host read), on CPU tensors through their plain
+twins. `step` is the eager step, the reference's un-jitted `step`.
 
 `simulate` and `step_jit` are the reference's compiled rollout and step
 (`lax.scan` over `step_jit`, donated state): on the card the step is
@@ -17,10 +17,11 @@ It runs boxes and spheres, with the cached or the fresh coloring, with or
 without sleeping and the persistent broadphase (together: the reference
 mode of the JAX bench). The reference's data-dependent branches (any
 dynamic body awake: step or park; `persistent_bp.needs_rebuild`: fat
-rebuild or reuse; sleeping's three skips; the cached coloring's claim
-rounds) go through `control.cond` and `control.bounded_while`: Python
-branches on a predicate read in the eager step, conditional nodes of the
-graph in the compiled one.
+rebuild or reuse; sleeping's three skips) go through `control.cond`:
+Python branches on a predicate read in the eager step, conditional nodes
+of the graph in the compiled one. The cached coloring's claim rounds, the
+reference's while loop, are one kernel launch on the card that stops on
+the device; its CPU twin is `control.bounded_while`.
 
 The differentiable mode (`cfg.differentiable`): `step` builds an
 autograd graph from whatever state tensors require grad, as the
@@ -43,7 +44,8 @@ Tracing (trace.py): `_step_active` marks the end of each stage with
 `solve`, `cache_write` (the world impulses and the cache's write) and
 `advance` (advance, the position fix, sleeping, the kinetic energy and the
 metrics); with tracing on it counts the live manifolds and points, the
-bodies the solve sees and the colors used (the live pairs: `collide`).
+bodies the solve sees and the colors used (the live pairs: `collide`; on
+the card the cached coloring's claim rounds: `ops/coloring_kernel.py`).
 In a traced graph those are stamps and counts in its rows; in an eager
 step, host spans inside the step's span.
 

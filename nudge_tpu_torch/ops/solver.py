@@ -11,7 +11,9 @@ velocities, then the side-a changes are added, then each side-b change is
 taken against the velocities that already hold the side-a changes.
 
 `setup_constraints` and `solve` are the plain twins of the CUDA setup and
-solve kernels (ops/setup_kernel.py, ops/solver_kernel.py).
+solve kernels (ops/setup_kernel.py, ops/solver_kernel.py). The claim rounds
+of both colorings, fresh and cached, go through `ops/coloring_kernel.py`:
+one kernel launch on the card, the reference's loop on the CPU.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ from .. import control
 from ..config import CONTACT_POINTS, SimConfig
 from ..mathx import cross, dot, orthonormal_basis, quat_rotate, quat_rotate_inv
 from ..state import Bodies, ColorCache
-from .coloring_kernel import INF_I32, claim_min, color_rounds, round_hash
+from .coloring_kernel import color_rounds, color_rounds_cached
+from .coloring_kernel import round_hash  # noqa: F401  (re-exported)
 from .contacts import Manifolds
 
 
@@ -155,9 +158,13 @@ def color_manifolds(man: Manifolds, bodies: Bodies, cfg: SimConfig):
 def color_manifolds_cached(man: Manifolds, bodies: Bodies, cfg: SimConfig,
                            ccache: ColorCache):
     """Incremental coloring: join last frame's colors by (ga, gb), then run
-    claim rounds only for new manifolds, with a per-body forbidden-color
-    table so new colors never collide with cached ones.
-    Returns ((color, n_colors, relax, spill_count, spill_color), ColorCache)."""
+    claim rounds only for new manifolds (`coloring_kernel.
+    color_rounds_cached`), in which a manifold takes no color that one of
+    its dynamic bodies holds from the cache. On the card the rounds are one
+    kernel launch that builds a per-body mask of the cached colors and then
+    only reads it; on the CPU the reference's loop with its forbidden-color
+    table. Returns ((color, n_colors, relax, spill_count, spill_color),
+    ColorCache)."""
     from .cache import _join, join_i32
 
     n_bodies = bodies.pos.shape[0]
@@ -191,43 +198,8 @@ def color_manifolds_cached(man: Manifolds, bodies: Bodies, cfg: SimConfig,
     color = torch.where(man.valid & (hit > 0.5) & fresh,
                         hit.to(torch.int32) - 1, -1).to(torch.int32)
 
-    # forbidden-color table [n_bodies, K], flattened for the scatters
-    ba, bb = _i64(man.body_a), _i64(man.body_b)
-    forbid = torch.zeros(n_bodies * K, dtype=torch.int32, device=dev)
-    cc = _i64(torch.clamp(color, 0, K - 1))
-    okc = color >= 0
-    forbid.scatter_reduce_(0, ba * K + cc, (okc & dyn_a).to(torch.int32),
-                           "amax")
-    forbid.scatter_reduce_(0, bb * K + cc, (okc & dyn_b).to(torch.int32),
-                           "amax")
-
-    idx = torch.arange(m, dtype=torch.int32, device=dev)
-
-    def uncolored(c, carry):
-        return torch.any(man.valid & (carry[0] < 0))
-
-    def claim_round(c, carry):
-        color, forbid = carry
-        token = idx ^ round_hash(c)
-        elig = (man.valid & (color < 0)
-                & ((forbid[ba * K + c] == 0) | ~dyn_a)
-                & ((forbid[bb * K + c] == 0) | ~dyn_b))
-        token_a = torch.where(elig & dyn_a, token, INF_I32)
-        token_b = torch.where(elig & dyn_b, token, INF_I32)
-        claim = claim_min(n_bodies, man.body_a, man.body_b, token_a, token_b)
-        ok_a = ~dyn_a | (claim[man.body_a] == token)
-        ok_b = ~dyn_b | (claim[man.body_b] == token)
-        win = elig & ok_a & ok_b
-        forbid.scatter_reduce_(0, ba * K + c, (win & dyn_a).to(torch.int32),
-                               "amax")
-        forbid.scatter_reduce_(0, bb * K + c, (win & dyn_b).to(torch.int32),
-                               "amax")
-        return torch.where(win, c, color), forbid
-
-    # the reference's lax.while_loop: a round after the last uncolored
-    # manifold claims nothing, so the static bound K - 1 is exact
-    color, forbid = control.bounded_while(K - 1, uncolored, claim_round,
-                                          (color, forbid), name="claim")
+    color = color_rounds_cached(man.body_a, man.body_b, man.valid, dyn, color,
+                                n_bodies, K)
 
     color, relax, spilled = _spill_relax(man, color, dyn_a, dyn_b, n_bodies,
                                          cfg)

@@ -155,25 +155,29 @@ def flatten(tree):
     saves a tree's tensors with `ctx.save_for_backward(*leaves)`, so that
     an in-place write to one before the backward raises."""
     leaves = []
-
-    def walk(t):
-        if isinstance(t, torch.Tensor):
-            leaves.append(t)
-            return lambda it: next(it)
-        if dataclasses.is_dataclass(t):
-            parts = [(f.name, walk(getattr(t, f.name)))
-                     for f in dataclasses.fields(t)]
-            return lambda it: dataclasses.replace(
-                t, **{name: part(it) for name, part in parts})
-        if isinstance(t, (tuple, list)):
-            parts = [walk(x) for x in t]
-            if hasattr(t, "_fields"):
-                return lambda it: type(t)(*[part(it) for part in parts])
-            return lambda it: type(t)(part(it) for part in parts)
-        return lambda it: t
-
-    build = walk(tree)
+    build = _walk(tree, leaves)
     return leaves, lambda tensors: build(iter(tensors))
+
+
+def _walk(t, leaves):
+    """`flatten`'s rebuild function of `t`, its tensor leaves appended to
+    `leaves`. A module-level function, not a closure that calls itself:
+    such a closure is a reference cycle that would keep `leaves`, and so
+    every flattened state, alive until the cyclic garbage collector runs."""
+    if isinstance(t, torch.Tensor):
+        leaves.append(t)
+        return lambda it: next(it)
+    if dataclasses.is_dataclass(t):
+        parts = [(f.name, _walk(getattr(t, f.name), leaves))
+                 for f in dataclasses.fields(t)]
+        return lambda it: dataclasses.replace(
+            t, **{name: part(it) for name, part in parts})
+    if isinstance(t, (tuple, list)):
+        parts = [_walk(x, leaves) for x in t]
+        if hasattr(t, "_fields"):
+            return lambda it: type(t)(*[part(it) for part in parts])
+        return lambda it: type(t)(part(it) for part in parts)
+    return lambda it: t
 
 
 def empty_color_cache(cfg: SimConfig, device="cuda") -> ColorCache:

@@ -101,3 +101,82 @@ def test_round_hashes_table():
     assert t.dtype == torch.int32
     assert t.tolist() == [psolver.round_hash(c) for c in range(24)]
     assert pck._round_hashes(24, "cpu") is t          # built once
+
+
+def _cached_manifolds(seed, max_colors, n_bodies=400, m=1500, live=1100):
+    """`live` manifolds in front of a dead tail (body 0, not valid) between
+    random bodies, a tenth of them static, with the colors a cache would
+    give them: a fresh coloring's, two thirds of them kept, the rest -1."""
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randint(0, n_bodies, (m,), generator=g)
+    b = (a + torch.randint(1, 30, (m,), generator=g)) % n_bodies
+    valid = torch.arange(m) < live
+    a = torch.where(valid, a, 0).to(torch.int32)
+    b = torch.where(valid, b, 0).to(torch.int32)
+    dyn = torch.rand(n_bodies, generator=g) > 0.1
+    fresh = pck.color_rounds_plain(a, b, valid, dyn, n_bodies, max_colors)
+    keep = torch.rand(m, generator=g) < 2 / 3
+    return a, b, valid, dyn, torch.where(keep, fresh, -1), n_bodies
+
+
+def _rounds_read_only(a, b, valid, dyn, color, n_bodies, max_colors):
+    """The claim rounds with the forbidden table built once from the cached
+    colors and then only read, run while any valid manifold is uncolored.
+    Returns (raw colors, rounds run, whether a manifold that some round
+    found not free won a later one)."""
+    K = max_colors
+    dyn_a, dyn_b = dyn[a], dyn[b]
+    ia, ib = a.to(torch.int64), b.to(torch.int64)
+    forbid = torch.zeros((n_bodies, K), dtype=torch.bool)
+    c = torch.clamp(color, 0, K - 1).to(torch.int64)
+    for side, d in ((ia, dyn_a), (ib, dyn_b)):
+        sel = (color >= 0) & d
+        forbid[side[sel], c[sel]] = True
+    idx = torch.arange(a.shape[0], dtype=torch.int32)
+    blocked = torch.zeros_like(valid)
+    rounds = 0
+    for r in range(K - 1):
+        uncolored = valid & (color < 0)
+        if not bool(uncolored.any()):
+            break
+        rounds += 1
+        elig = uncolored & ~forbid[ia, r] & ~forbid[ib, r]
+        blocked |= uncolored & ~elig
+        token = idx ^ pck.round_hash(r)
+        claim = pck.claim_min(n_bodies, a, b,
+                              torch.where(elig & dyn_a, token, pck.INF_I32),
+                              torch.where(elig & dyn_b, token, pck.INF_I32))
+        win = (elig & (~dyn_a | (claim[a] == token))
+               & (~dyn_b | (claim[b] == token)))
+        color = torch.where(win, r, color)
+    late = bool((blocked & (color >= 0)).any())
+    return color, rounds, late
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("max_colors", [24, 2])
+def test_cached_rounds_need_no_forbid_writes(seed, max_colors):
+    """The invariant the cached coloring's kernel rests on: the reference's
+    loop, which adds each round's winners to its forbidden-color table,
+    gives the same colors as the table built once from the cached colors
+    and only read (round c reads column c before it writes it; later rounds
+    read higher columns). On CPU tensors the wrapper is that loop and
+    launches nothing."""
+    a, b, valid, dyn, color, n_bodies = _cached_manifolds(seed, max_colors)
+    n0 = pck.color_rounds_cached.launches
+    twin = pck.color_rounds_cached(a, b, valid, dyn, color.clone(), n_bodies,
+                                   max_colors)
+    assert pck.color_rounds_cached.launches == n0
+    once, rounds, late = _rounds_read_only(a, b, valid, dyn, color, n_bodies,
+                                           max_colors)
+    assert torch.equal(twin, once)
+    assert torch.equal(twin[color >= 0], color[color >= 0])
+    assert bool((twin[~valid] == -1).all())
+    new = valid & (color < 0)
+    assert int(new.sum()) > 100
+    if max_colors == 24:
+        # every new manifold colored, and the stop rule was needed: one
+        # that a round found not free won a later round
+        assert bool((twin[new] >= 0).all()) and late and rounds >= 3
+    else:
+        assert rounds == 1 and bool((twin[new] < 0).any())

@@ -79,6 +79,30 @@ def test_bounded_while_equals_python_while(seed):
     assert torch.equal(got[0], x) and torch.equal(got[1], k)
 
 
+def test_flatten_keeps_no_tree_alive():
+    """A state flattened and rebuilt, then dropped, is freed by reference
+    counting alone: `flatten` makes no reference cycle, which would keep
+    every state a rollout flattens in memory until the cyclic collector
+    runs (the window's reserved peak then grows with its call count)."""
+    import gc
+    import weakref
+
+    b = scenes.scene_pile(8, seed=1)
+    st = b.finalize(b.auto_config(), device="cpu")
+    pos = st.bodies.pos.clone()
+    probe = weakref.ref(pos)
+    gc.collect()
+    gc.disable()
+    try:
+        tree = st.replace(bodies=st.bodies.replace(pos=pos))
+        leaves, build = flatten(tree)
+        again = build([t.clone() for t in leaves])
+        assert torch.equal(again.bodies.pos, pos)
+        del tree, leaves, build, again, pos
+        assert probe() is None
+    finally:
+        gc.enable()
+
 def test_metric_rows_round_trip_bitwise():
     """A graph writes its 0-d metrics as int32 bits into one row; unpacked,
     every float keeps its bits (-0.0, inf, NaN, subnormals too), every
@@ -200,7 +224,7 @@ def test_reference_step_reads_only_its_predicates(monkeypatch):
     assert audit.nonzero == 0 and listed == []
     assert dict(audit.outside) == {("ops/solver.py", "solve_from"): 1}
     p = dict(audit.predicates)
-    claims = p.pop("color_manifolds_cached")
+    claims = p.pop("color_rounds_cached_plain")
     assert 1 <= claims <= cfg.max_colors - 1
     assert p == {"step": 1, "persistent_broadphase": 1, "update_sleep": 3}
 

@@ -387,6 +387,195 @@ def test_coloring_kernel_matches_twin_at_scale(dev, case, max_colors):
         assert torch.equal(ck.color_rounds_cuda(*args), k)
 
 
+
+# --- the cached coloring's claim rounds (csrc/coloring.cu, kCached) -------
+
+def _settled_pile(dev, max_colors):
+    cfg, st = _pressed_pile(300, dev, broadphase="grid", max_colors=max_colors)
+    st, _ = engine.simulate(st, cfg, 20)
+    return cfg, st
+
+
+def _pile_chunk(dev, max_colors):
+    """16 piles of 512 boxes as one flattened chunk, as the batch's chunks
+    are built, after 40 steps of their drop."""
+    b = scenes.scene_pile_batch(16, 512, seed=2)
+    cfg = scenes.cover_footprint(b, b.auto_config(max_colors=max_colors))
+    st, _ = engine.simulate(b.finalize(cfg, device=dev), cfg, 40)
+    return cfg, st
+
+
+def _cached_coloring_both(cfg, st, monkeypatch, bodies=None):
+    """color_manifolds_cached on the step's manifolds, through the kernel
+    and through the twin on the same CUDA tensors. Returns both results
+    and, for each, the colors the rounds started from and their raw colors
+    (the rounds' inputs are left as the kernel leaves them)."""
+    if bodies is None:
+        bodies = integrate.apply_gravity(st.bodies, st.sleep, cfg)
+    man, _ = contacts.collide(st, cfg)
+    raw = {}
+
+    def spy(name, fn):
+        def rounds(*args):
+            raw[name] = [args[4].clone()]
+            raw[name].append(fn(*args).clone())
+            return raw[name][1]
+        return rounds
+
+    out = {}
+    for name, fn in (("kernel", ck.color_rounds_cached_cuda),
+                     ("twin", ck.color_rounds_cached_plain)):
+        with monkeypatch.context() as m:
+            m.setattr(ck, "color_rounds_cached_cuda", spy(name, fn))
+            out[name] = solver.color_manifolds_cached(man, bodies, cfg,
+                                                      st.colors)
+    torch.cuda.synchronize()
+    return man, bodies, out, raw
+
+
+def _late_wins(a, b, valid, dyn, start, raw, max_colors):
+    """Manifolds that the rounds colored although a round before the one
+    they won found a dynamic side holding that round's cached color."""
+    forbid = torch.zeros((dyn.shape[0], max_colors + 1), dtype=torch.int32,
+                         device=dyn.device)
+    c = torch.clamp(start, 0, max_colors - 1).to(torch.int64)
+    for side in (a, b):
+        sel = (start >= 0) & dyn[side]
+        forbid[side[sel].to(torch.int64), c[sel] + 1] = 1
+    before = torch.cumsum(forbid, 1) > 0        # [:, r]: a color below r
+    won = valid & (start < 0) & (raw >= 0)
+    at = raw.clamp_min(0).to(torch.int64)
+    late = won & (before[a.to(torch.int64), at] | before[b.to(torch.int64), at])
+    return int(late.sum())
+
+
+def _rounds_run(valid, start, raw, max_colors):
+    """The rounds the reference's loop runs: none without an uncolored
+    manifold, all K - 1 when one is left, else up to the last win."""
+    new = valid & (start < 0)
+    if not bool(new.any()):
+        return 0
+    if bool((raw[new] < 0).any()):
+        return max_colors - 1
+    return int(raw[new].max()) + 1
+
+
+@pytest.mark.parametrize("max_colors", [24, 2, 40])
+@pytest.mark.parametrize("case", ["pile", "pile_dropped", "chunk",
+                                  "sleepers"])
+def test_cached_coloring_kernel_matches_twin(dev, monkeypatch, case,
+                                             max_colors):
+    """The cached coloring through its kernel equals it through the twin
+    bit for bit: the raw colors, the coloring after the spill and the
+    height relabel, and the cache it writes. Cases: a settled pile's
+    cached frame; the same with every 7th cache row dropped (those
+    manifolds recolor); a chunk of 512-box piles; the dropped rows again
+    with the pile's two bottom layers asleep (static for the coloring: no
+    mask bits, no claims). 40 colors take two mask words a body."""
+    mk = _pile_chunk if case == "chunk" else _settled_pile
+    cfg, st = mk(dev, max_colors)
+    bodies = None
+    if case in ("pile_dropped", "sleepers"):
+        keep = torch.ones_like(st.colors.valid)
+        keep[::7] = False
+        st = st.replace(colors=st.colors.replace(valid=st.colors.valid & keep))
+    if case == "sleepers":
+        bodies = integrate.apply_gravity(st.bodies, st.sleep, cfg)
+        low = (bodies.inv_mass > 0) & (bodies.pos[:, 1] < 2.0)
+        bodies = bodies.replace(
+            inv_mass=torch.where(low, 0.0, bodies.inv_mass),
+            inv_inertia=torch.where(low[:, None], 0.0, bodies.inv_inertia))
+        assert int(low.sum()) > 50
+    man, bodies, out, raw = _cached_coloring_both(cfg, st, monkeypatch,
+                                                  bodies)
+    start = raw["twin"][0]
+    assert torch.equal(raw["kernel"][0], start)
+    assert torch.equal(raw["kernel"][1], raw["twin"][1])
+    (kc, kcache), (tc, tcache) = out["kernel"], out["twin"]
+    for k, name in enumerate(("color", "n_colors", "relax", "spill_count",
+                              "spill_color")):
+        assert torch.equal(kc[k], tc[k]), name
+    for f in dataclasses.fields(tcache):
+        assert torch.equal(getattr(kcache, f.name),
+                           getattr(tcache, f.name)), f.name
+    new = man.valid & (start < 0)
+    # cached colors set mask bits: with 2 colors only color 0 is cached
+    # (color 1 is the spill color, and spilled manifolds are not cached),
+    # 22 of them in the sleepers case
+    assert int((start >= 0).sum()) > 20
+    if case != "pile":         # the settled pile may keep every color
+        assert int(new.sum()) > 0
+    if max_colors == 2:
+        assert int(tc[3]) > 0                      # the spill path ran
+
+
+@pytest.mark.parametrize("max_colors", [24, 2, 40])
+def test_cached_coloring_kernel_stop_rule_and_rounds(dev, max_colors):
+    """Random manifolds (a tenth of the bodies static) in front of a dead
+    tail, two thirds of them with the colors a fresh coloring gave them:
+    new manifolds that a round finds not free and that win a later one, so
+    the rounds go on while any manifold is uncolored, not while any claims.
+    The raw colors bit for bit, ten launches equal, and the rounds the
+    kernel counts (the `claim_rounds` count) those the twin's loop runs."""
+    from nudge_tpu_torch import trace
+
+    a, b, valid, dyn = _random_manifolds(dev, 20_480, 61_440, 40_000, seed=5)
+    n = dyn.shape[0]
+    fresh = ck.color_rounds_cuda(a, b, valid, dyn, n, max_colors)
+    g = torch.Generator(device=dev).manual_seed(5)
+    keep = torch.rand(fresh.shape, generator=g, device=dev) < 2 / 3
+    start = torch.where(keep, fresh, -1)
+    p = ck.color_rounds_cached_plain(a, b, valid, dyn, start.clone(), n,
+                                     max_colors)
+    with trace.on(), trace.span("rounds"):
+        k = ck.color_rounds_cached_cuda(a, b, valid, dyn, start.clone(), n,
+                                        max_colors)
+    spans = trace.collect().spans
+    torch.cuda.synchronize()
+    assert torch.equal(k, p)
+    for _ in range(9):
+        again = ck.color_rounds_cached_cuda(a, b, valid, dyn, start.clone(),
+                                            n, max_colors)
+        assert torch.equal(again, k)
+    rounds = [s.counts["claim_rounds"] for s in spans
+              if "claim_rounds" in s.counts]
+    assert rounds == [_rounds_run(valid, start, p, max_colors)]
+    if max_colors > 2:
+        assert _late_wins(a, b, valid, dyn, start, p, max_colors) > 0
+        assert rounds[0] >= 3
+
+
+def test_cached_coloring_is_one_launch_and_no_claim_node(dev):
+    """A call of the cached rounds enqueues one kernel and nothing else,
+    and reads nothing back to the host (a CUDA graph capture of the call,
+    which a host read would fail); the captured step holds no `claim` IF
+    node, and its rollout launches the cached kernel once a step (and the
+    fresh one never)."""
+    from nudge_tpu_torch import control
+    from nudge_tpu_torch.utils import timing
+
+    cfg, st = _settled_pile(dev, 24)
+    bodies = integrate.apply_gravity(st.bodies, st.sleep, cfg)
+    man, _ = contacts.collide(st, cfg)
+    dyn = bodies.inv_mass > 0.0
+    start = torch.where(man.valid & (torch.arange(man.valid.shape[0],
+                                                  device=dev) % 3 == 0),
+                        0, -1).to(torch.int32)
+    args = (man.body_a, man.body_b, man.valid, dyn, start, dyn.shape[0], 24)
+    n0 = ck.color_rounds_cached.launches
+    ops = timing.device_ops(lambda: ck.color_rounds_cached_cuda(*args))
+    assert ops == {"kernel": 1}, ops
+    assert ck.color_rounds_cached.launches == n0 + 2  # the warm call, the capture
+
+    before = (ck.color_rounds_cached.launches, ck.color_rounds.launches)
+    st2, _ = engine.simulate(st, cfg, 5)
+    torch.cuda.synchronize()
+    assert (ck.color_rounds_cached.launches,
+            ck.color_rounds.launches) == (before[0] + 5, before[1])
+    names = [body.name for body in control.compiled(engine.step, cfg,
+                                                    st).bodies]
+    assert not any(name.startswith("claim") for name in names), names
+
 def test_mixed_pile_fresh_coloring_launches_every_kernel_and_repeats(dev):
     cfg, st0 = _falling_mixed_pile(400, dev, 30, persistent_coloring=False)
     counters = (npk.box_box_slots, p1pt.pairs_1pt_slots_cuda, ck.color_rounds,
@@ -406,7 +595,7 @@ def test_mixed_pile_fresh_coloring_launches_every_kernel_and_repeats(dev):
 def _through_twins(monkeypatch):
     """Route every kernel wrapper's CUDA branch to its plain twin."""
     for mod, name in ((npk, "box_box_slots"), (ck, "color_rounds"),
-                      (solver_kernel, "solve")):
+                      (ck, "color_rounds_cached"), (solver_kernel, "solve")):
         monkeypatch.setattr(mod, f"{name}_cuda", getattr(mod, f"{name}_plain"))
     # the joined twins in place of NarrowphaseFn: autograd through them
     monkeypatch.setattr(contacts, "narrowphase_cuda",

@@ -270,7 +270,7 @@ def test_backward_reads_only_the_predicates(monkeypatch):
     assert not audit.outside and audit.nonzero == 0 and listed == []
     p = dict(audit.predicates)
     assert p.pop("step") == 6 and p.pop("persistent_broadphase") >= 1
-    assert set(p) <= {"update_sleep", "color_manifolds_cached"}
+    assert set(p) <= {"update_sleep", "color_rounds_cached_plain"}
 
 
 @pytest.mark.parametrize("pred", [False, True])

@@ -24,6 +24,8 @@ needs_cuda = pytest.mark.skipif(not torch.cuda.is_available(),
 STAGES = ["collide", "cache_read", "coloring", "setup", "solve",
           "cache_write", "advance"]
 COUNTS = {"pairs", "manifolds", "points", "bodies", "colors"}
+# on the card the cached coloring's kernel also counts the rounds it ran
+CARD_COUNTS = COUNTS | {"claim_rounds"}
 
 
 @pytest.fixture(autouse=True)
@@ -333,7 +335,7 @@ def test_graph_counts_equal_the_eager_step_counts():
         trace.collect()
         engine.simulate(st, cfg, 1)
     (r,) = trace.collect().replays
-    assert r.counts == eager.counts and set(r.counts) == COUNTS
+    assert r.counts == eager.counts and set(r.counts) == CARD_COUNTS
     assert r.counts["points"] > 0
 
 
