@@ -145,31 +145,11 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device,
         _per_layer(cell, run, False, metrics, log)
 
     entry.drop()
-    cmp = check.Comparison()
+    cmp = check.Comparison(sysm.cfg)
     cmp.spawn(sysm.state, system.reference_spawn(cell.config, seed,
                                                  sysm.cfg, device))
-
-    def judge(s_in, out_state, out_row, adjoint=None):
-        """The reference's step from `s_in` against the program's output
-        state (None: its metrics only) and metrics row; with `adjoint`
-        (next state's adjoints, kinetic energy weight, this state's
-        adjoints) also the step's vector-Jacobian product."""
-        ref_state, ref_m, ref_adj = check.reference_step(s_in, sysm.cfg,
-                                                         adjoint=adjoint)
-        if control is not None:    # the control in the program's place
-            out_state, low_m, low_adj = check.reference_step(
-                s_in, sysm.cfg, control, adjoint=adjoint)
-            out_row = dict(vars(low_m))
-            if adjoint is not None:
-                adjoint = (None, None, low_adj)
-        if out_state is not None:
-            cmp.state(out_state, ref_state)
-        cmp.metrics(out_row, ref_m)
-        if adjoint is not None:
-            cmp.adjoint(adjoint[2], ref_adj)
-
     t = time.perf_counter()
-    entry.check(cmp, judge)
+    entry.check(cmp, check.judge_with(cmp, sysm.cfg, control))
     for note in cmp.notes:
         log(note)
     log(f"check {time.perf_counter() - t:.3f} s over {cmp.count} states")

@@ -13,8 +13,15 @@ over the comparisons of a run; each has a limit of its own
                       sides), the step counter, and the step's integer
                       metrics (contacts, spilled manifolds, overflow and
                       its bits, awake bodies, manifold and pair demand);
-    pos_gap_m         the widest gap of a body's position, in m;
-    quat_gap          the widest gap of a quaternion component;
+                      with sleeping on, also the sleep state (idle
+                      counters, awake flags, parked pairs), and with the
+                      persistent broadphase the cache's integer and bool
+                      leaves (fat pairs, their valid rows, its overflow,
+                      flags and staleness);
+    pos_gap_m         the widest gap of a body's position, in m (with the
+                      persistent broadphase also of its anchors);
+    quat_gap          the widest gap of a quaternion component (with the
+                      persistent broadphase also of its anchors);
     vel_gap           the widest gap of a linear (m/s) or angular (rad/s)
                       velocity component;
     impulse_gap_rel   the widest gap of the cache's accumulated impulses
@@ -37,7 +44,9 @@ over the comparisons of a run; each has a limit of its own
                       its leaf's largest reference element and the median
                       leaf's.
 
-A cell's limits file names the numbers it is judged on.
+A cell's limits file names the numbers it is judged on. The sleep and
+broadphase leaves are compared only where the configuration runs them:
+elsewhere the step carries them through unchanged.
 """
 
 from __future__ import annotations
@@ -52,6 +61,10 @@ from reference import tree
 INT_LEAVES = ("cache.ga", "cache.gb", "cache.feat", "cache.valid",
               "colors.ga", "colors.gb", "colors.color", "colors.valid",
               "colors.dynbits", "step_count")
+SLEEP_LEAVES = ("sleep.idle", "sleep.awake", "sleep.pairs")
+BP_LEAVES = ("bp.bb_a", "bp.bb_b", "bp.bb_valid", "bp.bs_a", "bp.bs_b",
+             "bp.bs_valid", "bp.ss_a", "bp.ss_b", "bp.ss_valid",
+             "bp.overflow", "bp.flags", "bp.stale")
 INT_METRICS = ("contact_count", "spill_count", "overflow", "awake_count",
                "overflow_bits", "manifold_demand", "pair_demand")
 NAMES = ("int_mismatch", "pos_gap_m", "quat_gap", "vel_gap",
@@ -72,12 +85,16 @@ def _differ(a, b) -> int:
 
 
 class Comparison:
-    """The worst of each number over the comparisons of a run."""
+    """The worst of each number over the comparisons of a run, for the
+    configuration `cfg` (its flags choose the state's leaves compared)."""
 
-    def __init__(self):
+    def __init__(self, cfg=None):
         self.numbers = {n: 0 for n in NAMES}
         self.count = 0
         self.notes = []
+        self.sleeping = bool(cfg is not None and cfg.sleeping)
+        self.persistent_bp = bool(cfg is not None
+                                  and cfg.persistent_broadphase)
 
     def worst(self, name: str, value):
         self.numbers[name] = max(self.numbers[name], value)
@@ -99,10 +116,17 @@ class Comparison:
         """The program's state after one step against the reference's."""
         p = dict(tree.leaves(tree.from_fields(prog_state)))
         r = dict(tree.leaves(ref_state))
-        self.worst("int_mismatch", sum(_differ(p[k], r[k])
-                                       for k in INT_LEAVES))
-        self.worst("pos_gap_m", _gap(p["bodies.pos"], r["bodies.pos"]))
-        self.worst("quat_gap", _gap(p["bodies.quat"], r["bodies.quat"]))
+        ints = INT_LEAVES
+        pos, quat = ["bodies.pos"], ["bodies.quat"]
+        if self.sleeping:
+            ints = ints + SLEEP_LEAVES
+        if self.persistent_bp:
+            ints = ints + BP_LEAVES
+            pos.append("bp.anchor_pos")
+            quat.append("bp.anchor_quat")
+        self.worst("int_mismatch", sum(_differ(p[k], r[k]) for k in ints))
+        self.worst("pos_gap_m", max(_gap(p[k], r[k]) for k in pos))
+        self.worst("quat_gap", max(_gap(p[k], r[k]) for k in quat))
         self.worst("vel_gap", max(_gap(p["bodies.vel"], r["bodies.vel"]),
                                   _gap(p["bodies.angvel"],
                                        r["bodies.angvel"])))
@@ -182,6 +206,33 @@ def reference_step(state, cfg, low=None, adjoint=None):
     adj = {n: torch.zeros_like(xs[n]) if g is None else g
            for n, g in zip(wanted, got)}
     return tree.detached(out), tree.detached(m), adj
+
+
+def judge_with(cmp: Comparison, cfg, control=None):
+    """The judge every entry's check calls: `judge(s_in, out_state, out_row,
+    adjoint=None)` compares into `cmp` the reference's step from the
+    program's state `s_in` with the program's output state (None: its
+    metrics only) and metrics row; with `adjoint` (the next state's
+    adjoints, the kinetic energy's weight, this state's adjoints) also the
+    step's vector-Jacobian product. With `control` (a dtype) the reference
+    computed in that precision is judged in the program's place."""
+
+    def judge(s_in, out_state, out_row, adjoint=None):
+        ref_state, ref_m, ref_adj = reference_step(s_in, cfg,
+                                                   adjoint=adjoint)
+        if control is not None:    # the control in the program's place
+            out_state, low_m, low_adj = reference_step(
+                s_in, cfg, control, adjoint=adjoint)
+            out_row = dict(vars(low_m))
+            if adjoint is not None:
+                adjoint = (None, None, low_adj)
+        if out_state is not None:
+            cmp.state(out_state, ref_state)
+        cmp.metrics(out_row, ref_m)
+        if adjoint is not None:
+            cmp.adjoint(adjoint[2], ref_adj)
+
+    return judge
 
 
 def metrics_row(metrics, k: int) -> dict:

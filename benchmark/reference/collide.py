@@ -1,8 +1,8 @@
 """Collision detection of the reference step: world poses, the grid
-broadphase, the box-box narrowphase and the depth-priority compaction into
-manifold slots. A frozen copy of the port's plain twins, for box scenes
-without the persistent broadphase (the grid path of scenes over 1,024
-colliders)."""
+broadphase (or the persistent broadphase's refilter of its cached fat
+pairs, `persistent_bp`), the box-box narrowphase and the depth-priority
+compaction into manifold slots. A frozen copy of the port's plain twins,
+for box scenes (the grid path of scenes over 1,024 colliders)."""
 
 from __future__ import annotations
 
@@ -330,16 +330,45 @@ def compact_manifolds(slots: dict, cfg, pair_overflow,
 
 def collide(state, cfg):
     """Broadphase, narrowphase and compaction for one step (the grid
-    broadphase, boxes only). Returns the manifolds."""
-    if cfg.max_spheres or cfg.persistent_broadphase:
-        raise NotImplementedError("the reference steps box scenes without "
-                                  "the persistent broadphase")
+    broadphase, or the persistent broadphase's refilter; boxes only).
+    Returns (the manifolds, the persistent broadphase's cache: the
+    state's own when that is off)."""
+    if cfg.max_spheres:
+        raise NotImplementedError("the reference steps box scenes only")
     wc = world_colliders(state)
-    bb = grid_broadphase(state, wc, cfg)
+    if cfg.persistent_broadphase:
+        bb, bp = _persistent_pairs(state, wc, cfg)
+    else:
+        bb, bp = grid_broadphase(state, wc, cfg), state.bp
     slots = box_box_slots(state.boxes, wc, bb)
     overflow = bb.count > bb.a.shape[0]
-    pair_overflow = overflow | (bb.flags != 0)
-    bits = overflow.to(torch.int32) | (bb.flags & 1)
-    bits = bits | (((bb.flags >> 1) & 3) << 5)
+    if cfg.persistent_broadphase:
+        # the rebuild's drops poison every step until the next rebuild
+        pair_overflow = overflow | bp.overflow
+        bits = overflow.to(torch.int32)
+        bits = bits | torch.where(bp.overflow, 16, 0).to(torch.int32)
+        bits = bits | torch.where(bp.overflow, ((bp.flags >> 1) & 3) << 5, 0)
+    else:
+        pair_overflow = overflow | (bb.flags != 0)
+        bits = overflow.to(torch.int32) | (bb.flags & 1)
+        bits = bits | (((bb.flags >> 1) & 3) << 5)
     man = compact_manifolds(slots, cfg, pair_overflow, pair_bits=bits)
-    return man.replace(pair_demand=bb.count)
+    return man.replace(pair_demand=bb.count), bp
+
+
+def _persistent_pairs(state, wc, cfg):
+    """The persistent broadphase's candidates and cache. Its rebuild
+    caches pairs as if every body were awake, so waking islands reconnect
+    at once; dead bodies (below the kill plane) stay out of it."""
+    from . import persistent_bp
+
+    dead = dead_mask(state.bodies, state.sleep, cfg)
+    rb_awake = torch.ones_like(state.sleep.awake)
+    if dead is not None:
+        rb_awake = rb_awake & ~dead
+    awake_state = state.replace(sleep=state.sleep.replace(awake=rb_awake))
+
+    def base_awake(_, wcx, cfgx):
+        return grid_broadphase(awake_state, wcx, cfgx)
+
+    return persistent_bp.persistent_broadphase(state, wc, cfg, base_awake)

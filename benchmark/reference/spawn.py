@@ -8,7 +8,10 @@ m apart, the chunks decorrelated by a jitter drawn on the device from a
 `torch.Generator` seeded `seed + 1`. Both give the bodies' and boxes'
 arrays padded to the configuration's capacities: {name: tensor}, named
 as the program's state names them ("bodies.pos", "boxes.half", ...),
-with a leading chunk axis for the stack.
+with a leading chunk axis for the stack. With sleeping on they also give
+the sleep state a scene starts with (every body awake, idle 0, no parked
+pair), and with the persistent broadphase its empty cache under the fat
+capacities, stale so that the first step rebuilds it.
 
 The draws follow the published scene's order (numpy's default_rng: x
 and z jitter, then a quaternion jitter, a body at a time, layer by
@@ -86,8 +89,34 @@ class _Scene:
                "boxes.body": body, "boxes.half": half,
                "boxes.lpos": np.zeros((nbx, 3), np.float32),
                "boxes.lquat": lquat, "boxes.friction": friction}
+        out.update(_mode_leaves(cfg))
         assert n <= nb
         return {k: torch.from_numpy(v).to(device) for k, v in out.items()}
+
+
+def _mode_leaves(cfg) -> dict:
+    """The spawn's `sleep.*` leaves under sleeping and its `bp.*` leaves
+    under the persistent broadphase (numpy arrays)."""
+    nb, out = cfg.max_bodies, {}
+    if cfg.sleeping:
+        out["sleep.idle"] = np.zeros(nb, np.int32)
+        out["sleep.awake"] = np.ones(nb, bool)
+        out["sleep.pairs"] = np.full((cfg.max_manifolds, 2), -1, np.int32)
+    if cfg.persistent_broadphase:
+        k = max(cfg.fat_pair_factor, 1)
+        for cls, cap in (("bb", cfg.max_box_box_pairs),
+                         ("bs", cfg.max_box_sphere_pairs),
+                         ("ss", cfg.max_sphere_sphere_pairs)):
+            c = max(k * cap, 0)
+            out[f"bp.{cls}_a"] = np.zeros(c, np.int32)
+            out[f"bp.{cls}_b"] = np.zeros(c, np.int32)
+            out[f"bp.{cls}_valid"] = np.zeros(c, bool)
+        out["bp.overflow"] = np.array(False)
+        out["bp.flags"] = np.array(0, np.int32)
+        out["bp.anchor_pos"] = np.zeros((nb, 3), np.float32)
+        out["bp.anchor_quat"] = np.zeros((nb, 4), np.float32)
+        out["bp.stale"] = np.array(True)
+    return out
 
 
 def pile(n: int, seed: int, cfg, device) -> dict:

@@ -3,9 +3,14 @@ warm starts, the cached coloring, setup, the solve, the cache write,
 advance and the split-impulse position fix, with the step's metrics.
 
 A frozen copy of the port's plain twins in the port's order (its eager
-step on the CPU), for what the benchmark's cells run: box scenes with the
-grid broadphase, the cached coloring and split impulse, sleeping and the
-persistent broadphase off. It runs on whatever device its inputs are on.
+step on the CPU), for box scenes with the grid broadphase, the cached
+coloring and split impulse, with or without sleeping and the persistent
+broadphase (together: the reference mode). With sleeping on, a step in
+which no dynamic body is awake parks: the state is unchanged but for its
+step counter, and every metric is zero; else sleepers are static (inverse
+mass and inertia 0) for coloring, setup and the solve, their true mass
+restored before advance, and `sleeping.update_sleep` ends the step. It
+runs on whatever device its inputs are on.
 
 `step(state, cfg, low=None, solve64=False)` takes the program's state as
 a `tree.Rec`. With `low` (a dtype such as torch.bfloat16) it is the
@@ -22,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from . import cache, collide, solver
+from . import cache, collide, sleeping, solver
 from .mathx import dot, quat_integrate
 from .tree import Rec
 
@@ -109,15 +114,26 @@ def advance(bodies, sleep, cfg):
 
 def step(state, cfg, low=None, solve64=False):
     """One step from `state`. Returns (state, metrics), both `Rec`s; the
-    state holds the fields the step writes (bodies, cache, colors,
-    step_count) and the metrics those of the program's StepMetrics."""
-    if cfg.sleeping or not cfg.persistent_coloring or not cfg.split_impulse:
-        raise NotImplementedError("the reference steps with sleeping off, "
-                                  "the cached coloring and split impulse")
+    state holds the fields the step writes (bodies, cache, sleep, bp,
+    colors, step_count) and the metrics those of the program's
+    StepMetrics."""
+    if not cfg.persistent_coloring or not cfg.split_impulse:
+        raise NotImplementedError("the reference steps with the cached "
+                                  "coloring and split impulse")
     state = _round(state, low)
+    if cfg.sleeping and not bool(torch.any(state.sleep.awake
+                                           & (state.bodies.inv_mass > 0.0))):
+        return _parked(state)
     bodies = apply_gravity(state.bodies, state.sleep, cfg)
-    man = _round(collide.collide(state, cfg), low)
+    man, bp = collide.collide(state, cfg)
+    man = _round(man, low)
     warm, pwarm = _rounded(cache.read_cached_impulses(state.cache, man), low)
+    if cfg.sleeping:
+        im0, ii0 = bodies.inv_mass, bodies.inv_inertia
+        asleep = ~state.sleep.awake
+        bodies = bodies.replace(
+            inv_mass=torch.where(asleep, 0.0, im0),
+            inv_inertia=torch.where(asleep[:, None], 0.0, ii0))
     coloring, colors = solver.color_manifolds_cached(man, bodies, cfg,
                                                      state.colors)
     con, bodies, acc = solver.setup_constraints(bodies, man, warm, cfg,
@@ -133,9 +149,16 @@ def step(state, cfg, low=None, solve64=False):
     bodies = bodies.replace(vel=vel, angvel=angvel)
     new_cache = cache.write_cached_impulses(
         man, solver.accumulated_world_impulse(con, acc), pacc)
+    if cfg.sleeping:
+        bodies = bodies.replace(inv_mass=im0, inv_inertia=ii0)
     bodies = advance(bodies, state.sleep, cfg)
     bodies = _round(apply_position_correction(bodies, pseudo, state.sleep,
                                               cfg), low)
+    sleep = state.sleep
+    if cfg.sleeping:
+        fast0 = sleeping.wake_fast(state.bodies.vel, state.bodies.angvel, cfg)
+        sleep, bodies = sleeping.update_sleep(bodies, man, state.sleep, cfg,
+                                              fast0)
 
     dyn = bodies.inv_mass > 0.0
     ke = 0.5 * torch.sum(torch.where(
@@ -147,12 +170,27 @@ def step(state, cfg, low=None, solve64=False):
         max_depth=torch.amax(torch.where(man.point_valid, man.depth, 0.0)),
         spill_count=con.spill_count.to(i32),
         overflow=man.overflow,
-        awake_count=torch.sum((dyn & state.sleep.awake).to(i32)).to(i32),
+        awake_count=torch.sum((dyn & sleep.awake).to(i32)).to(i32),
         kinetic_energy=ke,
         overflow_bits=man.overflow_bits.to(i32),
         manifold_demand=man.count.to(i32),
         pair_demand=man.pair_demand.to(i32),
     )
-    out = state.replace(bodies=bodies, cache=new_cache, colors=colors,
-                        step_count=state.step_count + 1)
+    out = state.replace(bodies=bodies, cache=new_cache, sleep=sleep, bp=bp,
+                        colors=colors, step_count=state.step_count + 1)
     return out, metrics
+
+
+def _parked(state):
+    """The all-asleep step: nothing inside the engine can wake an
+    all-asleep scene, so the contact pipeline is skipped; the state is
+    unchanged but for its step counter, and every metric is zero."""
+    dev = state.bodies.pos.device
+    z_i = torch.zeros((), dtype=torch.int32, device=dev)
+    z_f = torch.zeros((), dtype=torch.float32, device=dev)
+    metrics = Rec(
+        contact_count=z_i, max_depth=z_f, spill_count=z_i,
+        overflow=torch.zeros((), dtype=torch.bool, device=dev),
+        awake_count=z_i, kinetic_energy=z_f, overflow_bits=z_i,
+        manifold_demand=z_i, pair_demand=z_i)
+    return state.replace(step_count=state.step_count + 1), metrics

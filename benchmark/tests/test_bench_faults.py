@@ -3,13 +3,16 @@ step that returns its state unchanged, an answer altered where the step
 produces it, half of a batch left unstepped. Each drives the whole run
 (set-up, window, check) on the CPU at a tiny size, past the look for a
 card; in the gradient cell also an adjoint altered where the backward
-step produces it. A four-chip exchange has no fault to plant: no cell
-runs on more than one card."""
+step produces it; in the reference mode also a body woken or put to
+sleep against the reference, a sleeper given a velocity, and a parked
+step that moves a body. A four-chip exchange has no fault to plant: no
+cell runs on more than one card."""
 
 import pytest
 import tiny_bench
 
-CELLS = ("tiny.rollout", "tiny.frames", "tinyb.rollout", "tiny.grad")
+CELLS = ("tiny.rollout", "tiny.frames", "tinyb.rollout", "tiny.grad",
+         "tinyr.rollout")
 
 
 @pytest.fixture(scope="module")
@@ -26,6 +29,7 @@ def _patch_step(monkeypatch, fn):
     def broken(state, cfg):
         return fn(real, state, cfg)
 
+    vars(broken).update(vars(real))    # the step's counter of parked steps
     monkeypatch.setattr(engine, "step", broken)
     monkeypatch.setattr(mesh, "step", broken)
 
@@ -53,6 +57,66 @@ def test_answer_altered_where_produced(bench, name, monkeypatch):
 
     _patch_step(monkeypatch, altered)
     result = tiny_bench.run(*bench, name)
+    assert not result["correct"]
+
+
+def test_reference_mode_runs_every_kind_of_step(bench, monkeypatch):
+    """The tiny reference-mode cell's sound run holds a fat rebuild, a
+    refilter and a parked step, and comes out correct."""
+    from nudge_tpu_torch import engine
+    from nudge_tpu_torch.ops import persistent_bp
+
+    steps = []
+    _patch_step(monkeypatch, lambda real, s, cfg: (steps.append(1),
+                                                   real(s, cfg))[1])
+    parked0 = engine.step.parked
+    rebuilds0 = persistent_bp.persistent_broadphase.rebuilds
+    result = tiny_bench.run(*bench, "tinyr.rollout")
+    parked = engine.step.parked - parked0
+    rebuilds = persistent_bp.persistent_broadphase.rebuilds - rebuilds0
+    assert result["correct"], result["limits"]
+    assert parked >= 1 and rebuilds >= 1
+    assert len(steps) - parked - rebuilds >= 1      # refilter steps
+
+
+def _first(mask):
+    return int(mask.nonzero()[0, 0])
+
+
+def _woken(real, s, cfg):
+    """Body 1's sleep flag flipped against the step's own."""
+    out, m = real(s, cfg)
+    awake = out.sleep.awake.clone()
+    awake[1] = ~awake[1]
+    return out.replace(sleep=out.sleep.replace(awake=awake)), m
+
+
+def _sleeper_moving(real, s, cfg):
+    """A sleeper's velocity raised by 0.1 m/s."""
+    out, m = real(s, cfg)
+    asleep = out.bodies.dynamic & ~out.sleep.awake
+    if not bool(asleep.any()):
+        return out, m
+    vel = out.bodies.vel.clone()
+    vel[_first(asleep), 0] += 0.1
+    return out.replace(bodies=out.bodies.replace(vel=vel)), m
+
+
+def _parked_moves(real, s, cfg):
+    """A parked step that lifts body 1 by 0.1 m."""
+    out, m = real(s, cfg)
+    if bool((s.bodies.dynamic & s.sleep.awake).any()):
+        return out, m
+    pos = out.bodies.pos.clone()
+    pos[1, 1] += 0.1
+    return out.replace(bodies=out.bodies.replace(pos=pos)), m
+
+
+@pytest.mark.parametrize("fault", (_woken, _sleeper_moving, _parked_moves),
+                         ids=("woken", "sleeper_moving", "parked_moves"))
+def test_reference_mode_fault(bench, monkeypatch, fault):
+    _patch_step(monkeypatch, fault)
+    result = tiny_bench.run(*bench, "tinyr.rollout")
     assert not result["correct"]
 
 

@@ -1,8 +1,16 @@
-"""A copy of the benchmark with three tiny cells added as files, for the
-CPU tests: `tiny.rollout` (a 200-box pile, 2 calls of 4 steps),
-`tiny.frames` (the same pile, 6 frames) and `tinyb.rollout` (2 chunks of 4
-piles of 8 boxes, 4 calls of 3 steps). Each tiny cell takes its limits
-from the full-size cell of its traffic."""
+"""A copy of the benchmark with tiny cells added as files, for the CPU
+tests: `tiny.rollout` (a 200-box pile, 2 calls of 4 steps), `tiny.frames`
+(the same pile, 6 frames), `tinyb.rollout` (2 chunks of 4 piles of 8
+boxes, 4 calls of 3 steps), `tiny.grad` (a 60-box pile, one gradient of 12
+steps) and `tinyr.rollout` (the 200-box pile in the reference mode:
+sleeping and the persistent broadphase, 4 calls of 1 step). Each tiny
+cell takes its limits from the full-size cell of its traffic.
+
+`tinyr`'s sleep settings are for the test only: `sleep_frames` 2 and a
+`sleep_lin_vel` of 5 m/s put every body to sleep at its second step, so
+that the 4 steps hold a fat rebuild (the first: the spawn's cache is
+stale), a refilter (the second, in which the pile falls asleep) and two
+parked steps, each compared in full."""
 
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ TINY = {
     "tiny.frames": ("tiny", "tiny_frames", "pile20k.frames"),
     "tinyb.rollout": ("tinyb", "tiny_megabatch", "batch4096x512.rollout"),
     "tiny.grad": ("tinyg", "tiny_grad", "pile20k.grad"),
+    "tinyr.rollout": ("tinyr", "tiny_ref_simulate", "pile20k.rollout"),
 }
 
 
@@ -44,14 +53,22 @@ def make(tmp: Path):
     grad["scene"]["n_bodies"] = 60
     grad["sim"].update(max_box_box_pairs=480, max_manifolds=180,
                        max_colors=8, solver_iters=6)
+    ref = json.loads(json.dumps(pile))
+    ref["sim"].update(sleeping=True, persistent_broadphase=True,
+                      sleep_frames=2, sleep_lin_vel=5.0)
     files = {
         "configs/tiny.json": pile,
+        "configs/tinyr.json": ref,
         "configs/tinyg.json": grad,
         "configs/tinyb.json": batch,
         "traffic/tiny_simulate.json": {"entry": "simulate",
                                        "calls_per_episode": 2,
                                        "steps_per_call": 4,
                                        "profile_calls": 1},
+        "traffic/tiny_ref_simulate.json": {"entry": "simulate",
+                                           "calls_per_episode": 4,
+                                           "steps_per_call": 1,
+                                           "profile_calls": 1},
         "traffic/tiny_frames.json": {"entry": "step_jit",
                                      "calls_per_episode": 6,
                                      "checked_frames": 2,
