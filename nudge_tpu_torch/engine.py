@@ -42,10 +42,14 @@ Tracing (trace.py): `_step_active` marks the end of each stage with
 `trace.stage`: `collide` (gravity, broadphase, narrowphases, compaction),
 `cache_read`, `coloring` (the coloring and `color_order`), `setup`,
 `solve`, `cache_write` (the world impulses and the cache's write) and
-`advance` (advance, the position fix, sleeping, the kinetic energy and the
-metrics); with tracing on it counts the live manifolds and points, the
-bodies the solve sees and the colors used (the live pairs: `collide`; on
-the card the cached coloring's claim rounds: `ops/coloring_kernel.py`).
+`advance` (advance, the position fix, the kinetic energy and the metrics);
+with sleeping on, `advance` ends after the position fix and `sleep`
+(`update_sleep`, the kinetic energy and the metrics) follows it. With
+tracing on it counts the live manifolds and points, the bodies the solve
+sees and the colors used (the live pairs: `collide`; on the card the
+cached coloring's claim rounds: `ops/coloring_kernel.py`; with the
+persistent broadphase whether the step rebuilt: `ops/persistent_bp.py`;
+with sleeping the bodies that fell asleep and woke: `ops/sleeping.py`).
 In a traced graph those are stamps and counts in its rows; in an eager
 step, host spans inside the step's span.
 
@@ -175,6 +179,7 @@ def _step_active(state: SimState, cfg: SimConfig):
             bodies, (velw[:, 6:9], velw[:, 9:12]), state.sleep, cfg)
     sleep = state.sleep
     if cfg.sleeping:
+        trace.stage("advance")
         # the wake gate's "fast" mask is taken from the state the step
         # started from (pre-gravity, pre-solve); wake_factor hysteresis keeps
         # settled jigglers from re-waking their sleeping neighbours
@@ -204,7 +209,7 @@ def _step_active(state: SimState, cfg: SimConfig):
         manifold_demand=contacts.count.to(i32),
         pair_demand=contacts.pair_demand.to(i32),
     )
-    trace.stage("advance")
+    trace.stage("sleep" if cfg.sleeping else "advance")
     return new_state, metrics
 
 

@@ -14,7 +14,8 @@ plane, connections) and compacts it to the tight per-class capacity.
 Translation notes against the reference:
   - the reference picks rebuild or reuse with `lax.cond`; here
     `control.cond` on the device flag `needs_rebuild` (a predicate read in
-    the eager step, two conditional graph nodes in the compiled one);
+    the eager step, two conditional graph nodes in the compiled one); with
+    tracing on the flag is also the step's `rebuilt` count (trace.py);
   - the tight-list memo (`bb_code`, `tight_bb_*`, `memo_ok`) serves only the
     reference's `aligned_fast_path`, which the port does not have: with it
     off the reference always runs `two_tier_compact`, and reads the memo
@@ -30,7 +31,7 @@ import dataclasses
 
 import torch
 
-from .. import control
+from .. import control, trace
 from ..config import SimConfig
 from ..state import SimState, _Replace
 from .broadphase import (
@@ -194,6 +195,8 @@ def persistent_broadphase(state: SimState, wc: WorldColliders,
         persistent_broadphase.rebuilds += 1
         return _rebuild(s, w, cfg, base_broadphase)
 
+    if trace.enabled():     # whether this step takes the fat rebuild
+        trace.count(rebuilt=rebuild)
     bp = control.cond(rebuild, fat, lambda s, w: s.bp, (state, wc),
                       name="rebuild")
 

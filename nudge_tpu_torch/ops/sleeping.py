@@ -19,13 +19,16 @@ Translation notes against the reference:
     no wake seed: the flood of all-False is all-False; no change: the list
     stands);
   - `jnp.nonzero(size=, fill_value=0)` is `compact_mask` plus explicit fill.
+
+With tracing on (trace.py) `update_sleep` counts the bodies whose awake
+flag the step cleared (`fell_asleep`) and set (`woke`), outside its conds.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .. import control
+from .. import control, trace
 from ..config import SimConfig
 from ..mathx import dot
 from ..state import Bodies, SleepState
@@ -148,6 +151,9 @@ def update_sleep(bodies: Bodies, man: Manifolds, sleep: SleepState,
         changed, lambda p: rebuild_pairs(p, dyn & ~awake, ba, bb, live),
         lambda p: p, (sleep.pairs,), name="parked_pairs")
 
+    if trace.enabled():     # the step's net changes of the awake flags
+        trace.count(fell_asleep=torch.sum(sleep.awake & ~awake),
+                    woke=torch.sum(awake & ~sleep.awake))
     fz = falls_asleep[:, None]
     bodies = bodies.replace(vel=torch.where(fz, 0.0, bodies.vel),
                             angvel=torch.where(fz, 0.0, bodies.angvel))

@@ -1,14 +1,15 @@
 """The port's tracing (nudge_tpu_torch/trace.py): off by default and then
 recording nothing, the eager step's stage spans in order under its step
-span, live counts, spans that nest and share their call's id, the
-Recorder's rows read back onto the host clock, and the compiled caches
-keyed on the tracing state.
+span, live counts (in the reference mode the `sleep` stage and the
+rebuild and sleep counts, equal to what the step did), spans that nest and
+share their call's id, the Recorder's rows read back onto the host clock,
+and the compiled caches keyed on the tracing state.
 
 The cases marked `gpu` hold the traced graphs to the untraced ones on the
 card: bitwise the same rollout and gradient, the untraced graph's nodes
 unchanged, stamps that rise through each replay and tile it, in-graph
-counts equal to the eager step's, and the clock calibration's error bound;
-they skip without a CUDA device."""
+counts equal to the eager step's (in the reference mode too), and the
+clock calibration's error bound; they skip without a CUDA device."""
 
 import pytest
 import torch
@@ -24,6 +25,10 @@ needs_cuda = pytest.mark.skipif(not torch.cuda.is_available(),
 STAGES = ["collide", "cache_read", "coloring", "setup", "solve",
           "cache_write", "advance"]
 COUNTS = {"pairs", "manifolds", "points", "bodies", "colors"}
+# the reference mode: `sleep` (update_sleep, the metrics) after `advance`,
+# the broadphase's rebuild decision and sleeping's net flag changes
+REF_STAGES = STAGES + ["sleep"]
+REF_COUNTS = COUNTS | {"rebuilt", "fell_asleep", "woke"}
 # on the card the cached coloring's kernel also counts the rounds it ran
 CARD_COUNTS = COUNTS | {"claim_rounds"}
 
@@ -115,6 +120,90 @@ def test_parked_step_records_no_stages():
     assert engine.step.parked == p0 + 1
     spans = trace.collect().spans
     assert [s.name for s in spans] == ["step"] and spans[0].counts == {}
+
+
+@pytest.mark.parametrize("kw, stages, counts", [
+    ({"persistent_broadphase": True}, STAGES, COUNTS | {"rebuilt"}),
+    ({"sleeping": True}, REF_STAGES, COUNTS | {"fell_asleep", "woke"}),
+    ({"sleeping": True, "persistent_broadphase": True}, REF_STAGES,
+     REF_COUNTS),
+], ids=["persistent_bp", "sleeping", "reference_mode"])
+def test_each_mode_records_its_stages_and_counts(kw, stages, counts):
+    """Sleeping adds the `sleep` stage after `advance` and the
+    `fell_asleep` and `woke` counts, the persistent broadphase the
+    `rebuilt` count (with both off the awake step's stages and counts:
+    `test_eager_step_records_each_stage_once_in_order`)."""
+    st, cfg = _pile(24, **kw)
+    with trace.on():
+        engine.step(st, cfg)
+    spans = trace.collect().spans
+    (step,) = [s for s in spans if s.name == "step"]
+    kids = sorted((s for s in spans if s.parent == step.id),
+                  key=lambda s: s.start_ns)
+    assert [s.name for s in kids] == stages
+    assert set(step.counts) == counts
+
+
+def _traced_step(st, cfg):
+    """One eager step with tracing on: (state, its step span's counts,
+    its stage names, the fat rebuilds it took)."""
+    from nudge_tpu_torch.ops import persistent_bp
+
+    r0 = persistent_bp.persistent_broadphase.rebuilds
+    with trace.on():
+        out, _ = engine.step(st, cfg)
+    spans = trace.collect().spans
+    (step,) = [s for s in spans if s.name == "step"]
+    names = [s.name for s in sorted((s for s in spans if s.parent == step.id),
+                                    key=lambda s: s.start_ns)]
+    return (out, step.counts, names,
+            persistent_bp.persistent_broadphase.rebuilds - r0)
+
+
+def test_reference_mode_counts_equal_what_the_step_did():
+    """In the reference mode every eager step stamps `sleep` after
+    `advance`, and its counts are what it did: `rebuilt` the fat rebuilds
+    the broadphase's counter took, `fell_asleep` and `woke` the bodies
+    whose awake flag it cleared and set. The pile falls into contact
+    awake, is put to sleep under test-only thresholds (5 m/s, 2 frames),
+    and a sleeper given 3 m/s down wakes its neighbours."""
+    b = scenes.scene_pile(24, seed=2)
+    cfg = b.auto_config(broadphase="grid", sleeping=True,
+                        persistent_broadphase=True)
+    drowsy = cfg.replace(sleep_lin_vel=5.0, sleep_ang_vel=5.0,
+                         sleep_frames=2)
+    st = b.finalize(cfg, device="cpu")
+    seen = {"rebuilt": set(), "fell_asleep": 0, "woke": 0}
+
+    def step(st, cfg):
+        out, counts, names, rebuilds = _traced_step(st, cfg)
+        assert names == REF_STAGES and set(counts) == REF_COUNTS
+        before, after = st.sleep.awake, out.sleep.awake
+        assert counts["rebuilt"] == rebuilds
+        assert counts["fell_asleep"] == int((before & ~after).sum())
+        assert counts["woke"] == int((after & ~before).sum())
+        seen["rebuilt"].add(counts["rebuilt"])
+        seen["fell_asleep"] += counts["fell_asleep"]
+        seen["woke"] += counts["woke"]
+        return out
+
+    for _ in range(12):            # into contact, awake
+        st = step(st, cfg)
+    for _ in range(2):             # to sleep: idle 2 frames at the latest
+        st = step(st, drowsy)
+    asleep = st.bodies.dynamic & ~st.sleep.awake
+    assert seen["fell_asleep"] == int(asleep.sum()) > 0
+    # a sleeper of a parked pair (two sleepers in contact), awake and fast:
+    # it wakes the other and the flood its island
+    pairs = st.sleep.pairs
+    assert bool((pairs[:, 0] >= 0).any())
+    k = int(pairs[0, 0])
+    vel, awake = st.bodies.vel.clone(), st.sleep.awake.clone()
+    vel[k, 1], awake[k] = -3.0, True
+    st = st.replace(bodies=st.bodies.replace(vel=vel),
+                    sleep=st.sleep.replace(awake=awake))
+    st = step(st, cfg)
+    assert seen["woke"] > 0 and seen["rebuilt"] == {0, 1}
 
 
 def test_simulate_spans_nest_and_share_the_call_id():
@@ -337,6 +426,28 @@ def test_graph_counts_equal_the_eager_step_counts():
     (r,) = trace.collect().replays
     assert r.counts == eager.counts and set(r.counts) == CARD_COUNTS
     assert r.counts["points"] > 0
+
+
+@pytest.mark.gpu
+@needs_cuda
+def test_reference_mode_graph_counts_equal_the_eager_step_counts():
+    """With sleeping and the persistent broadphase the traced graph stamps
+    `sleep` after `advance`, and its counts (`rebuilt`, `fell_asleep`,
+    `woke` too) equal the eager step's from the same state."""
+    b = scenes.scene_pile(2048, seed=1)
+    cfg = b.auto_config(sleeping=True, persistent_broadphase=True)
+    st, _ = engine.simulate(b.finalize(cfg, device="cuda"), cfg, 60)
+    with trace.on():
+        engine.step(st, cfg)
+        eager = [s for s in trace.collect().spans if s.name == "step"][0]
+        engine.simulate(st, cfg, 1)       # captures
+        trace.collect()
+        engine.simulate(st, cfg, 1)
+    (r,) = trace.collect().replays
+    assert [n for n, _ in r.stamps] == ["start"] + REF_STAGES + ["tail"]
+    assert all(t is not None for _, t in r.stamps)
+    assert r.counts == eager.counts
+    assert set(r.counts) == REF_COUNTS | {"claim_rounds"}
 
 
 @pytest.mark.gpu
