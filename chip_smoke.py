@@ -32,7 +32,11 @@ no result):
      coloring's claim rounds from the step's joined colors, with 24 and
      with 4 colors, bitwise their twin, the rounds the kernel counts those
      the twin's loop ran, ten launches equal, one device kernel a call
-     (again at config 5's chunk 0 in phase 16); then
+     (again at config 5's chunk 0 in phase 16); the cache's hash join
+     (read_cached_impulses from the step's cache) bitwise the twins'
+     sort-merge join, its traced hits the twin's, three kernels a call, and the cached coloring through it bitwise the same
+     coloring through the twins, with its device time (again in phase
+     16); then
      contacts.narrowphase_all on config 3 after 120 steps, as the step
      calls it (the box-box and the one-point (box-sphere, sphere-sphere)
      kernels writing one set of buffers), against the joined twins: the
@@ -351,6 +355,8 @@ TPU_KERNEL_OF = {
     # no TPU kernel: the reference's cached coloring runs its claim rounds
     # as an XLA while loop
     "coloring_cached": "nudge_tpu/ops/solver.py:202",
+    # no TPU kernel: the reference's cache joins are an XLA sort
+    "join": "nudge_tpu/ops/cache.py:58",
     "setup": "nudge_tpu/ops/setup_kernel.py:476",
     "solve": "nudge_tpu/ops/solver_kernel.py:597",
     # the backward kernels supply the gradient the TPU kernels never had
@@ -365,6 +371,7 @@ SOURCE_OF = {
     "pairs_1pt": "nudge_tpu_torch/csrc/narrowphase_1pt.cu",
     "coloring": "nudge_tpu_torch/csrc/coloring.cu",
     "coloring_cached": "nudge_tpu_torch/csrc/coloring.cu",
+    "join": "nudge_tpu_torch/csrc/join.cu",
     "setup": "nudge_tpu_torch/csrc/setup.cu",
     "solve": "nudge_tpu_torch/csrc/solve.cu",
     "box_box_bwd": "nudge_tpu_torch/csrc/narrowphase.cu",
@@ -399,7 +406,8 @@ DEVICE_KERNELS = ("box_box_kernel", "pairs_1pt_kernel", "setup_kernel",
                   "warm_apply_kernel", "solve_kernel", "color_kernel",
                   "box_box_bwd_kernel", "pairs_1pt_bwd_kernel",
                   "setup_bwd_kernel", "setup_body_sum_kernel", "solve_bwd_kernel",
-                  "segment_sum_kernel", "set_if_kernel")
+                  "segment_sum_kernel", "set_if_kernel", "join_insert_kernel",
+                  "join_probe_kernel")
 # kernels that must keep every value in registers: no stack frame, no spill
 NO_SPILL_KERNELS = ("box_box_kernel", "solve_bwd_kernel", "setup_bwd_kernel",
                     "box_box_bwd_kernel", "pairs_1pt_bwd_kernel")
@@ -498,7 +506,7 @@ def reference_config(builder, n):
 
 def counters():
     """The launch-counting wrapper of each kernel, by kernel name."""
-    from nudge_tpu_torch.ops import coloring_kernel, narrowphase_1pt
+    from nudge_tpu_torch.ops import cache, coloring_kernel, narrowphase_1pt
     from nudge_tpu_torch.ops import narrowphase_kernel as npk
     from nudge_tpu_torch.ops import setup_kernel, solver_kernel
 
@@ -506,6 +514,7 @@ def counters():
             "pairs_1pt": narrowphase_1pt.pairs_1pt_slots_cuda,
             "coloring": coloring_kernel.color_rounds,
             "coloring_cached": coloring_kernel.color_rounds_cached,
+            "join": cache.hash_join,
             "setup": setup_kernel.setup, "solve": solver_kernel.solve}
 
 
@@ -530,7 +539,8 @@ class KernelsOnly:
     well."""
 
     def __init__(self, backward=False):
-        from nudge_tpu_torch.ops import coloring_kernel, contacts, narrowphase
+        from nudge_tpu_torch.ops import cache, coloring_kernel, contacts
+        from nudge_tpu_torch.ops import narrowphase
         from nudge_tpu_torch.ops import narrowphase_1pt, segment, setup_kernel
         from nudge_tpu_torch.ops import narrowphase_kernel as npk
         from nudge_tpu_torch.ops import solver_kernel
@@ -542,6 +552,7 @@ class KernelsOnly:
                       (narrowphase, "sphere_sphere"),
                       (coloring_kernel, "color_rounds_plain"),
                       (coloring_kernel, "color_rounds_cached_plain"),
+                      (cache, "_join_plain"), (cache, "join_i32_plain"),
                       (setup_kernel, "setup_plain"),
                       (solver_kernel, "solve_plain")]
         self.counters = counters()
@@ -922,6 +933,95 @@ def compare_coloring_cached(card, label, man, dyn, start, max_colors):
     return rec
 
 
+def compare_join(card, label, st, inputs, cfg):
+    """The hash join (csrc/join.cu) at a step's manifolds against the
+    twins, bit for bit: read_cached_impulses from the step's cache against
+    the twin's sort-merge join (its CPU route) on the same CUDA tensors,
+    with the traced hits equal to the twin's and at least one cache-table
+    slot read a live point; and the cached coloring with its join of last
+    step's colors (`_join` or `join_i32`, as the step picks) against the
+    same coloring through the twins. The read join's device time and
+    operations a call (three kernels: reset, insert, probe), and its bound by the bytes of live rows: a key
+    (12 B) and a payload (16 B) a live cache row, a key a live point, a
+    payload (16 B) written for every point."""
+    import torch
+
+    from nudge_tpu_torch import trace
+    from nudge_tpu_torch.ops import cache, solver
+    from nudge_tpu_torch.utils import timing
+
+    bodies, man = inputs[0], inputs[1]
+    c = st.cache
+    m, p = man.feat.shape
+    what = f"cache join ({label})"
+    i32 = torch.int32
+
+    def kernel():
+        return cache.read_cached_impulses(c, man, cfg)
+
+    def twin(payload):
+        return cache._join_plain(
+            c.ga, c.gb, c.feat, payload, c.valid,
+            man.ga[:, None].expand(m, p).reshape(-1),
+            man.gb[:, None].expand(m, p).reshape(-1), man.feat.reshape(-1),
+            man.point_valid.reshape(-1))
+
+    joined = torch.cat([c.impulse, c.pseudo[:, None]], -1)
+    with trace.on(), trace.span("join"):
+        kw, kp = kernel()
+    counts = trace.collect().spans[0].counts
+    t = twin(joined)
+    for name, a, b in (("impulse", kw, t[:, 0:3].reshape(m, p, 3)),
+                       ("pseudo", kp, t[:, 3].reshape(m, p))):
+        if not torch.equal(a.view(i32), b.contiguous().view(i32)):
+            raise AssertionError(f"{what}: {name} differs from the twin's")
+    for rep in range(1, SOLVE_REPEATS):
+        again = kernel()
+        if not (torch.equal(again[0], kw) and torch.equal(again[1], kp)):
+            raise AssertionError(f"{what}: call {rep + 1} differs")
+    rows = torch.arange(1, c.valid.shape[0] + 1, device=c.valid.device)
+    hits = int((twin(rows.to(torch.float32)[:, None])[:, 0] > 0).sum())
+    points = int(man.point_valid.sum())
+    if counts["cache_hits"] != hits or counts["cache_probes"] < points:
+        raise AssertionError(f"{what}: traced counts {counts}, the twin's "
+                             f"hits {hits} of {points} live points")
+    ops = timing.device_ops(kernel)
+    if ops != {"kernel": 3}:
+        raise AssertionError(f"{what}: a call enqueues {fmt_ops(ops)}")
+
+    # the cached coloring through the kernel's join and through the twins'
+    real = cache._join, cache.join_i32
+    k_col = solver.color_manifolds_cached(man, bodies, cfg, st.colors)
+    cache._join, cache.join_i32 = cache._join_plain, cache.join_i32_plain
+    try:
+        t_col = solver.color_manifolds_cached(man, bodies, cfg, st.colors)
+    finally:
+        cache._join, cache.join_i32 = real
+    from nudge_tpu_torch.state import flatten
+
+    k_leaves, t_leaves = flatten(k_col)[0], flatten(t_col)[0]
+    if len(k_leaves) != len(t_leaves) or not all(
+            torch.equal(a, b) for a, b in zip(k_leaves, t_leaves)):
+        raise AssertionError(f"{what}: the cached coloring through the "
+                             "kernel's join differs from the twins'")
+
+    ms = timed(kernel)
+    plain_ms = timed(lambda: twin(joined), 3, 1)
+    dev_ms = timing.device_ms(kernel, DEVICE_REPS)
+    live_c = int(c.valid.sum())
+    rec = dict(max_abs_err=0, ms=ms, plain_ms=plain_ms, device_ms=dev_ms,
+               hits=hits, points=points, probes=counts["cache_probes"],
+               **bound(28 * live_c + 12 * points + 16 * m * p, 0))
+    log(card, f"{what}: bitwise equal, {SOLVE_REPEATS} calls equal, "
+        f"{fmt_ops(ops)} a call; {live_c} live cache rows, {points} live "
+        f"points, {hits} hits, {counts['cache_probes']} probes "
+        f"({counts['cache_probes'] / max(points, 1):.4f} a point); cached "
+        f"coloring through it equal to the twins'; kernel {ms:.4f} ms a "
+        f"call (device {dev_ms:.4f} ms), twin {plain_ms:.3f} ms; bound "
+        f"{rec['bound_ms']:.5f} ms ({rec['bound_by']})")
+    return rec
+
+
 def step_inputs(st, cfg):
     """What a step from `st` hands setup and the solve (every body awake):
     (bodies after gravity, manifolds, warm starts, pseudo warm starts, the
@@ -1077,6 +1177,7 @@ def phase_compare(card, dev):
         rec = compare_coloring_cached(card, label, man, dyn, start, mc)
         if mc == cfg.max_colors:
             records["coloring_cached"] = rec
+    records["join"] = compare_join(card, label, st, inputs, cfg)
     return records, st
 
 
@@ -1750,6 +1851,7 @@ def profile_now(card, label, st, cfg, steps, sim):
     ours = {"box_box": ("box_box_kernel",), "pairs_1pt": ("pairs_1pt_kernel",),
             "coloring": ("color_kernel",),
             "coloring_cached": ("color_kernel",), "solve": ("solve_kernel",),
+            "join": ("join_insert_kernel", "join_probe_kernel"),
             "setup": ("setup_kernel", "warm_apply_kernel")}
     before = {k: fn.launches for k, fn in counters().items()}
     with profile(activities=[ProfilerActivity.CPU,
@@ -2100,6 +2202,7 @@ def config5_layout(card, dev, spc, steps, keep=None):
                                       start, mc)
         if mc == cfg.max_colors:
             records["coloring_cached"] = rec
+    records["join"] = compare_join(card, where, st0, inputs, cfg)
     profile_steps(card, where, st0, cfg, steps=1)
     return launches, records
 
@@ -2222,9 +2325,11 @@ def phase_batch_api_envs(card, dev):
         ref, _ = engine.step(st, cfg)
     with KernelsOnly() as run:
         bodies, cache = api_step(st, cfg)
-    # the fresh coloring's kernel, so none of the cached one's
+    # the fresh coloring's kernel, so none of the cached one's (and of the
+    # cache's joins only the warm start's)
     if run.launches != {"box_box": 1, "pairs_1pt": 1, "coloring": 1,
-                        "coloring_cached": 0, "setup": 1, "solve": 1}:
+                        "coloring_cached": 0, "join": 1, "setup": 1,
+                        "solve": 1}:
         raise AssertionError(f"API step: launches {run.launches}, not one of "
                              "each kernel that the fresh-coloring step runs")
     err = max(float((bodies.pos - ref.bodies.pos).abs().max()),

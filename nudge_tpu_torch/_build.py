@@ -55,6 +55,10 @@ _SIGNATURES = {
     "nudge_if_begin": [_P] * 4,
     "nudge_if_end": [_P],
     "nudge_stamp": [_P, _P] + [_I] * 4 + [_P],
+    "nudge_join3": [_P] * 4 + [_I] + [_P] * 4 + [_I] * 2 + [_P] + [_I] * 2
+                   + [_P, _P, _I] * 2 + [_P] * 2 + [_P],
+    "nudge_join1": [_P] * 2 + [_I] + [_P] * 2 + [_I] + [_P] + [_I] * 2
+                   + [_P, _P, _I] * 2 + [_P] * 2 + [_P],
 }
 
 

@@ -25,7 +25,7 @@ from nudge_tpu_torch.ops import broadphase, cache, contacts, integrate
 from nudge_tpu_torch.ops import narrowphase, narrowphase_1pt, narrowphase_kernel
 from nudge_tpu_torch.ops import segment, setup_kernel, solver, solver_kernel
 from nudge_tpu_torch.ops.broadphase import CandidatePairs
-from nudge_tpu_torch.state import flatten
+from nudge_tpu_torch.state import ContactCache, flatten
 
 f64 = torch.float64
 
@@ -855,3 +855,97 @@ def test_solve_mass_backward_kernel_matches_plain(cuda, case):
             name, float((x.double() - z).abs().max()), big)
     static = (con.im_a == 0.0) & con.valid
     assert float(qf["im_a"][static].abs().max()) > 0.0
+
+
+def _read_twin(c, man_keys, impulse, pseudo, p):
+    """read_cached_impulses as its CPU route computes it (the twin's
+    sort-merge join on the joined payload), on the card's tensors."""
+    ga, gb, feat, pv = man_keys
+    m = ga.shape[0]
+    out = cache._join_plain(c[0], c[1], c[2],
+                            torch.cat([impulse, pseudo[:, None]], -1), c[3],
+                            ga[:, None].expand(m, p).reshape(-1),
+                            gb[:, None].expand(m, p).reshape(-1),
+                            feat.reshape(-1), pv.reshape(-1))
+    return out[:, 0:3].reshape(m, p, 3), out[:, 3].reshape(m, p)
+
+
+@pytest.mark.gpu
+def test_join_backward_matches_twin(cuda):
+    """The gradient through the card's join into the cache payload (each
+    cache row's adjoint gathered from the current row the kernel records
+    it went to) is autograd of the twin's sort-merge join bit for bit, at the
+    pile's 245,760 rows: repeated keys on both sides, cache row 0 matched
+    by the first point, whose output adjoint is -0.0, and a miss beside
+    it; through `_join` and through `read_cached_impulses`."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    m, p = 61_440, 4
+    n = m * p
+    i32 = torch.int32
+    c_ga = torch.randperm(n, generator=gen, device=cuda).to(i32)
+    c_gb = torch.randint(0, 4, (n,), generator=gen, device=cuda, dtype=i32)
+    c_ft = torch.randint(0, 4, (n,), generator=gen, device=cuda, dtype=i32)
+    c_ga[100:150] = c_ga[150:200]            # repeated cache keys
+    c_gb[100:150] = c_gb[150:200]
+    c_ft[100:150] = c_ft[150:200]
+    c_valid = torch.rand(n, generator=gen, device=cuda) < 0.8
+    c_valid[0] = True
+    perm = torch.randperm(n, generator=gen, device=cuda)
+    perm[perm == 0] = perm[0].clone()
+    perm[0] = 0                              # point 0 reads cache row 0
+    miss = torch.rand(n, generator=gen, device=cuda) < 0.2
+    miss[0], miss[1] = False, True           # and point 1 misses
+    k_ga = torch.where(miss, c_ga[perm] + n, c_ga[perm])
+    k_gb, k_ft = c_gb[perm].clone(), c_ft[perm].clone()
+    k_ga[2:60], k_gb[2:60], k_ft[2:60] = k_ga[60:118], k_gb[60:118], \
+        k_ft[60:118]                         # repeated current keys
+    k_valid = torch.rand(n, generator=gen, device=cuda) < 0.8
+    k_valid[:2] = True
+    c = (c_ga, c_gb, c_ft, c_valid)
+    k = (k_ga, k_gb, k_ft, k_valid)
+
+    def grads(fn, payload, g):
+        leaf = payload.detach().requires_grad_()
+        return torch.autograd.grad(fn(leaf), leaf, g)[0]
+
+    payload = torch.randn((n, 4), generator=gen, device=cuda)
+    g = torch.randn((n, 4), generator=gen, device=cuda)
+    g[0] = -0.0
+    g[::9, 1] = -0.0
+    kg = grads(lambda x: cache._join(*c[:3], x, c[3], *k), payload, g)
+    tg = grads(lambda x: cache._join_plain(*c[:3], x, c[3], *k), payload, g)
+    assert cache.hash_join.launches > 0
+    assert torch.equal(kg.view(i32), tg.view(i32))
+    assert bool((tg[0] == 0.0).all()) and bool((tg != 0.0).any())
+
+    # read_cached_impulses: the manifolds' pairs once a manifold, two
+    # payloads (impulse, pseudo) gathered apart
+    man_ga, man_gb = c_ga[:m].clone(), c_gb[:m].clone()
+    man_ft = torch.randint(0, 4, (m, p), generator=gen, device=cuda,
+                           dtype=i32)
+    pv = torch.rand((m, p), generator=gen, device=cuda) < 0.7
+    pv[0, 0] = True
+    c_ft[0] = man_ft[0, 0]                   # point (0, 0) reads cache row 0
+    man = contacts.Manifolds(body_a=man_ga, body_b=man_gb, ga=man_ga, gb=man_gb,
+                    normal=None, friction=None, pos=None, depth=None,
+                    feat=man_ft, point_valid=pv, valid=pv.any(1),
+                    count=None, overflow=None)
+    imp = torch.randn((n, 3), generator=gen, device=cuda)
+    pse = torch.rand(n, generator=gen, device=cuda)
+    gi = torch.randn((m, p, 3), generator=gen, device=cuda)
+    gp = torch.randn((m, p), generator=gen, device=cuda)
+    gi[0, 0], gp[0, 0] = -0.0, -0.0
+
+    def read(fn):
+        leaves = [imp.clone().requires_grad_(), pse.clone().requires_grad_()]
+        outs = fn(*leaves)
+        return torch.autograd.grad(outs, leaves, [gi, gp])
+
+    kr = read(lambda i, s: cache.read_cached_impulses(
+        ContactCache(ga=c_ga, gb=c_gb, feat=c_ft, impulse=i, pseudo=s,
+                     valid=c_valid), man))
+    tr = read(lambda i, s: _read_twin(c, (man_ga, man_gb, man_ft, pv), i, s,
+                                      p))
+    for x, y in zip(kr, tr):
+        assert torch.equal(x.view(i32), y.view(i32))
+    assert bool((tr[0][0] == 0.0).all()) and bool((tr[0] != 0.0).any())

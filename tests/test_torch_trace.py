@@ -29,8 +29,10 @@ COUNTS = {"pairs", "manifolds", "points", "bodies", "colors"}
 # the broadphase's rebuild decision and sleeping's net flag changes
 REF_STAGES = STAGES + ["sleep"]
 REF_COUNTS = COUNTS | {"rebuilt", "fell_asleep", "woke"}
-# on the card the cached coloring's kernel also counts the rounds it ran
-CARD_COUNTS = COUNTS | {"claim_rounds"}
+# on the card the cached coloring's kernel also counts the rounds it ran,
+# and the cache join its hits and the cache-table slots it read
+KERNEL_COUNTS = {"claim_rounds", "cache_hits", "cache_probes"}
+CARD_COUNTS = COUNTS | KERNEL_COUNTS
 
 
 @pytest.fixture(autouse=True)
@@ -447,7 +449,7 @@ def test_reference_mode_graph_counts_equal_the_eager_step_counts():
     assert [n for n, _ in r.stamps] == ["start"] + REF_STAGES + ["tail"]
     assert all(t is not None for _, t in r.stamps)
     assert r.counts == eager.counts
-    assert set(r.counts) == REF_COUNTS | {"claim_rounds"}
+    assert set(r.counts) == REF_COUNTS | KERNEL_COUNTS
 
 
 @pytest.mark.gpu
